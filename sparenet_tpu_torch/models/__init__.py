@@ -1,0 +1,69 @@
+"""Entry points: build the flagship SpareNet generator and complete clouds.
+
+Both run on the card unless the caller asks for the CPU: with no ``device``
+they use ``cuda`` and raise where there is none. On the CPU every op runs its
+plain PyTorch version (the tests use this); on the card every op launches its
+CUDA kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import init_weights
+from .sparenet import (SpareNetDecode, SpareNetEncode, SpareNetGenerator,
+                       SpareNetRefine)
+
+__all__ = ["FLAGSHIP", "N_INPUT_POINTS", "build_generator", "complete",
+           "resolve_device", "set_parity_mode", "SpareNetGenerator",
+           "SpareNetEncode", "SpareNetDecode", "SpareNetRefine"]
+
+# The flagship configuration: sparenet_tpu/configs/sparenet.yaml (NETWORK:
+# n_primitives 32, encode Residualnet, use_adain share, use_selayer true;
+# DATASET.n_outpoints 16384; CONST.n_input_points 3000) with the widths that
+# define_G fixes (bottleneck_size = hide_size = 4096).
+FLAGSHIP = dict(num_points=16384, n_primitives=32, bottleneck_size=4096,
+                hide_size=4096, use_selayer=True, use_adain="share",
+                encode="Residualnet")
+N_INPUT_POINTS = 3000
+
+
+def set_parity_mode() -> None:
+    """Parity mode: float32 everywhere, TF32 off for matmuls and cuDNN
+    (the reference's parity contract is stated in fp32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; raise if it is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def build_generator(*, seed: int = 0, device=None, **config) -> SpareNetGenerator:
+    """The flagship generator (``FLAGSHIP``, overridable by keyword) in eval
+    mode on ``device``, with the reference's initialisation drawn on the CPU
+    from ``torch.Generator().manual_seed(seed)``."""
+    dev = resolve_device(device)
+    set_parity_mode()
+    model = SpareNetGenerator(**{**FLAGSHIP, **config})
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+@torch.no_grad()
+def complete(model: SpareNetGenerator, partial: torch.Tensor):
+    """Eval forward on the model's device: partial [B, N_in, 3] ->
+    (coarse, middle, refine [B, num_points, 3], loss_mst)."""
+    set_parity_mode()
+    dev = next(model.parameters()).device
+    resolve_device(dev)
+    if partial.dim() != 3 or partial.shape[-1] != 3:
+        raise ValueError(f"partial must be [B, N, 3], got {tuple(partial.shape)}")
+    x = partial.to(device=dev, dtype=torch.float32).contiguous()
+    return model.eval()(x)

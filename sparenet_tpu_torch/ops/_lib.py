@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels.
+
+All sources in ``sparenet_tpu_torch/csrc/*.cu`` are compiled by ONE ``nvcc``
+call into one shared library with a plain C interface, loaded with ctypes.
+That takes seconds; a build through ``torch.utils.cpp_extension.load``,
+whose sources include PyTorch's headers, takes minutes. The library is
+built at first use into ``sparenet_tpu_torch/_build/`` (listed in
+.gitignore), under a name that hashes the sources, so an edited source is
+never served by a stale build. The compiler writes to a temporary name that
+is renamed into place, so concurrent builds need no lock file.
+
+Every wrapper in ``sparenet_tpu_torch.ops`` counts its kernel launches in
+``LAUNCHES`` and the calls of its plain PyTorch version in ``PLAIN_CALLS``;
+a run can show with them which path it took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "BUILD_INFO", "reset_counts", "build",
+           "lib", "check", "stream_of", "nvcc_command"]
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_TIMEOUT_S = 600
+
+LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0}
+PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+# filled by build(): the command, its seconds and the compiler's -Xptxas -v
+# report (registers, shared memory and spills of every kernel)
+BUILD_INFO: dict = {}
+
+_LIB = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: (argtypes, restype)
+    "spn_error_string": ((_I,), ctypes.c_char_p),
+    "spn_knn": ((_P, _P, _I, _I, _I, _I, _P, _P), _I),
+    "spn_gather_rows_per_block": ((), _I),
+    "spn_gather_max": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
+    "spn_expansion": ((_P, _I, _I, _P, _P, _P, _P), _I),
+    "spn_mds_max_points": ((), _I),
+    "spn_mds": ((_P, _P, _I, _I, _I, _P, _P), _I),
+}
+
+
+def reset_counts() -> None:
+    """Set every launch and plain-call count to 0."""
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ[v], "bin", "nvcc")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels cannot be built")
+
+
+def nvcc_command(output: Path) -> list[str]:
+    """The single nvcc call that builds every kernel into ``output``."""
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(output),
+            *map(str, _sources())]
+
+
+def build() -> Path:
+    """Compile the kernels if this source set has no library yet; returns
+    the library's path. Raises if nvcc is missing or fails."""
+    path = BUILD_DIR / f"libsparenet_kernels_{_digest()}.so"
+    if path.exists():
+        BUILD_INFO.setdefault("path", str(path))
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = nvcc_command(tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=NVCC_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}{proc.stderr[-6000:]}")
+    os.replace(tmp, path)
+    BUILD_INFO.update(path=str(path), seconds=seconds, command=cmd,
+                      ptxas=proc.stderr)
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        so = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _LIB = so
+    return _LIB
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib().spn_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

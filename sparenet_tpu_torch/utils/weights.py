@@ -1,0 +1,147 @@
+"""JAX-package weights -> the port's state_dict (counterpart of
+sparenet_tpu/utils/torch_import.py: _to_torch, netG_rules, export_netG_state_dict).
+
+``state_dict_from_jax(variables)`` takes the JAX package's SpareNetGenerator
+variables as a nested dict of numpy arrays (``{"params": ..., "batch_stats":
+...}``) and returns a state_dict in the original reference's net_G layout,
+which the port's ``SpareNetGenerator.load_state_dict(strict=True)`` takes
+whole. The rule table is this module's own copy, for the ported
+configuration (``use_adain="share"``, ``encode="Residualnet"``).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["netG_rules", "state_dict_from_jax"]
+
+_DEC_BOTTLENECK = 1026
+
+
+def _to_torch(kind: str, v: np.ndarray) -> np.ndarray:
+    """flax Dense kernel [in, out] -> torch weight layouts."""
+    if kind == "lin_w":
+        return v.T
+    if kind == "conv1d_w":
+        return v.T[:, :, None]
+    if kind == "conv2d_w":
+        return v.T[:, :, None, None]
+    return v  # "id"
+
+
+class _Rules:
+    """(collection, flax path, torch key template, kind, stacked) entries;
+    ``{p}`` in a template is the primitive index."""
+
+    def __init__(self):
+        self.entries: list[tuple[str, tuple[str, ...], str, str, bool]] = []
+
+    def add(self, col, fpath, tkey, kind, stacked=False):
+        self.entries.append((col, tuple(fpath), tkey, kind, stacked))
+
+    def dense(self, fpath, tkey, stacked=False, bias=True, kind="lin_w"):
+        self.add("params", fpath + ("kernel",), tkey + ".weight", kind, stacked)
+        if bias:
+            self.add("params", fpath + ("bias",), tkey + ".bias", "id", stacked)
+
+    def bn(self, fpath, tkey, stacked=False):
+        self.add("params", fpath + ("scale",), tkey + ".weight", "id", stacked)
+        self.add("params", fpath + ("bias",), tkey + ".bias", "id", stacked)
+        self.add("batch_stats", fpath + ("mean",), tkey + ".running_mean",
+                 "id", stacked)
+        self.add("batch_stats", fpath + ("var",), tkey + ".running_var",
+                 "id", stacked)
+
+    def se(self, fpath, tkey, stacked=False):
+        self.dense(fpath + ("Linear_0",), tkey + ".fc.0", stacked, bias=False)
+        self.dense(fpath + ("Linear_1",), tkey + ".fc.2", stacked, bias=False)
+
+
+def netG_rules(use_selayer: bool = True) -> _Rules:
+    """The SpareNetGenerator key mapping (share / Residualnet)."""
+    r = _Rules()
+    f = ("encoder", "EdgeConvResFeat_0")
+    t = "encoder.feat_extractor"
+    for i in range(4):
+        r.dense(f + (f"EdgeConv1x1_{i}",), f"{t}.conv{i + 1}", bias=False,
+                kind="conv2d_w")
+        r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
+        if use_selayer:
+            r.se(f + (f"SELayer_{i}",), f"{t}.se{i + 1}")
+    for i in range(3):
+        r.dense(f + (f"Conv1d_{i}",), f"{t}.resconv{i + 1}", bias=False,
+                kind="conv1d_w")
+    r.dense(f + ("Conv1d_3",), f"{t}.conv5", bias=False, kind="conv1d_w")
+    r.bn(f + ("BatchNorm_4",), f"{t}.bn5")
+    r.dense(("encoder", "Linear_0"), "encoder.linear")
+    r.bn(("encoder", "BatchNorm_0"), "encoder.bn")
+
+    r.dense(("decoder", "Linear_0"), "decoder.mlp.0")
+    r.dense(("decoder", "Linear_1"), "decoder.mlp.2")
+    froot, troot = ("decoder", "VmapGridDecoder_0"), "decoder.decoder.{p}.dec"
+    for i in range(4):
+        r.dense(froot + (f"Conv1d_{i}",), f"{troot}.conv{i + 1}", True,
+                kind="conv1d_w")
+    for i in range(3):
+        r.bn(froot + (f"BatchNorm_{i}",), f"{troot}.bn{i + 1}", True)
+        if use_selayer:
+            r.se(froot + (f"SELayer_{i}",), f"{troot}.se{i + 1}", True)
+
+    froot, troot = ("refine", "PointNetRes_0"), "refine.residual"
+    for i in range(7):
+        r.dense(froot + (f"Conv1d_{i}",), f"{troot}.conv{i + 1}",
+                kind="conv1d_w")
+    for i in range(6):
+        r.bn(froot + (f"BatchNorm_{i}",), f"{troot}.bn{i + 1}")
+    if use_selayer:
+        for j, i in enumerate((1, 2, 4, 5, 6)):  # PointNetRes has no se3
+            r.se(froot + (f"SELayer_{j}",), f"{troot}.se{i}")
+    return r
+
+
+def _get(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
+                        n_primitives: int = 32) -> dict[str, torch.Tensor]:
+    """JAX SpareNetGenerator variables -> reference-layout state_dict of
+    CPU float32 tensors, including the reference's registered-but-unused
+    tensors at their defaults (top-level conv1, refine.residual.bn7, the
+    AdaIN dummy running stats, every BatchNorm's num_batches_tracked)."""
+    sd: dict[str, np.ndarray] = {}
+    bn_prefixes: list[str] = []
+    for col, fpath, tkey, kind, stacked in netG_rules(use_selayer).entries:
+        v = np.asarray(_get(variables[col], fpath), np.float32)
+        if stacked:
+            for p in range(n_primitives):
+                sd[tkey.format(p=p)] = _to_torch(kind, v[p])
+        else:
+            sd[tkey] = _to_torch(kind, v)
+        if tkey.endswith(".running_var"):
+            bn_prefixes.append(tkey[: -len(".running_var")])
+
+    def dummy_bn(prefix: str, nf: int, affine: bool = True):
+        if affine:
+            sd[f"{prefix}.weight"] = np.ones(nf, np.float32)
+            sd[f"{prefix}.bias"] = np.zeros(nf, np.float32)
+        sd[f"{prefix}.running_mean"] = np.zeros(nf, np.float32)
+        sd[f"{prefix}.running_var"] = np.ones(nf, np.float32)
+
+    sd["conv1.weight"] = np.zeros((64, 3, 1), np.float32)
+    sd["conv1.bias"] = np.zeros(64, np.float32)
+    dummy_bn("refine.residual.bn7", 3)
+    bn_prefixes.append("refine.residual.bn7")
+    b = _DEC_BOTTLENECK
+    for p in range(n_primitives):
+        for i, nf in enumerate((b, b // 2, b // 4)):
+            dummy_bn(f"decoder.decoder.{p}.dec.adain{i + 1}", nf, affine=False)
+    for prefix in bn_prefixes:
+        for key in {prefix.format(p=p) for p in range(n_primitives)}:
+            sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
