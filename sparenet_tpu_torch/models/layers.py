@@ -1,5 +1,5 @@
-"""Model building blocks, eval mode, channel-last (counterpart of
-sparenet_tpu/models/layers.py).
+"""Model building blocks, channel-last (counterpart of
+sparenet_tpu/models/layers.py), in eval and train mode (``module.training``).
 
 Point features are [B, N, C], as in the JAX package. Every layer keeps the
 parameter names and shapes of the original reference's torch modules
@@ -11,6 +11,11 @@ over the channel axis, never as cuDNN convolutions.
 The 32 per-primitive folding decoders are one ``GridDecoderStack`` with
 stacked weights [P, out, in] and batched products; a load hook stacks the
 reference's per-primitive keys.
+
+Train-mode BatchNorm follows the JAX package (flax), not ``nn.BatchNorm``'s
+own training update: statistics over every axis but the channel, the
+variance biased and computed as max(mean(x^2) - mean(x)^2, 0), and the
+running update 0.9 * running + 0.1 * statistic with that biased variance.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import gather, knn
+from ..ops import edge_gather, gather, knn
 
 __all__ = [
-    "conv1x1", "bn_eval", "bn_affine", "SELayer", "EdgeConvResFeat",
+    "conv1x1", "bn_eval", "bn_affine", "bn_apply", "bn_train_stats",
+    "external_stats_affine", "SELayer", "EdgeConvResFeat",
     "adaptive_instance_norm", "grid_decoder_adain_sizes", "num_adain_params",
     "split_adain_params", "StackedLinear", "StackedBatchNorm", "StackedSE",
     "GridDecoderStack", "PointNetRes", "grid_generation", "init_weights",
@@ -48,6 +54,46 @@ def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tenso
     (x - mean) * (rsqrt(var + eps) * scale) + bias."""
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     return (x - bn.running_mean) * mul + bn.bias
+
+
+_MOMENTUM = 0.9  # flax's EMA decay (torch momentum 0.1)
+
+
+def bn_train_stats(x: torch.Tensor, dims):
+    """flax's batch statistics (use_fast_variance): mean and the biased
+    variance max(mean(x^2) - mean(x)^2, 0) over ``dims``."""
+    mean = x.mean(dims)
+    var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+    return mean, var
+
+
+@torch.no_grad()
+def update_running(running_mean: torch.Tensor, running_var: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor) -> None:
+    """running <- 0.9 * running + 0.1 * statistic, in place (flax's EMA)."""
+    running_mean.copy_(_MOMENTUM * running_mean + (1.0 - _MOMENTUM) * mean)
+    running_var.copy_(_MOMENTUM * running_var + (1.0 - _MOMENTUM) * var)
+
+
+def bn_apply(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over the last axis of x: eval mode as ``bn_eval``; in train
+    mode normalise by the batch statistics over every other axis and update
+    the running statistics (see the module docstring)."""
+    if not bn.training:
+        return bn_eval(bn, x)
+    mean, var = bn_train_stats(x, tuple(range(x.dim() - 1)))
+    update_running(bn.running_mean, bn.running_var, mean, var)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+
+
+def external_stats_affine(bn: nn.modules.batchnorm._BatchNorm,
+                          mean: torch.Tensor, var: torch.Tensor):
+    """Train-mode BatchNorm from statistics computed elsewhere (reference:
+    _ExternalStatsBN): updates the running statistics with them and returns
+    the per-channel affine (a, b0) of the normalisation, y = a * x + b0."""
+    update_running(bn.running_mean, bn.running_var, mean, var)
+    a = bn.weight * torch.rsqrt(var + bn.eps)
+    return a, bn.bias - mean * a
 
 
 def bn_affine(bn: nn.modules.batchnorm._BatchNorm):
@@ -83,7 +129,7 @@ class SELayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 class EdgeConvResFeat(nn.Module):
-    """Channel-attentive EdgeConv encoder, eval commute path.
+    """Channel-attentive EdgeConv encoder, commute paths (eval and train).
 
     x [B, N, 3] -> [B, output_size]: four EdgeConv stages over kNN graphs
     (k=8) in feature space, 1x1 residual shortcuts, concat of the four
@@ -94,6 +140,13 @@ class EdgeConvResFeat(nn.Module):
         max_j bn(g1[idx_j] - g1 + g2) = max_j (a*g1)[idx_j] + a*(g2 - g1) + b0
     so only one C-wide neighbour gather + max runs (the gather-max kernel),
     and the SE squeeze is the mean over all edges (its need_sum output).
+
+    In train mode each stage is the reference's train commute on its kernel
+    arm (layers.py, EdgeConvResFeat.stage): the batch statistics of the edge
+    tensor e = g1[idx] + diff follow in closed form from the per-point max,
+    min, sum and sum of squares of the gathered g1 rows (the edge-stats
+    kernels), BatchNorm becomes the affine (a, b0) of those statistics, and
+    max_j a * g1[idx_j] = a >= 0 ? a * max : a * min.
     """
 
     def __init__(self, k: int = 8, hide_size: int = 4096,
@@ -116,6 +169,8 @@ class EdgeConvResFeat(nn.Module):
         self.bn5 = nn.BatchNorm1d(output_size // 2)
 
     def _stage(self, feat: torch.Tensor, i: int) -> torch.Tensor:
+        if self.training:
+            return self._train_stage(feat, i)
         nbr = knn.knn_idx(feat, self.k)                        # [B, N, k]
         c = feat.shape[-1]
         w = getattr(self, f"conv{i}").weight.reshape(-1, 2 * c)
@@ -132,13 +187,36 @@ class EdgeConvResFeat(nn.Module):
         z = getattr(self, f"se{i}")(m + a * diff + b0, mean=z_mean)
         return F.leaky_relu(z, 0.2)
 
+    def _train_stage(self, feat: torch.Tensor, i: int) -> torch.Tensor:
+        nbr = knn.knn_idx(feat, self.k)                        # [B, N, k]
+        b, n, c = feat.shape
+        k = self.k
+        w = getattr(self, f"conv{i}").weight.reshape(-1, 2 * c)
+        g1 = F.linear(feat, w[:, :c])
+        diff = F.linear(feat, w[:, c:]) - g1
+        mx, mn, s1, s2 = edge_gather.edge_gather_stats(g1, nbr)
+        sum_g_b = s1.sum(1)                                    # [B, C]
+        sum_g2 = s2.sum((0, 1))
+        sum_d_b = diff.sum(1)
+        cnt = b * n * k
+        mean = (sum_g_b.sum(0) + k * sum_d_b.sum(0)) / cnt
+        mean2 = (sum_g2 + 2.0 * (diff * s1).sum((0, 1))
+                 + k * (diff * diff).sum((0, 1))) / cnt
+        a, b0 = external_stats_affine(getattr(self, f"bn{i}"), mean,
+                                      mean2 - mean * mean)
+        z = torch.where(a >= 0, a * mx, a * mn) + a * diff + b0
+        if self.use_selayer:
+            mean_e_b = (sum_g_b + k * sum_d_b) / (n * k)
+            z = getattr(self, f"se{i}")(z, mean=a * mean_e_b + b0)
+        return F.leaky_relu(z, 0.2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x1 = self._stage(x, 1)
         x2 = self._stage(x1, 2) + conv1x1(self.resconv1, x1)
         x3 = self._stage(x2, 3) + conv1x1(self.resconv2, x2)
         x4 = self._stage(x3, 4) + conv1x1(self.resconv3, x3)
         xc = torch.cat([x1, x2, x3, x4], dim=-1)
-        xc = F.leaky_relu(bn_eval(self.bn5, conv1x1(self.conv5, xc)), 0.2)
+        xc = F.leaky_relu(bn_apply(self.bn5, conv1x1(self.conv5, xc)), 0.2)
         return torch.cat([xc.amax(1), xc.mean(1)], dim=-1)
 
 
@@ -206,7 +284,8 @@ class StackedLinear(nn.Module):
 
 
 class StackedBatchNorm(nn.Module):
-    """P BatchNorm1d's in eval mode over x [P, ..., C]."""
+    """P BatchNorm1d's over x [P, ..., C]; in train mode each normalises by
+    its own batch statistics (over every axis but P and C)."""
 
     def __init__(self, p: int, c: int, eps: float = 1e-5):
         super().__init__()
@@ -218,6 +297,12 @@ class StackedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        if self.training:
+            mean, var = bn_train_stats(x, tuple(range(1, x.dim() - 1)))
+            update_running(self.running_mean, self.running_var, mean, var)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            return ((x - mean.reshape(shape)) * mul.reshape(shape)
+                    + self.bias.reshape(shape))
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return ((x - self.running_mean.reshape(shape)) * mul.reshape(shape)
                 + self.bias.reshape(shape))
@@ -327,7 +412,7 @@ class PointNetRes(nn.Module):
                 setattr(self, f"se{i}", SELayer(ch[i]))
 
     def _block(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        x = bn_eval(getattr(self, f"bn{i}"), conv1x1(getattr(self, f"conv{i}"), x))
+        x = bn_apply(getattr(self, f"bn{i}"), conv1x1(getattr(self, f"conv{i}"), x))
         if self.use_selayer:
             x = getattr(self, f"se{i}")(x)
         return F.relu(x)
@@ -336,7 +421,7 @@ class PointNetRes(nn.Module):
         x = self._block(x, 1)
         pointfeat = x
         x = self._block(x, 2)
-        x = bn_eval(self.bn3, conv1x1(self.conv3, x))
+        x = bn_apply(self.bn3, conv1x1(self.conv3, x))
         g = x.amax(1, keepdim=True).expand(-1, x.shape[1], -1)
         x = torch.cat([g, pointfeat], dim=-1)
         for i in (4, 5, 6):

@@ -1,5 +1,5 @@
-"""SpareNet generator, eval forward (counterpart of
-sparenet_tpu/models/sparenet.py): encode -> decode -> refine twice.
+"""SpareNet generator (counterpart of sparenet_tpu/models/sparenet.py):
+encode -> decode -> refine twice, in eval or train mode (``training``).
 
 Parity mode only, ``use_adain="share"`` and ``encode="Residualnet"``; the
 other decoder and encoder arms wait for a later slice. Clouds are
@@ -16,7 +16,7 @@ from torch import nn
 
 from ..ops import expansion_penalty as _expansion
 from ..ops import mds as _mds
-from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_eval,
+from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_apply,
                      grid_generation, num_adain_params)
 
 __all__ = ["SpareNetEncode", "SpareNetDecode", "SpareNetRefine",
@@ -41,7 +41,7 @@ class SpareNetEncode(nn.Module):
         self.bn = nn.BatchNorm1d(bottleneck_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(bn_eval(self.bn, self.linear(self.feat_extractor(x))))
+        return F.relu(bn_apply(self.bn, self.linear(self.feat_extractor(x))))
 
 
 class SpareNetDecode(nn.Module):
@@ -96,7 +96,9 @@ class SpareNetRefine(nn.Module):
         return picked[..., :3] + self.residual(picked)
 
     def forward(self, coarse: torch.Tensor, partial: torch.Tensor):
-        """coarse [B, N, 3], partial [B, N_in, 3] -> (refined, loss_mst)."""
+        """coarse [B, N, 3], partial [B, N_in, 3] -> (refined, loss_mst).
+        Gradient reaches coarse through the expansion penalty's backward and
+        through the gathered points; the MDS picks carry none."""
         dist, _, mml = _expansion.expansion_penalty(
             coarse, self.primitive_size, _EXPANSION_ALPHA)
         base = flagged_base(coarse, partial)

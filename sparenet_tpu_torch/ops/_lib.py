@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-All sources in ``sparenet_tpu_torch/csrc/*.cu`` are compiled by ONE ``nvcc``
-call into one shared library with a plain C interface, loaded with ctypes.
-That takes seconds; a build through ``torch.utils.cpp_extension.load``,
+All sources in ``sparenet_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``,
+one process per source, all started together, and linked by one more
+``nvcc`` call into one shared library with a plain C interface, loaded with
+ctypes. That takes seconds; a build through ``torch.utils.cpp_extension.load``,
 whose sources include PyTorch's headers, takes minutes. The library is
 built at first use into ``sparenet_tpu_torch/_build/`` (listed in
 .gitignore), under a name that hashes the sources, so an edited source is
-never served by a stale build. The compiler writes to a temporary name that
-is renamed into place, so concurrent builds need no lock file.
+never served by a stale build. Objects go to a directory of the building
+process and the library to a temporary name that is renamed into place, so
+concurrent builds need no lock file.
 
 Every wrapper in ``sparenet_tpu_torch.ops`` counts its kernel launches in
 ``LAUNCHES`` and the calls of its plain PyTorch version in ``PLAIN_CALLS``;
@@ -27,7 +29,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "BUILD_INFO", "reset_counts", "build",
-           "lib", "check", "stream_of", "nvcc_command"]
+           "lib", "check", "stream_of", "compile_command", "nvcc_command"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -35,7 +37,8 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_TIMEOUT_S = 600
 
-LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0}
+LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0, "nn_idx": 0,
+            "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # filled by build(): the command, its seconds and the compiler's -Xptxas -v
 # report (registers, shared memory and spills of every kernel)
@@ -53,6 +56,11 @@ _SIGNATURES = {
     "spn_expansion": ((_P, _I, _I, _P, _P, _P, _P), _I),
     "spn_mds_max_points": ((), _I),
     "spn_mds": ((_P, _P, _I, _I, _I, _P, _P), _I),
+    "spn_nn_idx": ((_P, _P, _I, _I, _I, _P, _P), _I),
+    "spn_emd_bids": ((_P, _P, _P, _I, _I, _I, _P, _P, _P), _I),
+    "spn_edge_stats_max_k": ((), _I),
+    "spn_edge_stats_fwd": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
+    "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
 }
 
 
@@ -88,11 +96,38 @@ def _nvcc() -> str:
         "PATH): the CUDA kernels cannot be built")
 
 
-def nvcc_command(output: Path) -> list[str]:
-    """The single nvcc call that builds every kernel into ``output``."""
-    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(output),
-            *map(str, _sources())]
+def compile_command(source: Path, obj: Path) -> list[str]:
+    """The nvcc call that compiles one source into a relocatable object."""
+    return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(source)]
+
+
+def nvcc_command(output: Path, objects=()) -> list[str]:
+    """The nvcc call that links the objects into the library ``output``."""
+    return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(output),
+            *map(str, objects)]
+
+
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands concurrently; raise if one fails or times out."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    done = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=NVCC_TIMEOUT_S)
+            done.append(subprocess.CompletedProcess(c, p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in done:
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {r.returncode}: "
+                               f"{' '.join(r.args)}\n{r.stdout[-2000:]}"
+                               f"{r.stderr[-6000:]}")
+    return done
 
 
 def build() -> Path:
@@ -102,20 +137,23 @@ def build() -> Path:
     if path.exists():
         BUILD_INFO.setdefault("path", str(path))
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"obj_{_digest()}_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp)
+    objs = [work / f"{src.stem}.o" for src in _sources()]
+    cmds = [compile_command(src, o) for src, o in zip(_sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        compiled = _run_all(cmds)
+        link = nvcc_command(tmp, objs)
+        _run_all([link])
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout[-2000:]}{proc.stderr[-6000:]}")
-    os.replace(tmp, path)
-    BUILD_INFO.update(path=str(path), seconds=seconds, command=cmd,
-                      ptxas=proc.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    BUILD_INFO.update(path=str(path), seconds=time.perf_counter() - t0,
+                      command=[" ".join(c) for c in cmds + [link]],
+                      ptxas="".join(r.stderr for r in compiled))
     return path
 
 

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["graph_dot", "pairwise_sqdist_graph", "sqdist3", "sqrt_ieee",
-           "check_input", "is_cpu"]
+__all__ = ["graph_dot", "pairwise_sqdist_graph", "sqdist3", "sqnorm3",
+           "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu"]
 
 
 def _split_bf16(x: torch.Tensor):
@@ -50,6 +50,31 @@ def sqdist3(d: torch.Tensor) -> torch.Tensor:
     r = dx * dx
     r = (dy.double() * dy.double() + r.double()).float()
     return (dz.double() * dz.double() + r.double()).float()
+
+
+def sqnorm3(d: torch.Tensor) -> torch.Tensor:
+    """Squared length of d [..., 3] as (dx * dx + dy * dy) + dz * dz, each
+    step rounded: how the reference's chamfer and EMD losses round
+    sum(d * d, axis=-1) (its XLA program contracts nothing there)."""
+    dx, dy, dz = d.unbind(-1)
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with one rounding (as CUDA's __fmaf_rn):
+    computed in f64, where the product of two f32 is exact, and rounded to
+    f32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqdist_pairs(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared distances x [B, N, 3] to y [B, M, 3] -> [B, N, M] from
+    coordinate differences, as fma(dz, dz, fma(dx, dx, dy * dy)): the
+    rounding the reference's Pallas chamfer and bid kernels get for
+    dx*dx + dy*dy + dz*dz in interpret mode, and the one the CUDA kernels
+    use."""
+    dx, dy, dz = (x[:, :, None, :] - y[:, None, :, :]).unbind(-1)
+    return fma(dz, dz, fma(dx, dx, dy * dy))
 
 
 def sqrt_ieee(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ Per primitive (a contiguous block of ``primitive_size`` points):
 
 ``mst_charges`` runs steps 1-2 (``csrc/expansion.cu`` on a CUDA tensor,
 ``mst_charges_plain`` on a CPU one); ``expansion_penalty`` adds step 3 in
-plain PyTorch around it. The custom backward waits for the training slice.
+plain PyTorch around it. Its backward is the reference's, quirk included:
+grad xyz[u] = 2 g[u] (xyz[u] - xyz[assignment[u]]) for the charged endpoints
+u only (the squared-distance gradient applied to the unsquared distance);
+mean_mst_length carries no gradient.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ def mst_charges_plain(xyz: torch.Tensor):
 def mst_charges(xyz: torch.Tensor):
     """Prim's MST + leaf-prune charges per primitive: xyz [BP, S, 3] f32 ->
     (parent, cost, charged), each [BP, S]; see csrc/expansion.cu."""
+    xyz = xyz.detach()
     check_input("mst_charges xyz", xyz, torch.float32, 3, last=3)
     bp, s, _ = xyz.shape
     if s < 2:
@@ -105,9 +109,7 @@ def mst_charges(xyz: torch.Tensor):
     return parent, cost, charged
 
 
-def expansion_penalty(xyz: torch.Tensor, primitive_size: int, alpha: float):
-    """xyz [B, N, 3] with N % primitive_size == 0 ->
-    (dist [B, N] f32, assignment [B, N] int32, mean_mst_length [B])."""
+def _penalty(xyz: torch.Tensor, primitive_size: int, alpha: float):
     b, n, _ = xyz.shape
     s = primitive_size
     if n % s:
@@ -131,3 +133,26 @@ def expansion_penalty(xyz: torch.Tensor, primitive_size: int, alpha: float):
     mean_mst_length = mean_dis.reshape(b, n_prim).mean(-1)
     return (dist.reshape(b, n), assignment.to(torch.int32).reshape(b, n),
             mean_mst_length)
+
+
+class _ExpansionPenalty(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz, primitive_size, alpha):
+        dist, assignment, mml = _penalty(xyz, primitive_size, alpha)
+        ctx.save_for_backward(xyz, assignment)
+        ctx.mark_non_differentiable(assignment, mml)
+        return dist, assignment, mml
+
+    @staticmethod
+    def backward(ctx, g_dist, _ga, _gm):
+        xyz, assignment = ctx.saved_tensors
+        a = assignment.long()
+        nb = torch.gather(xyz, 1, a.clamp_min(0)[..., None].expand(-1, -1, 3))
+        g = torch.where(a >= 0, g_dist * 2.0, 0.0)
+        return g[..., None] * (xyz - nb), None, None
+
+
+def expansion_penalty(xyz: torch.Tensor, primitive_size: int, alpha: float):
+    """xyz [B, N, 3] with N % primitive_size == 0 ->
+    (dist [B, N] f32, assignment [B, N] int32, mean_mst_length [B])."""
+    return _ExpansionPenalty.apply(xyz, primitive_size, alpha)

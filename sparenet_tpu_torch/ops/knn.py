@@ -35,7 +35,8 @@ def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def knn_idx(x: torch.Tensor, k: int = 8) -> torch.Tensor:
-    """Self-kNN indices x [B, N, C] -> [B, N, k] int32."""
+    """Self-kNN indices x [B, N, C] -> [B, N, k] int32 (no gradient)."""
+    x = x.detach()
     check_input("knn_idx x", x, torch.float32, 3)
     if x.shape[1] < k:
         raise ValueError(f"knn_idx: need N >= k, got N={x.shape[1]}, k={k}")

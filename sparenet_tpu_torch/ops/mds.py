@@ -60,7 +60,8 @@ def mds_plain(xyz: torch.Tensor, npoint: int,
 
 def minimum_density_sample(xyz: torch.Tensor, npoint: int,
                            mean_mst_length: torch.Tensor) -> torch.Tensor:
-    """Greedy MDS indices; see the module docstring."""
+    """Greedy MDS indices; see the module docstring (no gradient)."""
+    xyz, mean_mst_length = xyz.detach(), mean_mst_length.detach()
     check_input("minimum_density_sample xyz", xyz, torch.float32, 3, last=3)
     b, n, _ = xyz.shape
     if mean_mst_length.shape != (b,) or mean_mst_length.device != xyz.device:

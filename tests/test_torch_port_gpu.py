@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from sparenet_tpu_torch import models
-from sparenet_tpu_torch.ops import _lib, expansion_penalty, gather, knn, mds
+from sparenet_tpu_torch.ops import (_lib, chamfer, edge_gather, emd,
+                                    expansion_penalty, gather, knn, mds)
 from sparenet_tpu_torch.ops.common import pairwise_sqdist_graph
+from sparenet_tpu_torch.runners import base, sparenet
 
 pytestmark = pytest.mark.gpu
 
@@ -96,7 +98,90 @@ def test_forward_launches_every_kernel(cuda):
     _lib.reset_counts()
     outs = models.complete(model, partial)
     torch.cuda.synchronize()
-    assert _lib.LAUNCHES == {"knn": 4, "gather_max": 4, "expansion": 2, "mds": 2}
+    assert _lib.LAUNCHES == {**dict.fromkeys(_lib.LAUNCHES, 0), "knn": 4,
+                             "gather_max": 4, "expansion": 2, "mds": 2}
     assert set(_lib.PLAIN_CALLS.values()) == {0}
     for o in outs[:3]:
         assert o.shape == (2, 1024, 3) and bool(torch.isfinite(o).all())
+
+
+def _dup_cloud(b, n, g):
+    """A cloud in which every point appears twice (exact ties)."""
+    half = torch.rand(b, n // 2, 3, generator=g) - 0.5
+    return torch.cat([half, half.flip(1)], 1)
+
+
+@pytest.mark.parametrize("n1,n2,dup", [(16384, 16384, False), (3000, 4096, True),
+                                       (129, 2049, False)])
+def test_nn_idx_kernel_matches_plain(cuda, n1, n2, dup):
+    """Exact indices: both compute fma(dz, dz, fma(dx, dx, dy * dy)) and
+    keep the lowest index among equal minima."""
+    g = _gen()
+    x2 = (_dup_cloud(2, n2, g) if dup else torch.rand(2, n2, 3, generator=g) - 0.5)
+    x1 = torch.rand(2, n1, 3, generator=g) - 0.5
+    if dup:
+        x1[:, :8] = x2[:, :8]
+    x1, x2 = x1.to(cuda), x2.to(cuda)
+    got = chamfer.nn_idx(x1, x2)
+    assert torch.equal(got, chamfer.nn_idx_plain(x1, x2))
+    if dup:
+        assert torch.equal(got[:, :8].cpu(), torch.arange(8).expand(2, 8).int())
+
+
+@pytest.mark.parametrize("m,n,dup", [(16384, 16384, False), (1000, 4096, True),
+                                     (257, 300, False)])
+def test_bids_kernel_matches_plain(cuda, m, n, dup):
+    """Exact targets and increments (IEEE sqrt on both sides); duplicated
+    objects at equal price tie: lower index, increment 0."""
+    g = _gen()
+    x2 = (_dup_cloud(2, n, g) if dup else torch.rand(2, n, 3, generator=g) - 0.5)
+    x1 = torch.rand(2, m, 3, generator=g) - 0.5
+    price = torch.rand(2, n, generator=g) * 0.02
+    if dup:
+        price[:, n // 2:] = price[:, :n // 2].flip(1)
+    x1, x2, price = x1.to(cuda), x2.to(cuda), price.to(cuda)
+    t, i = emd.emd_bids(x1, x2, price)
+    pt, pi = emd.emd_bids_plain(x1, x2, price)
+    assert torch.equal(t, pt) and torch.equal(i, pi)
+    if dup:
+        assert bool((i == 0).all()) and bool((t < n // 2).all())
+
+
+@pytest.mark.parametrize("n,c", [(3000, 256), (3000, 1024), (77, 8)])
+def test_edge_stats_kernels_match_plain(cuda, n, c):
+    """Forward outputs and the table gradient bit for bit, with duplicated
+    slots and rows (max and min ties take the first slot)."""
+    g = _gen()
+    table = torch.randn(2, n, c, generator=g)
+    table[:, 1] = table[:, 0]
+    idx = torch.randint(0, n, (2, n, 8), generator=g, dtype=torch.int32)
+    idx[:, :, 7] = idx[:, :, 0]
+    idx[:, :4] = torch.arange(8, dtype=torch.int32) % 2
+    grads = [torch.randn(2, n, c, generator=g).to(cuda) for _ in range(4)]
+    table, idx = table.to(cuda), idx.to(cuda)
+    outs = edge_gather.edge_stats_fwd(table, idx)
+    for o, w in zip(outs, edge_gather.edge_stats_fwd_plain(table, idx)):
+        assert torch.equal(o, w)
+    got = edge_gather.edge_stats_bwd(table, idx, outs[0], outs[1], *grads)
+    want = edge_gather.edge_stats_bwd_plain(table, idx, outs[0], outs[1], *grads)
+    assert torch.equal(got, want)
+
+
+def test_train_step_launches_every_kernel(cuda):
+    """A small training step on the card launches each kernel of the step
+    and runs no plain version; the loss is finite."""
+    model = models.build_generator(num_points=1024, n_primitives=2,
+                                   bottleneck_size=128, hide_size=128)
+    opt = base.make_optimizer(model, sparenet.CONFIG)
+    g = _gen()
+    partial = torch.rand(2, 300, 3, generator=g) - 0.5
+    gt = torch.rand(2, 1024, 3, generator=g) - 0.5
+    _lib.reset_counts()
+    loss, _, _ = sparenet.train_step(model, opt, partial, gt, 1e-4)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    for name in ("knn", "expansion", "mds", "nn_idx", "emd_bids",
+                 "edge_stats_fwd", "edge_stats_bwd"):
+        assert _lib.LAUNCHES[name] > 0, name
+    assert _lib.LAUNCHES["gather_max"] == 0     # eval arm only
+    assert set(_lib.PLAIN_CALLS.values()) == {0}

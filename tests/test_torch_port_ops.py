@@ -152,7 +152,8 @@ def test_cpu_tensors_take_the_plain_versions(rng):
     gather.gather_max(x, idx)
     port_expansion.mst_charges(x)
     mds.minimum_density_sample(x, 5, torch.tensor([0.1]))
-    assert _lib.PLAIN_CALLS == {"knn": 1, "gather_max": 1, "expansion": 1,
+    assert _lib.PLAIN_CALLS == {**dict.fromkeys(_lib.PLAIN_CALLS, 0),
+                                "knn": 1, "gather_max": 1, "expansion": 1,
                                 "mds": 1}
     assert set(_lib.LAUNCHES.values()) == {0}
 
