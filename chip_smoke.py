@@ -36,9 +36,32 @@ Phases, each printing a flushed line with its elapsed seconds:
      graphs and MDS picks, both in deterministic mode: loss and every
      gradient leaf, and two perturbed-op controls the check must catch;
  11. training throughput: steps at B=24 (sparenet.yaml's batch, or the
-     largest that fits), clouds/s, peak memory, one profiled step.
-The output ends with one JSON line of per-kernel numbers, the card's name and
-power limit, and {"ok": true, "device": {...}} as the last line. Any failed
+     largest that fits), clouds/s, peak memory, one profiled step, and the
+     same steps again in deterministic mode;
+ 12. the p2i splat kernel against its plain version on random inputs in the
+     renderer's layout at 256 x 256, every radius of sparenet_gan.yaml, with
+     duplicated points and exact ties: values and ids bit for bit;
+ 13. the third main path: one SpareNet-GAN step (the flagship generator and
+     loss, 8-view depth maps at 256 x 256, the ProjectionD discriminator's
+     step, the generator's step through it) at B=4 through
+     ``runners.sparenet_gan.gan_step``, counts set to 0 just before and read
+     just after: every kernel of the step launched (p2i three times), no
+     plain version ran;
+ 14. the p2i kernel on the very inputs the GAN step gave it, timed;
+ 15. the kernel GAN step against a plain GAN step that replays its kNN graphs,
+     MDS picks and dropout masks, both in deterministic mode, and two
+     controls the check must catch (depth normalised per cloud; a p2i
+     backward without its point-coordinate term);
+ 16. GAN throughput at B=32 (sparenet_gan.yaml's batch, or the largest that
+     fits): ms per step, clouds/s, peak memory, one profiled step, and the
+     same steps in deterministic mode, with one profiled step there.
+Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
+it, with no warn_only: an op with no deterministic form fails the phase. The
+script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
+mode needs.
+The output ends with one JSON line of per-kernel numbers (every TPU kernel of
+the JAX package; the one not ported yet with null numbers), the card's name
+and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
 """
 
@@ -48,27 +71,40 @@ import contextlib
 import copy
 import json
 import math
+import os
 import signal
 import subprocess
 import sys
 import time
 
-import torch
+# Deterministic mode (phases 10, 11, 15 and 16) refuses cuBLAS calls unless
+# the workspace is configured for it before cuBLAS starts; 8 x 4 MiB is also
+# PyTorch's default workspace on Hopper, so the default mode is unchanged.
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
-from sparenet_tpu_torch.models import (N_INPUT_POINTS, build_generator,
+import torch  # noqa: E402
+
+from sparenet_tpu_torch.models import (N_INPUT_POINTS, build_discriminator,
+                                       build_generator,
                                        complete, set_parity_mode)
 from sparenet_tpu_torch.ops import _lib
 from sparenet_tpu_torch.ops import chamfer as chamfer_op
+from sparenet_tpu_torch.ops import p2i as p2i_op
 from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
 from sparenet_tpu_torch.ops.common import pairwise_sqdist_graph, sqdist3
 from sparenet_tpu_torch.runners import base as train_base
+from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
+from sparenet_tpu_torch.runners import sparenet_gan as gan_runner
 
 T0 = time.perf_counter()
 TIME_LIMIT_S = 1150          # the whole script, build included
 B_CHECK, B_BENCH = 4, 32
 B_TRAIN = train_runner.CONFIG["batch_size"]   # 24, sparenet.yaml
+B_GAN = gan_runner.CONFIG["batch_size"]       # 32, sparenet_gan.yaml
+IMG = gan_runner.CONFIG["img_size"]           # 256
+RADII = gan_runner.CONFIG["radius_list"]      # 5, 7, 10
 K = 8
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32
 # (non-tensor) and bf16 tensor-core flop/s.
@@ -134,7 +170,8 @@ OPS = {"knn": (knn, "knn_idx"),
        "nn_idx": (chamfer_op, "nn_idx"),
        "emd_bids": (emd, "emd_bids"),
        "edge_stats_fwd": (edge_gather, "edge_stats_fwd"),
-       "edge_stats_bwd": (edge_gather, "edge_stats_bwd")}
+       "edge_stats_bwd": (edge_gather, "edge_stats_bwd"),
+       "p2i": (p2i_op, "p2i_max")}
 EVAL_OPS = ("knn", "gather_max", "expansion", "mds")
 TRAIN_OPS = ("nn_idx", "emd_bids", "edge_stats_fwd", "edge_stats_bwd")
 KERNEL = {name: getattr(*OPS[name]) for name in OPS}
@@ -145,20 +182,26 @@ PLAIN = {"knn": lambda x, k=8: knn.knn_plain(x, k),
          "nn_idx": chamfer_op.nn_idx_plain,
          "emd_bids": emd.emd_bids_plain,
          "edge_stats_fwd": edge_gather.edge_stats_fwd_plain,
-         "edge_stats_bwd": edge_gather.edge_stats_bwd_plain}
+         "edge_stats_bwd": edge_gather.edge_stats_bwd_plain,
+         "p2i": p2i_op.p2i_max_plain}
 
 
 @contextlib.contextmanager
-def swapped(**fns):
-    """Route the named ops to other functions; restored on exit."""
-    saved = {name: getattr(*OPS[name]) for name in fns}
-    for name, fn in fns.items():
-        setattr(*OPS[name], fn)
+def patched(*targets):
+    """Set each (object, attribute, value) for the block; restored on exit."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for obj, name, fn in targets:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(*OPS[name], fn)
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+
+def swapped(**fns):
+    """Route the named ops to other functions; restored on exit."""
+    return patched(*((*OPS[name], fn) for name, fn in fns.items()))
 
 
 def _clone(v):
@@ -436,6 +479,34 @@ SPECS.update({
 })
 
 
+
+def compare_p2i(got, want):
+    """Values and winner ids bit for bit (ids only where asked for)."""
+    return compare_exact(tuple(t for t in got if t is not None),
+                         tuple(t for t in want if t is not None))
+
+
+def _library_p2i(points, feats, binds, b, h, w, radius, with_ids=True):
+    """Window expansion and one scatter_reduce_(amax) a point chunk: the
+    values only (PyTorch has no call that returns the winner ids)."""
+    return p2i_op.p2i_max_plain(points, feats, binds, b, h, w, radius, False)
+
+
+def _bound_p2i(a, out):
+    """Points, features and image indices read once, the image (and ids)
+    written once; about 26 fp32 operations for each pixel of each point's
+    (2 ceil(R) + 2)^2 window."""
+    points, _, _, b, h, w, radius = a[:7]
+    n_out = 2 if out[1] is not None else 1
+    p = points.shape[0]
+    return bound(16.0 * p + 4.0 * n_out * b * h * w,
+                 26.0 * p * p2i_op.window_size(radius) ** 2, FP32_FLOPS)
+
+
+SPECS["p2i"] = (_library_p2i, 5, lambda a, got, want: compare_p2i(got, want),
+                _bound_p2i)
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the training kernels against their plain versions, random inputs
 # ---------------------------------------------------------------------------
@@ -585,11 +656,21 @@ def bids_without_second(xyz1, xyz2, price):
     return t, torch.zeros_like(inc)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic mode as a user turns it on: an op with no deterministic
+    form raises (no warn_only), cuBLAS with the workspace set above."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def compare_steps(state, partial, gt, calls, dev) -> None:
     """Kernel step against plain steps replaying its kNN graphs and MDS
     picks, all in deterministic mode, and two perturbed-op controls."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic():
         kern = run_step(*fresh_model(state, dev), partial, gt)
         kern2 = run_step(*fresh_model(state, dev), partial, gt)
         loss, rel, zero, worst = step_gaps(kern2, kern)
@@ -624,8 +705,6 @@ def compare_steps(state, partial, gt, calls, dev) -> None:
                 f"{'caught' if caught else 'NOT caught'}")
             if not caught:
                 fail(f"the step check does not see a {what}")
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 _TRAIN_GROUPS = (("mds", ("mds_kernel",)),
@@ -636,15 +715,18 @@ _TRAIN_GROUPS = (("mds", ("mds_kernel",)),
                                  "scan_kernel", "fill_kernel", "sort_kernel",
                                  "accum_kernel")),
                  ("expansion", ("expansion_kernel",)),
-                 ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
+                 ("p2i", ("splat_kernel", "unpack_kernel")),
+                 ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
+                 ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
 
 
-def profile_step(model, opt, partial, gt) -> None:
-    """One profiled training step: device time by kernel group."""
+def profile_step(run, b: int) -> None:
+    """One profiled step (``run()``, synchronised): device time by kernel
+    group, busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_step(model, opt, partial, gt)
+        run()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
@@ -652,24 +734,34 @@ def profile_step(model, opt, partial, gt) -> None:
                and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in kernels)
     if not busy:
-        fail("the profiler saw no device time in the training step")
+        fail("the profiler saw no device time in the step")
         return
     groups = dict.fromkeys([g for g, _ in _TRAIN_GROUPS] + ["other"], 0.0)
     for key, ms, _ in kernels:
         name = next((g for g, pats in _TRAIN_GROUPS
                      if any(p in key.lower() for p in pats)), "other")
         groups[name] += ms
-    log(f"  profile step B={partial.shape[0]}: wall {wall_ms:.1f} ms, device "
-        f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
+    log(f"  profile step B={b}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"    {g:10s} {ms:9.2f} ms  {100 * ms / busy:5.1f}% of busy")
+        log(f"    {g:12s} {ms:9.2f} ms  {100 * ms / busy:5.1f}% of busy")
     for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:15]:
         log(f"    {ms:9.2f} ms  x{n:<5d} {key[:110]}")
 
 
+def timed_steps(run, n: int = 3) -> float:
+    """ms per synchronised step over n steps (``run(i)``)."""
+    t = time.perf_counter()
+    for i in range(n):
+        run(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / n
+
+
 def train_throughput(state, gen, dev) -> None:
     """Steps at B=24, or the largest batch that fits: ms per step over 3
-    steps after one warm-up, clouds/s, peak memory; one profiled step."""
+    steps after one warm-up, clouds/s, peak memory; one profiled step; the
+    3 steps again in deterministic mode."""
     for b in (B_TRAIN, 16, 12, 8):
         model = opt = None
         torch.cuda.empty_cache()
@@ -678,10 +770,7 @@ def train_throughput(state, gen, dev) -> None:
             model, opt = fresh_model(state, dev)
             partial, gt = (t.to(dev) for t in train_batch(gen, b))
             run_step(model, opt, partial, gt)
-            t = time.perf_counter()
-            for _ in range(3):
-                run_step(model, opt, partial, gt)
-            ms = (time.perf_counter() - t) * 1e3 / 3
+            ms = timed_steps(lambda i: run_step(model, opt, partial, gt))
         except torch.cuda.OutOfMemoryError:
             log(f"  B={b}: out of memory (peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
@@ -691,7 +780,12 @@ def train_throughput(state, gen, dev) -> None:
         log(f"  B={b}: {ms:.1f} ms per training step, {b / (ms / 1e3):.2f} "
             f"clouds/s, peak memory {peak:.2f} GiB (max_memory_allocated) "
             f"on {nvidia_smi()}")
-        profile_step(model, opt, partial, gt)
+        profile_step(lambda: run_step(model, opt, partial, gt), b)
+        with deterministic():
+            det = timed_steps(lambda i: run_step(model, opt, partial, gt))
+        log(f"  B={b} in deterministic mode: {det:.1f} ms per training step "
+            f"({b / (det / 1e3):.2f} clouds/s), {det / ms:.3f}x the default "
+            f"mode's {ms:.1f} ms")
         return
     fail("no training batch fits on the card")
 
@@ -734,6 +828,222 @@ def main_train(model_state, dev) -> tuple[dict, dict, dict]:
     log("phase 10: the kernel step against the anchored plain step")
     compare_steps(model_state, partial, gt, calls, dev)
     return launches, rows, errs
+
+
+# ---------------------------------------------------------------------------
+# phases 12-16: the SpareNet-GAN step
+# ---------------------------------------------------------------------------
+
+GAN_EXPECTED = TRAIN_EXPECTED + ("p2i",)
+GAN_CHECK_RADIUS = 10.0       # the largest of sparenet_gan.yaml's windows
+MASK_SEED = 5                 # the dropout masks of every GAN step here
+
+
+def splat_inputs(gen, dev, b: int):
+    """The renderer's layout: B clouds x 8 views of 16384 points projected
+    at 256 x 256, image-major rows; in every image 1/16 of the points moved
+    onto pixel centres (exact distance ties) and 1/16 duplicated (equal
+    values)."""
+    r = ComputeDepthMaps(image_size=IMG)
+    cloud = torch.rand(b, N_OUT, 3, generator=gen) - 0.5
+    pix, feat = r._project(cloud, r.matrices[:, None])
+    v = r.num_views
+    pix = pix.transpose(0, 1).reshape(b * v, N_OUT, 2).clone()
+    feat = feat.transpose(0, 1).reshape(b * v, N_OUT, 1).clone()
+    q = N_OUT // 16
+    pix[:, :q] = pix[:, :q].round()
+    pix[:, q:2 * q] = pix[:, 2 * q:3 * q]
+    feat[:, q:2 * q] = feat[:, 2 * q:3 * q]
+    binds = torch.arange(b * v, dtype=torch.int32).repeat_interleave(N_OUT)
+    return (pix.reshape(-1, 2).to(dev), feat.reshape(-1, 1).to(dev),
+            binds.to(dev), b * v)
+
+
+def check_random_p2i(gen, dev) -> float:
+    """Phase 12; returns the largest error."""
+    worst = 0.0
+    pts, feat, binds, n_img = splat_inputs(gen, dev, B_CHECK)
+    for radius in RADII:
+        for with_ids in (True, False):
+            args = (pts, feat, binds, n_img, IMG, IMG, radius, with_ids)
+            ok, err, msg = compare_p2i(p2i_op.p2i_max(*args),
+                                       p2i_op.p2i_max_plain(*args))
+            worst = max(worst, err)
+            log(f"  p2i R={radius} {'with' if with_ids else 'without'} ids, "
+                f"{pts.shape[0]} points into {n_img} images: {msg}")
+            if not ok:
+                fail(f"p2i R={radius}: kernel differs from the plain version")
+    return worst
+
+
+def fresh_gan(gstate: dict, dstate: dict, dev):
+    """Generator and discriminator holding the states on the card, and new
+    Adams over them."""
+    gen, opt_g = fresh_model(gstate, dev)
+    disc = build_discriminator(seed=1, device="cpu", image_size=IMG).to(dev)
+    disc.load_state_dict(dstate)
+    return gen, disc, opt_g, train_base.make_optimizer(disc, gan_runner.CONFIG)
+
+
+def run_gan(models, partial, gt, radius, keep_grads: bool = True):
+    """One GAN step with the dropout masks of MASK_SEED: (losses, gradient
+    leaves of the generator and, under "D.", of the discriminator)."""
+    gen, disc, opt_g, opt_d = models
+    labels = torch.zeros(partial.shape[0], dtype=torch.int32)
+    losses = gan_runner.gan_step(gen, disc, opt_g, opt_d, partial, gt, labels,
+                                 gan_runner.CONFIG["learning_rate"], radius,
+                                 torch.Generator().manual_seed(MASK_SEED))
+    torch.cuda.synchronize()
+    if not keep_grads:
+        return None
+    grads = {n: p.grad.detach().clone() for n, p in gen.named_parameters()
+             if p.grad is not None}
+    grads.update({f"D.{n}": p.grad.detach().clone()
+                  for n, p in disc.named_parameters()})
+    return [float(v) for v in losses], grads
+
+
+def project_per_cloud(self, data, matrix):
+    """The renderer's projection with z normalised per cloud instead of
+    over the batch (a forward fault)."""
+    trans = transform_points(matrix, data)
+    xs, ys, zs = trans.unbind(-1)
+    pix = (torch.stack([-ys, xs], -1) + 1.0) * ((self.image_size - 1) / 2.0)
+    zmin, zmax = zs.amin(-1, keepdim=True), zs.amax(-1, keepdim=True)
+    return pix, (1.0 - (zs - zmin) / (zmax - zmin))[..., None]
+
+
+P2I_BACKWARD = p2i_op.p2i_max_backward
+
+
+def p2i_backward_without_points(points, feats, ids, g, radius):
+    """A p2i backward that drops the gradient to the point coordinates (a
+    backward-only fault: the losses do not move)."""
+    pt, pf = P2I_BACKWARD(points, feats, ids, g, radius)
+    return torch.zeros_like(pt), pf
+
+
+def compare_gan_steps(gstate, dstate, partial, gt, calls, dev) -> None:
+    """Phase 15: the kernel GAN step against a plain one replaying its kNN
+    graphs and MDS picks (the masks come from one seed), all in
+    deterministic mode, with the training step's limits, and two controls."""
+    r = GAN_CHECK_RADIUS
+    with deterministic():
+        kern = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+        kern2 = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+        loss, rel, zero, worst = step_gaps(kern2, kern)
+        log(f"  kernel GAN step twice: loss rel gap {loss:.3e}, gradient leaf "
+            f"relative-L2 gap {rel:.3e} ({worst}), zero-gradient leaves "
+            f"{zero:.3e}")
+
+        def fixed():
+            return dict(knn=replay(calls["knn"]), mds=replay(calls["mds"]))
+        with swapped(**dict(PLAIN, **fixed())):
+            p = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+        loss, rel, zero, worst = step_gaps(kern, p)
+        log(f"  kernel GAN step vs plain GAN step (kNN graphs, MDS picks and "
+            f"dropout masks replayed): losses {kern[0]} vs {p[0]}, loss rel "
+            f"gap {loss:.3e} (limit {STEP_LOSS_RTOL:g}), gradient leaf "
+            f"relative-L2 gap {rel:.3e} ({worst}; limit {STEP_GRAD_REL:g}), "
+            f"zero-gradient leaves {zero:.3e} (limit {STEP_ZERO_ABS:g})")
+        if loss > STEP_LOSS_RTOL or rel > STEP_GRAD_REL or zero > STEP_ZERO_ABS:
+            fail("the kernel GAN step differs from the anchored plain step")
+        for obj, name, fn, what in (
+                (ComputeDepthMaps, "_project", project_per_cloud,
+                 "renderer normalising depth per cloud"),
+                (p2i_op, "p2i_max_backward", p2i_backward_without_points,
+                 "p2i backward without the point-coordinate term")):
+            with patched((obj, name, fn)), swapped(**fixed()):
+                c = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+            loss, rel, zero, worst = step_gaps(c, kern)
+            caught = (loss > STEP_LOSS_RTOL or rel > STEP_GRAD_REL
+                      or zero > STEP_ZERO_ABS)
+            log(f"  control, {what}: loss rel gap {loss:.3e}, gradient leaf "
+                f"relative-L2 gap {rel:.3e} ({worst}): "
+                f"{'caught' if caught else 'NOT caught'}")
+            if not caught:
+                fail(f"the GAN step check does not see a {what}")
+
+
+def main_gan(gstate: dict, dstate: dict, dev) -> tuple[dict, dict]:
+    """Phases 12-15; returns (launches, the p2i row)."""
+    log(f"phase 12: the p2i kernel against its plain version, random inputs "
+        f"in the renderer's layout (B={B_CHECK} x 8 views, {IMG} x {IMG})")
+    err = check_random_p2i(torch.Generator().manual_seed(4), dev)
+
+    log(f"phase 13: the third main path, one SpareNet-GAN step at "
+        f"B={B_CHECK}, radius {GAN_CHECK_RADIUS}")
+    gen = torch.Generator().manual_seed(6)
+    partial, gt = (t.to(dev) for t in train_batch(gen, B_CHECK))
+    models = fresh_gan(gstate, dstate, dev)
+    calls: dict = {}
+    with swapped(**recording(calls)):
+        _lib.reset_counts()
+        t = time.perf_counter()
+        losses, grads = run_gan(models, partial, gt, GAN_CHECK_RADIUS)
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+    log(f"  kernel GAN step: {time.perf_counter() - t:.2f} s; losses (rec, "
+        f"coarse, refine, errG, errG_D, errD_real, errD_fake) {losses}; "
+        f"launches {launches}, plain calls {plain}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"GAN losses not finite: {losses}")
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad:
+        fail(f"non-finite gradients in {bad[:5]}")
+    for name in GAN_EXPECTED:
+        log(f"  {name}: {launches[name]} launches, {plain[name]} plain calls")
+        if launches[name] < 1 or plain[name] != 0:
+            fail(f"{name}: {launches[name]} launches, {plain[name]} plain calls "
+                 f"in the GAN step")
+    if launches["p2i"] != 3:
+        fail(f"p2i: {launches['p2i']} launches in the GAN step, expected 3")
+    if sum(plain.values()):
+        fail(f"plain versions ran in the GAN step: {plain}")
+    del models
+
+    log("phase 14: the p2i kernel on the inputs the GAN step gave it")
+    rows = check_forward_calls(calls, {"p2i": err}, ("p2i",), "GAN step")
+
+    log("phase 15: the kernel GAN step against the anchored plain GAN step")
+    compare_gan_steps(gstate, dstate, partial, gt, calls, dev)
+    return launches, rows
+
+
+def gan_throughput(gstate: dict, dstate: dict, gen, dev) -> None:
+    """Phase 16: GAN steps at B=32, or the largest batch that fits, one
+    radius of sparenet_gan.yaml each in turn: ms per step over 3 steps after
+    one warm-up, clouds/s, peak memory; one profiled step; the 3 steps
+    and one profiled step again in deterministic mode."""
+    for b in (B_GAN, 24, 16, 8):
+        models = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            models = fresh_gan(gstate, dstate, dev)
+            partial, gt = (t.to(dev) for t in train_batch(gen, b))
+
+            def step(i):
+                run_gan(models, partial, gt, RADII[i % len(RADII)], False)
+            step(len(RADII) - 1)
+            ms = timed_steps(step, len(RADII))
+        except torch.cuda.OutOfMemoryError:
+            log(f"  B={b}: out of memory (peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+            models = None
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  B={b}: {ms:.1f} ms per GAN step (radii {list(RADII)}, one a "
+            f"step), {b / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} GiB "
+            f"(max_memory_allocated) on {nvidia_smi()}")
+        profile_step(lambda: step(1), b)
+        with deterministic():
+            det = timed_steps(step, len(RADII))
+            log(f"  B={b} in deterministic mode: {det:.1f} ms per GAN step "
+                f"({b / (det / 1e3):.2f} clouds/s), {det / ms:.3f}x the "
+                f"default mode's {ms:.1f} ms; one profiled step:")
+            profile_step(lambda: step(1), b)
+        return
+    fail("no GAN batch fits on the card")
 
 
 def check_forward_calls(calls: dict, errs: dict, names=EVAL_OPS,
@@ -1020,6 +1330,13 @@ def main() -> int:
     log(f"phase 11: training throughput at B={B_TRAIN} (sparenet.yaml)")
     train_throughput(train_state, gen, dev)
 
+    disc_state = build_discriminator(seed=1, device="cpu",
+                                     image_size=IMG).state_dict()
+    g_launches, g_rows = main_gan(train_state, disc_state, dev)
+    results.update(g_rows)
+    log(f"phase 16: GAN throughput at B={B_GAN} (sparenet_gan.yaml)")
+    gan_throughput(train_state, disc_state, gen, dev)
+
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
                 "sparenet_tpu/ops/pallas/knn_pallas.py:152"),
@@ -1037,11 +1354,13 @@ def main() -> int:
                            "sparenet_tpu/ops/pallas/edge_train_pallas.py:122"),
         "edge_stats_bwd": ("sparenet_tpu_torch/csrc/edge_stats.cu",
                            "sparenet_tpu/ops/pallas/edge_train_pallas.py:157"),
+        "p2i": ("sparenet_tpu_torch/csrc/p2i.cu",
+                "sparenet_tpu/ops/pallas/p2i_pallas.py:272"),
     }
     # launches: each kernel's count on its own main path (the eval forward
     # for the first four, the training step for the rest)
     counts = {**{k: launches[k] for k in EVAL_OPS},
-              **{k: t_launches[k] for k in TRAIN_OPS}}
+              **{k: t_launches[k] for k in TRAIN_OPS}, "p2i": g_launches["p2i"]}
     kernels = []
     for name, (src, rep) in meta.items():
         r = results[name]
@@ -1049,12 +1368,19 @@ def main() -> int:
                         "replaces": rep, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "state": "ported"})
+    # the one TPU kernel not ported yet: no source, nothing measured
+    kernels.append({"name": "mds_continue", "route": "cuda", "source": None,
+                    "replaces": "sparenet_tpu/ops/pallas/mds_pallas.py:237",
+                    "launches": None, "max_abs_err": None, "ms": None,
+                    "plain_ms": None, "bound_ms": None, "bound_by": None,
+                    "library_ms": None, "state": "to port"})
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1
     log(f"all phases passed; kernel times summed over the B={B_CHECK} "
-        f"forward's (or training step's) calls; forward B={B_BENCH} "
+        f"forward's (or training or GAN step's) calls; forward B={B_BENCH} "
         f"{cps:.2f} clouds/s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-"""Entry points: build the flagship SpareNet generator and complete clouds.
+"""Entry points: build the flagship SpareNet generator and complete clouds;
+build the SpareNet-GAN discriminator.
 
 Both run on the card unless the caller asks for the CPU: with no ``device``
 they use ``cuda`` and raise where there is none. On the CPU every op runs its
@@ -8,15 +9,21 @@ CUDA kernel.
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch import nn
+
+from .discriminator import (PatchDiscriminator, ProjectionD, SNConv, SNDense,
+                            SNEmbed)
 from .layers import init_weights
 from .sparenet import (SpareNetDecode, SpareNetEncode, SpareNetGenerator,
                        SpareNetRefine)
 
 __all__ = ["FLAGSHIP", "N_INPUT_POINTS", "build_generator", "complete",
-           "resolve_device", "set_parity_mode", "SpareNetGenerator",
-           "SpareNetEncode", "SpareNetDecode", "SpareNetRefine"]
+           "build_discriminator", "resolve_device", "set_parity_mode",
+           "SpareNetGenerator", "SpareNetEncode", "SpareNetDecode",
+           "SpareNetRefine", "ProjectionD", "PatchDiscriminator"]
 
 # The flagship configuration: sparenet_tpu/configs/sparenet.yaml (NETWORK:
 # n_primitives 32, encode Residualnet, use_adain share, use_selayer true;
@@ -67,3 +74,41 @@ def complete(model: SpareNetGenerator, partial: torch.Tensor):
         raise ValueError(f"partial must be [B, N, 3], got {tuple(partial.shape)}")
     x = partial.to(device=dev, dtype=torch.float32).contiguous()
     return model.eval()(x)
+
+
+@torch.no_grad()
+def _init_discriminator(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's define_D initialisation, drawn from ``generator``:
+    conv weights normal(0, 0.02), BatchNorm scales 1 + 0.02 normal, dense and
+    embedding weights Xavier-uniform, biases 0, and each spectral-norm u a
+    normalised normal draw."""
+    for mod in model.modules():
+        if isinstance(mod, SNConv):
+            mod.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(mod, (SNDense, SNEmbed)):
+            fan_out, fan_in = mod.weight.shape
+            bound = math.sqrt(6.0 / (fan_in + fan_out))
+            mod.weight.uniform_(-bound, bound, generator=generator)
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.weight.normal_(1.0, 0.02, generator=generator)
+            mod.bias.zero_()
+        if isinstance(mod, (SNConv, SNDense, SNEmbed)):
+            u = torch.randn(mod.u.shape, generator=generator)
+            mod.u.copy_(u / (u.norm() + 1e-12))
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+
+
+def build_discriminator(*, seed: int = 0, device=None, use_cgan: bool = True,
+                        num_classes: int = 0,
+                        image_size: int = 256) -> nn.Module:
+    """The SpareNet-GAN discriminator (the JAX package's define_D):
+    ``ProjectionD`` with ``use_cgan`` (the shipped setting), else
+    ``PatchDiscriminator``, in train mode on ``device``, initialised on the
+    CPU from ``torch.Generator().manual_seed(seed)``."""
+    dev = resolve_device(device)
+    set_parity_mode()
+    model = (ProjectionD(image_size, num_classes) if use_cgan
+             else PatchDiscriminator())
+    _init_discriminator(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).train()

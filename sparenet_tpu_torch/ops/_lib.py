@@ -38,7 +38,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_TIMEOUT_S = 600
 
 LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0, "nn_idx": 0,
-            "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0}
+            "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0, "p2i": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # filled by build(): the command, its seconds and the compiler's -Xptxas -v
 # report (registers, shared memory and spills of every kernel)
@@ -47,6 +47,7 @@ BUILD_INFO: dict = {}
 _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "spn_error_string": ((_I,), ctypes.c_char_p),
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "spn_edge_stats_max_k": ((), _I),
     "spn_edge_stats_fwd": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
+    "spn_p2i_max": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P), _I),
 }
 
 

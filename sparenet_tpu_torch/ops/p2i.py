@@ -1,0 +1,207 @@
+"""Zero-background max splat of points into images (counterpart of
+sparenet_tpu/ops/p2i.py:p2i_max_zbg and ops/pallas/p2i_pallas.py).
+
+``p2i_max(points, feats, binds, b, h, w, radius, with_ids)``: points [P, 2]
+f32 in (y, x) pixels, feats [P, 1] f32, binds [P] int32 (the image of each
+point) -> (out [B, H, W, 1] f32, ids [B, H, W, 1] int32 or None). Every pixel
+within r <= radius of a point takes the max of f * w(r), with w the cosine
+kernel cos(pi r / R) / 2 + 1/2 as the Taylor series ``cos_weight_sq`` in
+(r / R)^2; a pixel is updated only where a value is strictly above the zero
+background, and on an exact tie the lowest point id wins; ids is -1 where
+nothing won. Points whose image index is outside [0, B) are dropped. On a
+CUDA tensor it launches ``csrc/p2i.cu``; on a CPU tensor it runs
+``p2i_max_plain``.
+
+``p2i_max_zbg(points, feats, binds, b, h, w, radius)`` -> out, differentiable
+in points and feats: a render that is differentiated launches the variant
+with ids, any other the values-only one. Its backward is the JAX package's
+``_p2i_max_bwd`` in plain PyTorch (XLA there too): the gradient of each
+pixel goes to its winner's feature through w, and to its (y, x) through
+dw/dr = -(pi / 2R) sin(pi r / R), with the reference's max(r, 1e-10) guard.
+
+Rounding follows the JAX package's XLA path bit for bit (its CPU program
+computes r as sqrt(dy * dy + dx * dx) without fma, the division by R as a
+product with the f32 reciprocal, and the Horner steps as fma), not the Pallas
+kernel's r^2 <= R^2 form, which differs in the last bit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import _lib
+from .common import check_input, fma, is_cpu, sqrt_ieee
+
+__all__ = ["COS_COEFFS", "cos_weight_sq", "window_size", "p2i_max",
+           "p2i_max_plain", "p2i_max_backward", "p2i_max_zbg"]
+
+# cos(pi sqrt(s)) / 2 + 1/2 = 1 + sum_k c_k s^k, c_k = (-1)^k pi^2k / (2 (2k)!),
+# k = 1 .. 10, rounded to f32 (the JAX package's _COS_COEFFS)
+COS_COEFFS = tuple(float(np.float32(0.5 * (-1.0) ** k * math.pi ** (2 * k)
+                                    / math.factorial(2 * k)))
+                   for k in range(1, 11))
+# plain versions expand at most this many window pixels at once
+_CHUNK_BUDGET = 1 << 23
+
+
+def window_size(radius: float) -> int:
+    """Side K of the square pixel window a point visits: floor(p - R) ..
+    floor(p - R) + K - 1 covers every pixel within R."""
+    return 2 * int(math.ceil(radius)) + 2
+
+
+def cos_weight_sq(s: torch.Tensor) -> torch.Tensor:
+    """1 + sum_k c_k s^k by Horner with one rounding a step (fma)."""
+    w = torch.full_like(s, COS_COEFFS[-1])
+    for c in COS_COEFFS[-2::-1]:
+        w = fma(w, s, torch.full_like(s, c))
+    return fma(w, s, torch.ones_like(s))
+
+
+def _weight(r: torch.Tensor, radius: float) -> torch.Tensor:
+    inv = 1.0 / torch.tensor(radius, dtype=torch.float32)
+    s = r * inv.to(r.device)
+    return cos_weight_sq(s * s)
+
+
+def _window(points: torch.Tensor, radius: float, h: int, w: int):
+    """Candidate pixels of each point: (pixel index within its image
+    [P, K, K], weight w(r) [P, K, K], valid [P, K, K])."""
+    k = window_size(radius)
+    rad = torch.tensor(radius, dtype=torch.float32, device=points.device)
+    base = torch.floor(points - rad).to(torch.int32)          # [P, 2]
+    offs = torch.arange(k, dtype=torch.int32, device=points.device)
+    py = (base[:, 0:1] + offs)[:, :, None]                    # [P, K, 1]
+    px = (base[:, 1:2] + offs)[:, None, :]                    # [P, 1, K]
+    dy = py.float() - points[:, 0, None, None]
+    dx = px.float() - points[:, 1, None, None]
+    r = sqrt_ieee(dy * dy + dx * dx)                          # [P, K, K]
+    valid = (py >= 0) & (py < h) & (px >= 0) & (px < w) & (r <= rad)
+    return py * w + px, _weight(r, radius), valid
+
+
+def _chunks(p: int, radius: float):
+    k = window_size(radius)
+    step = max(1, _CHUNK_BUDGET // (k * k))
+    return [slice(i, min(p, i + step)) for i in range(0, p, step)]
+
+
+def p2i_max_plain(points, feats, binds, b: int, h: int, w: int, radius: float,
+                  with_ids: bool = True):
+    """Plain PyTorch version of the p2i kernel (the JAX package's
+    _p2i_max_forward): windowed contributions in point chunks, a scatter
+    max for the values, then the lowest winning point id where wv >= out
+    and wv > 0."""
+    _lib.PLAIN_CALLS["p2i"] += 1
+    n_pix = b * h * w
+    dev = points.device
+    out = torch.zeros(n_pix + 1, dtype=torch.float32, device=dev)  # +1: drop
+    parts = []
+    for sl in _chunks(points.shape[0], radius):
+        pix, weight, valid = _window(points[sl], radius, h, w)
+        bi = binds[sl].long()[:, None, None]
+        valid = valid & (bi >= 0) & (bi < b)
+        idx = torch.where(valid, bi * (h * w) + pix, n_pix).reshape(-1)
+        wv = (weight * feats[sl, 0, None, None]).reshape(-1)
+        out.scatter_reduce_(0, idx, wv, reduce="amax", include_self=True)
+        parts.append((sl, idx, wv))
+    if not with_ids:
+        return out[:n_pix].reshape(b, h, w, 1), None
+    big = torch.iinfo(torch.int64).max
+    ids = torch.full((n_pix + 1,), big, dtype=torch.int64, device=dev)
+    for sl, idx, wv in parts:
+        win = (wv >= out[idx]) & (wv > 0) & (idx < n_pix)
+        k2 = idx.numel() // (sl.stop - sl.start)
+        pid = torch.arange(sl.start, sl.stop, device=dev).repeat_interleave(k2)
+        ids.scatter_reduce_(0, torch.where(win, idx, n_pix),
+                            torch.where(win, pid, big), reduce="amin",
+                            include_self=True)
+    ids = torch.where(ids == big, -1, ids)[:n_pix].to(torch.int32)
+    return out[:n_pix].reshape(b, h, w, 1), ids.reshape(b, h, w, 1)
+
+
+def p2i_max(points, feats, binds, b: int, h: int, w: int, radius: float,
+            with_ids: bool = True):
+    """(out, ids or None); see the module docstring."""
+    points, feats = points.detach(), feats.detach()
+    check_input("p2i points", points, torch.float32, 2, last=2)
+    check_input("p2i feats", feats, torch.float32, 2, last=1)
+    check_input("p2i binds", binds, torch.int32, 1)
+    if not (points.shape[0] == feats.shape[0] == binds.shape[0]):
+        raise ValueError("p2i: points, feats and binds differ in length")
+    if points.device != feats.device or points.device != binds.device:
+        raise ValueError("p2i: points, feats and binds differ in device")
+    if not radius > 0 or min(b, h, w) < 1:
+        raise ValueError(f"p2i: radius {radius}, images {b} x {h} x {w}")
+    if is_cpu(points):
+        return p2i_max_plain(points, feats, binds, b, h, w, radius, with_ids)
+    if points.shape[0] >= 2**31 or b * h * w >= 2**31:
+        raise ValueError("p2i: more than 2^31 points or pixels")
+    dev = points.device
+    out = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
+    ids = packed = None
+    if with_ids:
+        ids = torch.empty((b, h, w, 1), dtype=torch.int32, device=dev)
+        packed = torch.empty((b * h * w,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        code = _lib.lib().spn_p2i_max(
+            points.data_ptr(), feats.data_ptr(), binds.data_ptr(),
+            points.shape[0], b, h, w, float(radius), window_size(radius),
+            out.data_ptr(), ids.data_ptr() if with_ids else None,
+            packed.data_ptr() if with_ids else None, _lib.stream_of(points))
+    _lib.check(code, "p2i_max")
+    _lib.LAUNCHES["p2i"] += 1
+    return out, ids
+
+
+def p2i_max_backward(points, feats, ids, g, radius: float):
+    """Gradients (points [P, 2], feats [P, 1]) of sum(g * out) for the
+    winner ids [B, H, W, 1] (the JAX package's _p2i_max_bwd)."""
+    b, h, w, _ = g.shape
+    p = points.shape[0]
+    dev = g.device
+    won = ids >= 0
+    safe = torch.where(won, ids, 0).long()
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :, None]
+    dy = yy - points[:, 0][safe]
+    dx = xx - points[:, 1][safe]
+    r = sqrt_ieee(dy * dy + dx * dx)
+    gm = g * won
+    sid = torch.where(won, safe, p).reshape(-1)
+    pf = torch.zeros(p + 1, 1, dtype=g.dtype, device=dev).index_add_(
+        0, sid, (gm * _weight(r, radius)).reshape(-1, 1))[:p]
+    kfac = (gm * feats[safe, 0] * torch.sin(r * math.pi / radius)
+            * 0.5 * math.pi / radius / r.clamp_min(1e-10))
+    pt = torch.zeros(p + 1, 2, dtype=g.dtype, device=dev).index_add_(
+        0, sid, torch.stack([kfac * dy, kfac * dx], -1).reshape(-1, 2))[:p]
+    return pt, pf
+
+
+class _P2iMaxZbg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, feats, binds, b, h, w, radius):
+        out, ids = p2i_max(points, feats, binds, b, h, w, radius, True)
+        ctx.save_for_backward(points, feats, ids)
+        ctx.radius = radius
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        points, feats, ids = ctx.saved_tensors
+        pt, pf = p2i_max_backward(points, feats, ids, g.contiguous(),
+                                  ctx.radius)
+        return pt, pf, None, None, None, None, None
+
+
+def p2i_max_zbg(points, feats, binds, b: int, h: int, w: int,
+                radius: float) -> torch.Tensor:
+    """Differentiable zero-background max splat -> [B, H, W, 1]; see the
+    module docstring."""
+    if not (torch.is_grad_enabled()
+            and (points.requires_grad or feats.requires_grad)):
+        return p2i_max(points, feats, binds, b, h, w, float(radius), False)[0]
+    return _P2iMaxZbg.apply(points, feats, binds, b, h, w, float(radius))

@@ -7,6 +7,10 @@ variables as a nested dict of numpy arrays (``{"params": ..., "batch_stats":
 which the port's ``SpareNetGenerator.load_state_dict(strict=True)`` takes
 whole. The rule table is this module's own copy, for the ported
 configuration (``use_adain="share"``, ``encode="Residualnet"``).
+
+``disc_state_dict_from_jax(params, batch_stats, spectral)`` does the same
+for the JAX package's discriminator (``ProjectionD`` or
+``PatchDiscriminator``) into the port's ``models.discriminator`` layout.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["netG_rules", "state_dict_from_jax"]
+__all__ = ["netG_rules", "state_dict_from_jax", "disc_state_dict_from_jax"]
 
 _DEC_BOTTLENECK = 1026
 
@@ -145,3 +149,50 @@ def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
         for key in {prefix.format(p=p) for p in range(n_primitives)}:
             sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def _hwc_to_chw(v: np.ndarray, channels: int, axis: int) -> np.ndarray:
+    """Reorder a flattened (H, W, C) axis of v into (C, H, W) order."""
+    n = v.shape[axis]
+    side = int(round((n // channels) ** 0.5))
+    shape = v.shape[:axis] + (side, side, channels) + v.shape[axis + 1:]
+    v = np.moveaxis(v.reshape(shape), axis + 2, axis)
+    return v.reshape(v.shape[:axis] + (n,) + v.shape[axis + 3:])
+
+
+def disc_state_dict_from_jax(params: dict, batch_stats: dict, spectral: dict,
+                             *, use_cgan: bool = True) -> dict[str, torch.Tensor]:
+    """JAX discriminator variables (numpy trees of its ``params``,
+    ``batch_stats`` and ``spectral`` collections) -> the port's state_dict.
+    Conv kernels (kh, kw, in, out) become [out, in, kh, kw]; the dense kernel
+    [in, out] becomes [out, in] with its input axis, and the embedding table
+    its feature axis, reordered from flax's (H, W, C) flattening to (C, H,
+    W); BatchNorm scale/bias/mean/var go to weight/bias/running_*."""
+    sd: dict[str, np.ndarray] = {}
+    n_conv = 4 if use_cgan else 7
+    for j in range(n_conv):
+        name = f"conv{j + 1}" if j < n_conv - (0 if use_cgan else 1) else "adv"
+        p = params[f"SNConv_{j}"]
+        sd[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
+        if "bias" in p:
+            sd[f"{name}.bias"] = np.asarray(p["bias"])
+        sd[f"{name}.u"] = np.asarray(spectral[f"SNConv_{j}"]["u"])
+    for j in range(n_conv - (1 if use_cgan else 2)):
+        name = f"bn{j + 2}"
+        sd[f"{name}.weight"] = np.asarray(params[f"BatchNorm_{j}"]["scale"])
+        sd[f"{name}.bias"] = np.asarray(params[f"BatchNorm_{j}"]["bias"])
+        sd[f"{name}.running_mean"] = np.asarray(batch_stats[f"BatchNorm_{j}"]["mean"])
+        sd[f"{name}.running_var"] = np.asarray(batch_stats[f"BatchNorm_{j}"]["var"])
+        sd[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+    if use_cgan:
+        c = sd[f"conv{n_conv}.weight"].shape[0]
+        kernel = np.asarray(params["SNDense_0"]["kernel"])
+        sd["adv.weight"] = _hwc_to_chw(kernel, c, 0).T
+        sd["adv.bias"] = np.asarray(params["SNDense_0"]["bias"])
+        sd["adv.u"] = np.asarray(spectral["SNDense_0"]["u"])
+        if "SNEmbed_0" in params:
+            table = np.asarray(params["SNEmbed_0"]["embedding"])
+            sd["embed.weight"] = _hwc_to_chw(table, c, 1)
+            sd["embed.u"] = np.asarray(spectral["SNEmbed_0"]["u"])
+    return {k: torch.from_numpy(np.array(v, dtype=v.dtype, order="C"))
+            for k, v in sd.items()}

@@ -9,6 +9,7 @@ the port runs its plain versions. Also: the weight converter, some layers,
 and the package's hygiene (no JAX import, no silent CPU fallback).
 """
 
+import os
 import subprocess
 import sys
 
@@ -210,13 +211,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(sparenet_tpu_torch.__path__, "
         "'sparenet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for m in ('ops.p2i', 'renderer.depth_maps', 'models.discriminator',"
+        " 'runners.sparenet_gan'):\n"
+        "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('sparenet_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 10   # every submodule was imported
 

@@ -13,9 +13,9 @@ import torch
 
 from sparenet_tpu_torch import models
 from sparenet_tpu_torch.ops import (_lib, chamfer, edge_gather, emd,
-                                    expansion_penalty, gather, knn, mds)
+                                    expansion_penalty, gather, knn, mds, p2i)
 from sparenet_tpu_torch.ops.common import pairwise_sqdist_graph
-from sparenet_tpu_torch.runners import base, sparenet
+from sparenet_tpu_torch.runners import base, sparenet, sparenet_gan
 
 pytestmark = pytest.mark.gpu
 
@@ -184,4 +184,58 @@ def test_train_step_launches_every_kernel(cuda):
                  "edge_stats_fwd", "edge_stats_bwd"):
         assert _lib.LAUNCHES[name] > 0, name
     assert _lib.LAUNCHES["gather_max"] == 0     # eval arm only
+    assert set(_lib.PLAIN_CALLS.values()) == {0}
+
+
+def _splat_case(g, b, n, h, w):
+    """n points an image around and beyond the image, 1/8 on pixel centres
+    (exact ties), 1/8 duplicated, features in [-0.2, 1)."""
+    pts = torch.rand(b, n, 2, generator=g) * torch.tensor([h + 8.0, w + 8.0]) - 4
+    q = n // 8
+    pts[:, :q] = pts[:, :q].round()
+    pts[:, q:2 * q] = pts[:, 2 * q:3 * q]
+    f = torch.rand(b, n, 1, generator=g) * 1.2 - 0.2
+    f[:, q:2 * q] = f[:, 2 * q:3 * q]
+    binds = torch.arange(b, dtype=torch.int32).repeat_interleave(n)
+    return pts.reshape(-1, 2), f.reshape(-1, 1), binds
+
+
+@pytest.mark.parametrize("radius,h,w", [(5.0, 256, 256), (7.0, 256, 256),
+                                        (10.0, 256, 256), (2.5, 37, 53)])
+def test_p2i_kernel_matches_plain(cuda, radius, h, w):
+    """Values and winner ids bit for bit, with and without ids, exact ties
+    and duplicated points included."""
+    pts, f, binds = (t.to(cuda) for t in _splat_case(_gen(), 6, 4000, h, w))
+    for with_ids in (True, False):
+        got = p2i.p2i_max(pts, f, binds, 6, h, w, radius, with_ids)
+        want = p2i.p2i_max_plain(pts, f, binds, 6, h, w, radius, with_ids)
+        assert torch.equal(got[0], want[0])
+        if with_ids:
+            assert torch.equal(got[1], want[1])
+            assert bool((got[1] >= 0).any())
+        else:
+            assert got[1] is None
+
+
+def test_gan_step_launches_every_kernel(cuda, monkeypatch):
+    """A small GAN step on the card (B=2, img 64) launches each kernel of the
+    step, p2i three times, and runs no plain version; losses finite."""
+    monkeypatch.setitem(sparenet_gan.CONFIG, "img_size", 64)
+    gen = models.build_generator(num_points=1024, n_primitives=2,
+                                 bottleneck_size=128, hide_size=128)
+    disc = models.build_discriminator(image_size=64)
+    opts = [base.make_optimizer(m, sparenet_gan.CONFIG) for m in (gen, disc)]
+    g = _gen()
+    partial = torch.rand(2, 300, 3, generator=g) - 0.5
+    gt = torch.rand(2, 1024, 3, generator=g) - 0.5
+    _lib.reset_counts()
+    losses = sparenet_gan.gan_step(gen, disc, *opts, partial, gt,
+                                   torch.zeros(2, dtype=torch.int32), 1e-4,
+                                   7.0, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in losses)
+    for name in ("knn", "expansion", "mds", "nn_idx", "emd_bids",
+                 "edge_stats_fwd", "edge_stats_bwd"):
+        assert _lib.LAUNCHES[name] > 0, name
+    assert _lib.LAUNCHES["p2i"] == 3
     assert set(_lib.PLAIN_CALLS.values()) == {0}

@@ -26,7 +26,7 @@ from sparenet_tpu.ops.pallas.chamfer_pallas import nn_idx_pallas
 from sparenet_tpu.ops.pallas.edge_train_pallas import \
     edge_gather_stats as jax_edge_stats
 from sparenet_tpu_torch.models import layers as port_layers
-from sparenet_tpu_torch.ops import _lib, chamfer, edge_gather, emd
+from sparenet_tpu_torch.ops import _lib, chamfer, edge_gather, emd, p2i
 from sparenet_tpu_torch.ops import expansion_penalty as port_expansion
 
 jax.config.update("jax_platforms", "cpu")
@@ -237,8 +237,11 @@ def test_new_wrappers_take_the_plain_versions_on_cpu(rng):
     t = _t(rng.randn(1, 20, 8).astype(np.float32)).requires_grad_()
     idx = torch.zeros(1, 20, 8, dtype=torch.int32)
     sum(o.sum() for o in edge_gather.edge_gather_stats(t, idx)).backward()
+    p2i.p2i_max(x[0, :, :2].contiguous(), x[0, :, 2:].contiguous(),
+                torch.zeros(20, dtype=torch.int32), 1, 8, 8, 2.0)
     assert {k: v for k, v in _lib.PLAIN_CALLS.items() if v} == {
-        "nn_idx": 1, "emd_bids": 1, "edge_stats_fwd": 1, "edge_stats_bwd": 1}
+        "nn_idx": 1, "emd_bids": 1, "edge_stats_fwd": 1, "edge_stats_bwd": 1,
+        "p2i": 1}
     assert set(_lib.LAUNCHES.values()) == {0}
 
 
