@@ -49,18 +49,38 @@ Phases, each printing a flushed line with its elapsed seconds:
      plain version ran;
  14. the p2i kernel on the very inputs the GAN step gave it, timed;
  15. the kernel GAN step against a plain GAN step that replays its kNN graphs,
-     MDS picks and dropout masks, both in deterministic mode, and two
+     MDS picks, dropout masks and p2i backward (held to its plain version on
+     the step's inputs), both in deterministic mode, and two
      controls the check must catch (depth normalised per cloud; a p2i
      backward without its point-coordinate term);
  16. GAN throughput at B=32 (sparenet_gan.yaml's batch, or the largest that
      fits): ms per step, clouds/s, peak memory, one profiled step, and the
-     same steps in deterministic mode, with one profiled step there.
+     same steps in deterministic mode, with one profiled step there;
+ 17. the serving kernels against their plain versions on random inputs: the
+     packed-key kNN at N 3000 and the encoder's widths (duplicated points
+     included), bit for bit; the MDS continuation on the prefix states the
+     plain batched prefix gives at the production shape (19384 points,
+     14336 batched picks, 2048 continued; duplicated points give exact
+     ties), bit for bit; the p2i backward at R 5/7/10 within 1e-6 of the
+     largest entry, two launches bit for bit equal;
+ 18. the fourth main path: the serving-mode forward (``build_generator(
+     serving=True, mds=arm)``, the same parameters as phase 3) at B=4 in
+     each MDS arm, batched, hybrid and exact, counts set to 0 just before
+     and read just after: packed kNN 4, gather-max 4, MDS 2 (exact) or the
+     continuation 2 (hybrid), no expansion, no plain version;
+ 19. each serving kernel on the hybrid forward's own inputs (times, as
+     phase 4), and the kernel serving forward of each arm against a plain
+     serving forward replaying its kNN graphs and MDS picks; two controls
+     (a continuation skipping its first bump; a kNN off by one); the
+     free-running Chamfer of each arm against parity as readings;
+ 20. B=32 forwards in each arm beside parity (CUDA events), each arm's MDS
+     time on its own inputs, one profiled forward for batched and hybrid.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
 mode needs.
 The output ends with one JSON line of per-kernel numbers (every TPU kernel of
-the JAX package; the one not ported yet with null numbers), the card's name
+the JAX package, the packed kNN arm and the p2i backward), the card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
 """
@@ -171,11 +191,29 @@ OPS = {"knn": (knn, "knn_idx"),
        "emd_bids": (emd, "emd_bids"),
        "edge_stats_fwd": (edge_gather, "edge_stats_fwd"),
        "edge_stats_bwd": (edge_gather, "edge_stats_bwd"),
-       "p2i": (p2i_op, "p2i_max")}
+       "p2i": (p2i_op, "p2i_max"),
+       "p2i_bwd": (p2i_op, "p2i_max_backward"),
+       "mds_continue": (mds, "mds_continue"),
+       # serving mode's MDS dispatch: swapped only to replay its picks
+       "mds_xyz": (mds, "minimum_density_sample_xyz")}
 EVAL_OPS = ("knn", "gather_max", "expansion", "mds")
 TRAIN_OPS = ("nn_idx", "emd_bids", "edge_stats_fwd", "edge_stats_bwd")
 KERNEL = {name: getattr(*OPS[name]) for name in OPS}
-PLAIN = {"knn": lambda x, k=8: knn.knn_plain(x, k),
+# the serving kNN is knn_idx(..., packed=True); it has a row of its own
+KERNEL["knn_packed"] = knn.knn_idx
+
+
+def plain_knn(x, k=8, packed=False):
+    """The plain version of the arm knn_idx takes for these arguments."""
+    if packed and knn.packed_applies(x.shape[1], x.shape[2]):
+        return knn.knn_packed_plain(x, k)
+    return knn.knn_plain(x, k)
+
+
+PLAIN = {"knn": plain_knn,
+         "knn_packed": plain_knn,
+         "p2i_bwd": p2i_op.p2i_max_backward_plain,
+         "mds_continue": mds.mds_continue_plain,
          "gather_max": gather.gather_max_plain,
          "expansion": expansion_penalty.mst_charges_plain,
          "mds": mds.mds_plain,
@@ -200,8 +238,10 @@ def patched(*targets):
 
 
 def swapped(**fns):
-    """Route the named ops to other functions; restored on exit."""
-    return patched(*((*OPS[name], fn) for name, fn in fns.items()))
+    """Route the named ops to other functions (rows that are no op of their
+    own, "knn_packed", are routed through "knn"); restored on exit."""
+    return patched(*((*OPS[name], fn) for name, fn in fns.items()
+                     if name in OPS))
 
 
 def _clone(v):
@@ -372,7 +412,9 @@ def check_random(gen, dev) -> dict:
 # phase 4: each kernel on the inputs the main path gave it, timed
 # ---------------------------------------------------------------------------
 
-def _library_knn(x, k=8):
+def _library_knn(x, k=8, packed=False):
+    """cdist + topk: ranks the exact f32 distances (neither the bf16 split
+    of parity mode nor serving mode's one bf16 pass and truncated keys)."""
     return torch.topk(torch.cdist(x, x), k, largest=False)
 
 
@@ -505,6 +547,50 @@ def _bound_p2i(a, out):
 
 SPECS["p2i"] = (_library_p2i, 5, lambda a, got, want: compare_p2i(got, want),
                 _bound_p2i)
+
+
+def compare_rel(got, want, rtol: float = 1e-6):
+    """Every output within rtol of its largest entry (sums in another
+    order)."""
+    worst, ok = 0.0, True
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        ok = ok and err <= rtol * float(w.abs().max())
+        worst = max(worst, err)
+    return ok, worst, (f"max abs err {worst:.3e} (limit {rtol:g} of the "
+                       f"largest entry: {'within' if ok else 'NOT within'})")
+
+
+def _bound_p2i_bwd(a, out):
+    """Points, features and image indices read once and the gradients
+    written once (28 bytes a point), the ids and g images read once; two
+    operations for each window pixel's id test and about 40 for each pixel
+    the point won (this run's ids)."""
+    points, _, _, ids, g, radius = a[:6]
+    p = points.shape[0]
+    won = int((ids >= 0).sum())
+    return bound(28.0 * p + 8.0 * g.numel(),
+                 2.0 * p * p2i_op.window_size(radius) ** 2 + 40.0 * won,
+                 FP32_FLOPS)
+
+
+SPECS.update({
+    # one bf16 product a (query, candidate, channel) triple: 2 B N^2 C
+    # operations at the bf16 tensor-core peak
+    "knn_packed": (_library_knn, 5, lambda a, got, want: compare_exact(got, want),
+                   lambda a, out: bound(4 * (a[0].numel() + out.numel()),
+                                        2.0 * a[0].numel() * a[0].shape[1],
+                                        BF16_FLOPS)),
+    # steps updates of N live lanes, ~12 operations each (as mds)
+    "mds_continue": (None, 3, lambda a, got, want: compare_exact(got, want),
+                     lambda a, out: bound(
+                         4 * (a[0].numel() + a[1].numel() + a[2].numel()
+                              + a[3].numel() + out.numel()),
+                         12.0 * a[0].shape[0] * a[4] * a[0].shape[1],
+                         FP32_FLOPS)),
+    "p2i_bwd": (None, 5, lambda a, got, want: compare_rel(got, want),
+                _bound_p2i_bwd),
+})
 
 
 # ---------------------------------------------------------------------------
@@ -715,7 +801,7 @@ _TRAIN_GROUPS = (("mds", ("mds_kernel",)),
                                  "scan_kernel", "fill_kernel", "sort_kernel",
                                  "accum_kernel")),
                  ("expansion", ("expansion_kernel",)),
-                 ("p2i", ("splat_kernel", "unpack_kernel")),
+                 ("p2i", ("splat_kernel", "unpack_kernel", "p2i_bwd_kernel")),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
                  ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
 
@@ -834,7 +920,7 @@ def main_train(model_state, dev) -> tuple[dict, dict, dict]:
 # phases 12-16: the SpareNet-GAN step
 # ---------------------------------------------------------------------------
 
-GAN_EXPECTED = TRAIN_EXPECTED + ("p2i",)
+GAN_EXPECTED = TRAIN_EXPECTED + ("p2i", "p2i_bwd")
 GAN_CHECK_RADIUS = 10.0       # the largest of sparenet_gan.yaml's windows
 MASK_SEED = 5                 # the dropout masks of every GAN step here
 
@@ -913,23 +999,33 @@ def project_per_cloud(self, data, matrix):
     return pix, (1.0 - (zs - zmin) / (zmax - zmin))[..., None]
 
 
-P2I_BACKWARD = p2i_op.p2i_max_backward
-
-
-def p2i_backward_without_points(points, feats, ids, g, radius):
+def p2i_backward_without_points(points, feats, binds, ids, g, radius):
     """A p2i backward that drops the gradient to the point coordinates (a
     backward-only fault: the losses do not move)."""
-    pt, pf = P2I_BACKWARD(points, feats, ids, g, radius)
+    pt, pf = p2i_op.p2i_max_backward_plain(points, feats, binds, ids, g, radius)
     return torch.zeros_like(pt), pf
 
 
 def compare_gan_steps(gstate, dstate, partial, gt, calls, dev) -> None:
     """Phase 15: the kernel GAN step against a plain one replaying its kNN
     graphs and MDS picks (the masks come from one seed), all in
-    deterministic mode, with the training step's limits, and two controls."""
+    deterministic mode, with the training step's limits, and two controls.
+    The plain step also replays the kernel step's p2i backward: its plain
+    version scatters with index_add_, which sums each point's pixels in
+    another order, and the gradients that are exactly 0 in exact
+    arithmetic (ZERO_GRAD) carry that rounding at their own size; the
+    kernel is held to the plain version on the step's own inputs here."""
     r = GAN_CHECK_RADIUS
     with deterministic():
-        kern = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+        bwd: dict = {}
+        with swapped(p2i_bwd=recording(bwd)["p2i_bwd"]):
+            kern = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
+        for args, kw, out in bwd["p2i_bwd"]:
+            ok, err, msg = compare_rel(out, PLAIN["p2i_bwd"](*args, **kw))
+            log(f"  p2i backward of this step against its plain version: {msg}")
+            if not ok:
+                fail("p2i_bwd in the deterministic GAN step: kernel differs "
+                     "from the plain version")
         kern2 = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
         loss, rel, zero, worst = step_gaps(kern2, kern)
         log(f"  kernel GAN step twice: loss rel gap {loss:.3e}, gradient leaf "
@@ -938,11 +1034,12 @@ def compare_gan_steps(gstate, dstate, partial, gt, calls, dev) -> None:
 
         def fixed():
             return dict(knn=replay(calls["knn"]), mds=replay(calls["mds"]))
-        with swapped(**dict(PLAIN, **fixed())):
+        with swapped(**dict(PLAIN, **fixed(),
+                            p2i_bwd=replay(bwd["p2i_bwd"]))):
             p = run_gan(fresh_gan(gstate, dstate, dev), partial, gt, r)
         loss, rel, zero, worst = step_gaps(kern, p)
-        log(f"  kernel GAN step vs plain GAN step (kNN graphs, MDS picks and "
-            f"dropout masks replayed): losses {kern[0]} vs {p[0]}, loss rel "
+        log(f"  kernel GAN step vs plain GAN step (kNN graphs, MDS picks, "
+            f"dropout masks and p2i backward replayed): losses {kern[0]} vs {p[0]}, loss rel "
             f"gap {loss:.3e} (limit {STEP_LOSS_RTOL:g}), gradient leaf "
             f"relative-L2 gap {rel:.3e} ({worst}; limit {STEP_GRAD_REL:g}), "
             f"zero-gradient leaves {zero:.3e} (limit {STEP_ZERO_ABS:g})")
@@ -995,14 +1092,17 @@ def main_gan(gstate: dict, dstate: dict, dev) -> tuple[dict, dict]:
         if launches[name] < 1 or plain[name] != 0:
             fail(f"{name}: {launches[name]} launches, {plain[name]} plain calls "
                  f"in the GAN step")
-    if launches["p2i"] != 3:
-        fail(f"p2i: {launches['p2i']} launches in the GAN step, expected 3")
+    if launches["p2i"] != 3 or launches["p2i_bwd"] != 1:
+        fail(f"p2i: {launches['p2i']} launches and {launches['p2i_bwd']} of "
+             f"its backward in the GAN step, expected 3 and 1")
     if sum(plain.values()):
         fail(f"plain versions ran in the GAN step: {plain}")
     del models
 
-    log("phase 14: the p2i kernel on the inputs the GAN step gave it")
-    rows = check_forward_calls(calls, {"p2i": err}, ("p2i",), "GAN step")
+    log("phase 14: the p2i kernel and its backward on the inputs the GAN "
+        "step gave them")
+    rows = check_forward_calls(calls, {"p2i": err, "p2i_bwd": 0.0},
+                               ("p2i", "p2i_bwd"), "GAN step")
 
     log("phase 15: the kernel GAN step against the anchored plain GAN step")
     compare_gan_steps(gstate, dstate, partial, gt, calls, dev)
@@ -1112,12 +1212,12 @@ def replay_knn(kcalls, seen: list, perturb: bool = False):
     neighbour is replaced by the 9th nearest (a top-k off by one)."""
     it = iter(kcalls)
 
-    def knn_replay(x, k=8):
+    def knn_replay(x, k=8, packed=False):
         (x_k, *_), _, out = next(it)
         seen.append((x, x_k))
         if not perturb:
             return out
-        nine = knn.knn_plain(x_k, k + 1)
+        nine = plain_knn(x_k, k + 1, packed)
         return torch.cat([out[..., :k - 1], nine[..., k:]], -1)
     return knn_replay
 
@@ -1217,9 +1317,10 @@ _GROUPS = (("knn", ("knn_kernel", "sqnorm_kernel")),
            ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
 
 
-def profile_forward(model, partial) -> None:
+def profile_forward(model, partial, groups=None) -> None:
     """One profiled forward: device time by kernel group, busy share of
     the wall time (the profiler's own overhead counts as idle)."""
+    groups_def = groups or _GROUPS
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1234,9 +1335,9 @@ def profile_forward(model, partial) -> None:
     if not busy:
         fail("the profiler saw no device time")
         return
-    groups = dict.fromkeys([g for g, _ in _GROUPS] + ["other"], 0.0)
+    groups = dict.fromkeys([g for g, _ in groups_def] + ["other"], 0.0)
     for key, ms, _ in kernels:
-        name = next((g for g, pats in _GROUPS
+        name = next((g for g, pats in groups_def
                      if any(p in key.lower() for p in pats)), "other")
         groups[name] += ms
     log(f"  profile B={partial.shape[0]}: wall {wall_ms:.1f} ms, device busy "
@@ -1245,6 +1346,234 @@ def profile_forward(model, partial) -> None:
         log(f"    {g:10s} {ms:9.2f} ms  {100 * ms / busy:5.1f}% of busy")
     for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         log(f"    {ms:9.2f} ms  x{n:<4d} {key[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# phases 17-20: the serving-mode forward
+# ---------------------------------------------------------------------------
+
+SERVING_ARMS = ("batched", "hybrid", "exact")
+N_MDS = N_OUT + N_INPUT_POINTS                 # 19384 points the MDS sees
+HYBRID_PREFIX = N_OUT - mds.TAIL               # 14336 batched picks
+# Anchored serving forward (the plain forward replays the kernel forward's
+# kNN graphs and MDS picks): only the gather-max sums' reassociation could
+# separate the two, and the SE's bf16-rounded products could widen it to a
+# bf16 ulp of a scale. Readings on an H100 80GB HBM3 at 700 W: every stage
+# feature, coarse, middle and refine equal in all three arms. Limits: the
+# parity forward's anchored limits.
+SERVE_FEAT_ATOL, SERVE_COARSE_ATOL, SERVE_CHAMFER = (
+    ANCHOR_FEAT_ATOL, ANCHOR_COARSE_ATOL, ANCHOR_CHAMFER)
+
+
+def serving_model(state: dict, arm: str, dev):
+    """The flagship generator in serving mode with the MDS arm ``arm``,
+    holding ``state`` (the same parameters as the parity model)."""
+    model = build_generator(seed=0, device="cpu", serving=True, mds=arm)
+    model.load_state_dict(state)
+    return model.to(dev).eval()
+
+
+def continue_skipping_first_bump(xyz, temp0, orig, mml, steps):
+    """A continuation that pins its first pick but never adds that pick's
+    bump (a fault of the kernel's first step)."""
+    first = mds.mds_continue_plain(xyz, temp0, orig, mml, 1)
+    temp = temp0.clone()
+    temp.scatter_(1, first.long(), 1e9)
+    rest = mds.mds_continue_plain(xyz, temp, orig, mml, steps - 1)
+    return torch.cat([first, rest], 1)
+
+
+def check_random_serving(gen, dev) -> dict:
+    """Phase 17; returns each new kernel's largest error."""
+    errs = {"knn_packed": 0.0, "mds_continue": 0.0, "p2i_bwd": 0.0}
+
+    def verdict(name, what, res):
+        ok, err, msg = res
+        errs[name] = max(errs[name], err)
+        log(f"  {name} {what}: {msg}")
+        if not ok:
+            fail(f"{name} {what}: kernel differs from the plain version")
+
+    n = N_INPUT_POINTS
+    for c in KNN_WIDTHS:
+        x = (torch.rand(B_CHECK, n, c, generator=gen) - 0.5 if c == 3 else
+             torch.randn(B_CHECK, n, c, generator=gen))
+        if c == 3:                              # duplicated points: ties
+            x[:, n // 2:] = x[:, :n - n // 2]
+        x = x.to(dev)
+        verdict("knn_packed", f"C={c}", compare_exact(
+            knn.knn_idx(x, K, packed=True), knn.knn_packed_plain(x, K)))
+    # prefix states of the production hybrid: 19384 points (1/16 of the
+    # coarse ones duplicated: exact density ties), a batched prefix of
+    # 14336 picks (G 8192, every bump applied), its live lanes compacted
+    coarse = torch.rand(B_CHECK, N_OUT, 3, generator=gen) - 0.5
+    q = N_OUT // 16
+    coarse[:, q:2 * q] = coarse[:, :q]
+    partial = torch.rand(B_CHECK, n, 3, generator=gen) - 0.5
+    xyz = torch.cat([coarse, partial], 1).contiguous().to(dev)
+    mml = expansion_penalty.mean_mst_length_estimate(xyz[:, :N_OUT], PRIM_S, 1.33)
+    _, temp = mds.mds_batched(xyz, HYBRID_PREFIX, mml, g=mds.BATCH_G,
+                              schedule=(), return_state=True)
+    xc, tc, orig = mds.compact_live(xyz, temp, N_MDS - HYBRID_PREFIX)
+    got = mds.mds_continue(xc, tc, orig, mml, mds.TAIL)
+    verdict("mds_continue", f"{list(xc.shape)} from a {HYBRID_PREFIX}-pick "
+            f"prefix of {N_MDS}, {mds.TAIL} steps",
+            compare_exact(got, mds.mds_continue_plain(xc, tc, orig, mml, mds.TAIL)))
+    pts, feat, binds, n_img = splat_inputs(gen, dev, B_CHECK)
+    for radius in RADII:
+        _, ids = p2i_op.p2i_max(pts, feat, binds, n_img, IMG, IMG, radius, True)
+        g = torch.randn(n_img, IMG, IMG, 1, generator=gen).to(dev)
+        args = (pts, feat, binds, ids, g, radius)
+        got = p2i_op.p2i_max_backward(*args)
+        verdict("p2i_bwd", f"R={radius}, {pts.shape[0]} points, "
+                f"{int((ids >= 0).sum())} pixels won",
+                compare_rel(got, p2i_op.p2i_max_backward_plain(*args)))
+        again = p2i_op.p2i_max_backward(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  p2i_bwd R={radius}: two launches bit for bit equal: {same}")
+        if not same:
+            fail(f"p2i_bwd R={radius}: two launches differ")
+    return errs
+
+
+def serving_forward(state, arm, partial, dev):
+    """Phase 18, one arm: the serving forward at B=4 with counts set to 0
+    just before and read just after, its calls recorded."""
+    model = serving_model(state, arm, dev)
+    calls: dict = {}
+    with swapped(**recording(calls)):
+        _lib.reset_counts()
+        t = time.perf_counter()
+        outs = complete(model, partial)
+        torch.cuda.synchronize()
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+    mml = [c[0][2].tolist() for c in calls["mds_xyz"]]
+    log(f"  {arm}: {time.perf_counter() - t:.2f} s; mml per refine pass "
+        f"{mml}; launches {launches}, plain calls {plain}")
+    for name, v in zip(("coarse", "middle", "refine"), outs[:3]):
+        if v.shape != (B_CHECK, N_OUT, 3) or not bool(torch.isfinite(v).all()):
+            fail(f"serving {arm} {name}: shape {tuple(v.shape)} or non-finite")
+    if float(outs[3]) != 0.0:
+        fail(f"serving {arm}: loss_mst {float(outs[3])} is not 0")
+    want = dict.fromkeys(_lib.LAUNCHES, 0)
+    want.update(knn_packed=4, gather_max=4, mds=2 if arm == "exact" else 0,
+                mds_continue=2 if arm == "hybrid" else 0)
+    if launches != want or sum(plain.values()):
+        fail(f"serving {arm}: launches {launches}, expected {want}; plain "
+             f"calls {plain}")
+    return model, outs, calls, launches
+
+
+def compare_serving(model, partial, calls, outs, arm) -> None:
+    """Phase 19, one arm: the plain serving forward replaying the kernel
+    forward's kNN graphs and MDS picks."""
+    seen: list = []
+    fixed = dict(knn=replay_knn(calls["knn"], seen),
+                 mds_xyz=replay(calls["mds_xyz"]))
+    with swapped(**dict(PLAIN, **fixed)):
+        p = complete(model, partial)
+    feat = max(float((x - x_k).abs().max()) for x, x_k in seen)
+    c_err = float((outs[0] - p[0]).abs().max())
+    cds = {n: chamfer(a, b) for n, a, b in (("middle", outs[1], p[1]),
+                                            ("refine", outs[2], p[2]))}
+    log(f"  {arm} anchored: encoder stage features max abs {feat:.3e} (limit "
+        f"{SERVE_FEAT_ATOL:g}), coarse max abs {c_err:.3e} (limit "
+        f"{SERVE_COARSE_ATOL:g}), Chamfer middle {cds['middle']:.3e} refine "
+        f"{cds['refine']:.3e} (limit {SERVE_CHAMFER:g})")
+    if feat > SERVE_FEAT_ATOL or c_err > SERVE_COARSE_ATOL:
+        fail(f"serving {arm}: anchored features {feat:.3e} or coarse "
+             f"{c_err:.3e} beyond their limits")
+    for n, v in cds.items():
+        if v > SERVE_CHAMFER:
+            fail(f"serving {arm}: anchored {n} Chamfer {v:.3e} > {SERVE_CHAMFER:g}")
+
+
+def serving_controls(model, partial, calls) -> None:
+    """Phase 19's controls: a continuation skipping its first bump, held
+    against the hybrid forward's recorded continuation calls; a kNN top-k
+    off by one in the anchored serving forward."""
+    n_bad = 0
+    for args, kw, out in calls["mds_continue"]:
+        n_bad += int((continue_skipping_first_bump(*args, **kw) != out).sum())
+    caught = n_bad > 0
+    log(f"  control, continuation skipping its first bump: {n_bad} of "
+        f"{sum(c[2].numel() for c in calls['mds_continue'])} tail picks "
+        f"differ from the kernel's: {'caught' if caught else 'NOT caught'}")
+    if not caught:
+        fail("the continuation check does not see a skipped first bump")
+    seen: list = []
+    fixed = dict(knn=replay_knn(calls["knn"], seen, perturb=True),
+                 mds_xyz=replay(calls["mds_xyz"]))
+    with swapped(**dict(PLAIN, **fixed)), torch.no_grad():
+        c = model.decoder(model.encoder(partial))
+    feat = max(float((x - x_k).abs().max()) for x, x_k in seen)
+    caught = feat > SERVE_FEAT_ATOL
+    log(f"  control, kNN top-k off by one (9th for 8th): encoder stage "
+        f"features max abs {feat:.3e}: {'caught' if caught else 'NOT caught'}")
+    if not caught:
+        fail("the anchored serving check does not see a kNN off by one")
+
+
+def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
+    """Phases 18-19; returns (per-arm launches, kernel rows)."""
+    log(f"phase 18: the serving forward, {N_INPUT_POINTS} -> {N_OUT} at "
+        f"B={B_CHECK}, in each MDS arm {SERVING_ARMS}")
+    runs = {arm: serving_forward(state, arm, partial, dev) for arm in SERVING_ARMS}
+
+    log("phase 19: the kernel serving forward against the plain one")
+    model, outs, calls, _ = runs["hybrid"]
+    rows = check_forward_calls({"knn_packed": calls["knn"],
+                                "mds_continue": calls["mds_continue"]},
+                               errs, ("knn_packed", "mds_continue"),
+                               "serving forward")
+    for arm, (model, outs, calls, _) in runs.items():
+        compare_serving(model, partial, calls, outs, arm)
+    serving_controls(*runs["hybrid"][:1], partial, runs["hybrid"][2])
+    for arm, (_, outs, _, _) in runs.items():
+        cds = [chamfer(a, b) for a, b in zip(outs[:3], parity_outs[:3])]
+        log(f"  reading, {arm} against parity (free-running, random "
+            f"weights; no gate): Chamfer coarse {cds[0]:.3e} middle "
+            f"{cds[1]:.3e} refine {cds[2]:.3e}")
+    return {arm: r[3] for arm, r in runs.items()}, rows
+
+
+_SERVE_GROUPS = (("knn (packed)", ("knn_packed_kernel", "sqnorm_seq_kernel")),
+                 ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
+                 ("mds (exact)", ("mds_kernel",)),
+                 ("mds continuation", ("mds_continue_kernel",)),
+                 ("sort", ("radix", "sort")),
+                 ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
+
+
+def serving_throughput(state: dict, parity_state: dict, gen, dev) -> None:
+    """Phase 20: B=32 forwards in each serving arm beside parity (CUDA
+    events, 3 forwards after one warm-up), each arm's MDS calls timed on
+    their own inputs, and one profiled forward each for batched and
+    hybrid."""
+    partial = (torch.rand(B_BENCH, N_INPUT_POINTS, 3, generator=gen) - 0.5).to(dev)
+    parity = build_generator(seed=0, device="cpu")
+    parity.load_state_dict(parity_state)
+    parity = parity.to(dev).eval()
+    ms = {"parity": cuda_ms(lambda: complete(parity, partial), reps=3)}
+    del parity
+    for arm in SERVING_ARMS:
+        model = serving_model(state, arm, dev)
+        ms[arm] = cuda_ms(lambda: complete(model, partial), reps=3)
+        calls: dict = {}
+        with swapped(**recording(calls)):
+            complete(model, partial)
+        mds_ms = sum(cuda_ms(lambda: mds.minimum_density_sample_xyz(*a, **kw),
+                             reps=3) for a, kw, _ in calls["mds_xyz"])
+        log(f"  {arm}: {ms[arm]:.1f} ms per forward, "
+            f"{B_BENCH / (ms[arm] / 1e3):.2f} clouds/s; its two MDS calls "
+            f"{mds_ms:.2f} ms ({100 * mds_ms / ms[arm]:.1f}%)")
+        if arm in ("batched", "hybrid"):
+            profile_forward(model, partial, _SERVE_GROUPS)
+        del model, calls
+    log(f"  B={B_BENCH} on {nvidia_smi()}: parity {ms['parity']:.1f} ms "
+        f"({B_BENCH / (ms['parity'] / 1e3):.2f} clouds/s), "
+        + ", ".join(f"{a} {ms[a]:.1f} ms ({ms['parity'] / ms[a]:.3f}x)"
+                    for a in SERVING_ARMS))
 
 
 def main() -> int:
@@ -1323,6 +1652,7 @@ def main() -> int:
     profile_forward(model, partial32)
 
     train_state = snapshot(model)
+    parity_outs = [o.clone() for o in outs[:3]]
     del model, partial32, outs
     t_launches, t_rows, _ = main_train(train_state, dev)
     results.update(t_rows)
@@ -1336,6 +1666,19 @@ def main() -> int:
     results.update(g_rows)
     log(f"phase 16: GAN throughput at B={B_GAN} (sparenet_gan.yaml)")
     gan_throughput(train_state, disc_state, gen, dev)
+
+    log(f"phase 17: the serving kernels (packed kNN, MDS continuation) and "
+        f"the p2i backward against their plain versions, random inputs "
+        f"(B={B_CHECK})")
+    s_errs = check_random_serving(torch.Generator().manual_seed(7), dev)
+    results["p2i_bwd"]["max_abs_err"] = max(results["p2i_bwd"]["max_abs_err"],
+                                            s_errs["p2i_bwd"])
+    s_launches, s_rows = main_serving(train_state, partial, parity_outs,
+                                      s_errs, dev)
+    results.update(s_rows)
+    log(f"phase 20: serving throughput at B={B_BENCH} in each MDS arm, "
+        f"beside parity")
+    serving_throughput(train_state, train_state, gen, dev)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -1356,11 +1699,22 @@ def main() -> int:
                            "sparenet_tpu/ops/pallas/edge_train_pallas.py:157"),
         "p2i": ("sparenet_tpu_torch/csrc/p2i.cu",
                 "sparenet_tpu/ops/pallas/p2i_pallas.py:272"),
+        "knn_packed": ("sparenet_tpu_torch/csrc/knn.cu",
+                       "sparenet_tpu/ops/pallas/knn_pallas.py:70"),
+        "mds_continue": ("sparenet_tpu_torch/csrc/mds.cu",
+                         "sparenet_tpu/ops/pallas/mds_pallas.py:237"),
+        "p2i_bwd": ("sparenet_tpu_torch/csrc/p2i.cu",
+                    "sparenet_tpu/ops/p2i.py:258"),
     }
     # launches: each kernel's count on its own main path (the eval forward
-    # for the first four, the training step for the rest)
+    # for the first four, the training step for the next four, the GAN step
+    # for p2i and its backward, the hybrid serving forward for the packed
+    # kNN and the continuation)
     counts = {**{k: launches[k] for k in EVAL_OPS},
-              **{k: t_launches[k] for k in TRAIN_OPS}, "p2i": g_launches["p2i"]}
+              **{k: t_launches[k] for k in TRAIN_OPS}, "p2i": g_launches["p2i"],
+              "p2i_bwd": g_launches["p2i_bwd"],
+              "knn_packed": s_launches["hybrid"]["knn_packed"],
+              "mds_continue": s_launches["hybrid"]["mds_continue"]}
     kernels = []
     for name, (src, rep) in meta.items():
         r = results[name]
@@ -1370,12 +1724,6 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "state": "ported"})
-    # the one TPU kernel not ported yet: no source, nothing measured
-    kernels.append({"name": "mds_continue", "route": "cuda", "source": None,
-                    "replaces": "sparenet_tpu/ops/pallas/mds_pallas.py:237",
-                    "launches": None, "max_abs_err": None, "ms": None,
-                    "plain_ms": None, "bound_ms": None, "bound_by": None,
-                    "library_ms": None, "state": "to port"})
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

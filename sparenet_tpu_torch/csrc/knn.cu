@@ -22,6 +22,18 @@
 // candidate tile and its running top-8 as (distance, index) pairs in
 // registers, inserted in lexicographic order so ties keep the lowest index.
 // The products run on the fp32 pipes (no tensor cores yet).
+//
+// Packed arm (serving mode; spn_knn_packed): the arm of the same Pallas entry
+// that knn_pallas.py:_knn_onechunk_kernel runs with packed=True. The distance
+// is one bf16 pass with f32 accumulation, d = max(|x|^2 + |y|^2 - 2 xh.yh, 0)
+// (|x|^2 from the f32 values, summed in channel order), and each candidate
+// is ranked by one int32 key: the f32 bits of d with their low `bits` bits
+// cleared (bits = bit_length(n_pad - 1), n_pad = n rounded up to 128) and
+// the candidate index in them. The 8 smallest keys are the neighbours, so a
+// tie of truncated distances goes to the lowest index. Products of two bf16
+// values are exact in f32, so the sequential fma over channels is the plain
+// version's sequential sum. Bound: operations, 2*B*N*N*C flops (one fma per
+// triple).
 #include "common.cuh"
 
 namespace {
@@ -142,6 +154,99 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ sq, int n,
   }
 }
 
+__global__ void sqnorm_seq_kernel(const float* __restrict__ x, int rows, int c,
+                                  float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const float* p = x + (size_t)r * c;
+  float s = 0.f;
+  for (int i = 0; i < c; ++i) s = __fadd_rn(s, __fmul_rn(p[i], p[i]));
+  out[r] = s;
+}
+
+__global__ void __launch_bounds__(kQT)
+knn_packed_kernel(const float* __restrict__ x, const float* __restrict__ sq,
+                  int n, int c, int bits, int* __restrict__ out) {
+  __shared__ float qh[kQT][kCC + 1];
+  __shared__ __align__(16) float yh[kCC][kCTP];
+  __shared__ float yn[kCT];
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kQT;
+  const int t = threadIdx.x;
+  const int q = q0 + t;
+  const float* xb = x + (size_t)b * n * c;
+  const float* sqb = sq + (size_t)b * n;
+  const float xq2 = q < n ? sqb[q] : 0.f;
+  const int mask = -(1 << bits);
+
+  int bk[kK];
+#pragma unroll
+  for (int s = 0; s < kK; ++s) bk[s] = INT_MAX;
+
+  for (int j0 = 0; j0 < n; j0 += kCT) {
+    float acc[kCT];
+#pragma unroll
+    for (int j = 0; j < kCT; ++j) acc[j] = 0.f;
+
+    for (int c0 = 0; c0 < c; c0 += kCC) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      for (int e = t; e < kQT * kCC; e += kQT) {
+        const int r = e / kCC, cc = e % kCC;
+        const int row = q0 + r, ch = c0 + cc;
+        qh[r][cc] = spn::bf16_round(
+            (row < n && ch < c) ? xb[(size_t)row * c + ch] : 0.f);
+      }
+      for (int e = t; e < kCT * kCC; e += kQT) {
+        const int r = e / kCC, cc = e % kCC;
+        const int row = j0 + r, ch = c0 + cc;
+        yh[cc][r] = spn::bf16_round(
+            (row < n && ch < c) ? xb[(size_t)row * c + ch] : 0.f);
+      }
+      if (c0 == 0 && t < kCT) yn[t] = (j0 + t < n) ? sqb[j0 + t] : 0.f;
+      __syncthreads();
+
+#pragma unroll
+      for (int cc = 0; cc < kCC; ++cc) {
+        const float xh = qh[t][cc];
+#pragma unroll
+        for (int j = 0; j < kCT; j += 4) {
+          const float4 h4 = *reinterpret_cast<const float4*>(&yh[cc][j]);
+          acc[j + 0] = __fmaf_rn(xh, h4.x, acc[j + 0]);
+          acc[j + 1] = __fmaf_rn(xh, h4.y, acc[j + 1]);
+          acc[j + 2] = __fmaf_rn(xh, h4.z, acc[j + 2]);
+          acc[j + 3] = __fmaf_rn(xh, h4.w, acc[j + 3]);
+        }
+      }
+    }
+
+    // keys are unique (the index is in them): a plain sorted insert
+#pragma unroll
+    for (int j = 0; j < kCT; ++j) {
+      const int cand = j0 + j;
+      if (cand < n) {
+        const float d = fmaxf(
+            __fsub_rn(__fadd_rn(xq2, yn[j]), __fmul_rn(2.f, acc[j])), 0.f);
+        int key = (__float_as_int(d) & mask) | cand;
+        if (key < bk[kK - 1]) {
+#pragma unroll
+          for (int s = 0; s < kK; ++s) {
+            const int lo = min(key, bk[s]);
+            key = max(key, bk[s]);
+            bk[s] = lo;
+          }
+        }
+      }
+    }
+  }
+
+  if (q < n) {
+    int* o = out + ((size_t)b * n + q) * kK;
+#pragma unroll
+    for (int s = 0; s < kK; ++s) o[s] = bk[s] & ((1 << bits) - 1);
+  }
+}
+
 }  // namespace
 
 extern "C" int spn_knn(const float* x, float* sqnorm, int batch, int n, int c,
@@ -154,5 +259,21 @@ extern "C" int spn_knn(const float* x, float* sqnorm, int batch, int n, int c,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + kQT - 1) / kQT, batch);
   knn_kernel<<<grid, kQT, 0, st>>>(x, sqnorm, n, c, out);
+  return (int)cudaGetLastError();
+}
+
+// bits: the low key bits the index takes, bit_length(n_pad - 1).
+extern "C" int spn_knn_packed(const float* x, float* sqnorm, int batch, int n,
+                              int c, int k, int bits, int* out, void* stream) {
+  if (batch < 1 || n < k || c < 1 || k != kK || bits < 1 || bits > 30 ||
+      (n - 1) >> bits)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = batch * n;
+  sqnorm_seq_kernel<<<(rows + 255) / 256, 256, 0, st>>>(x, rows, c, sqnorm);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kQT - 1) / kQT, batch);
+  knn_packed_kernel<<<grid, kQT, 0, st>>>(x, sqnorm, n, c, bits, out);
   return (int)cudaGetLastError();
 }

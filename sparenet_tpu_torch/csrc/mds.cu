@@ -39,6 +39,14 @@ constexpr int kHeavyFrom = 8192;
 constexpr float kBig = 1e9f;
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
 
+// The argmin's comparison value: a NaN density is the minimum (the first
+// NaN wins, as argmin in the reference and in PyTorch). Densities turn NaN
+// when t = 0, i.e. a cloud whose mml estimate is 0 (every primitive
+// collapsed onto one point); real densities are >= 0, never -inf.
+__device__ __forceinline__ float nan_first(float v) {
+  return isnan(v) ? -__int_as_float(0x7f800000) : v;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 mds_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
            int n, int npoint, int* __restrict__ out) {
@@ -93,8 +101,115 @@ mds_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
         const float w = i >= kHeavyFrom ? 2.f : 1.f;
         const float tv = __fadd_rn(i == last ? kBig : temp[l], __fmul_rn(w, e));
         temp[l] = tv;
-        if (tv < bv) {  // lanes ascend in index: strict < keeps the lowest
-          bv = tv;
+        const float key = nan_first(tv);
+        if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
+          bv = key;
+          bi = i;
+          bz = z[l];
+        }
+      }
+    }
+    spn::warp_argmin_payload(bv, bi, bz);
+    if (lane == 0) {
+      wv[warp] = bv;
+      wi[warp] = bi;
+      wz[warp] = bz;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bv = lane < kWarps ? wv[lane] : inf;
+      bi = lane < kWarps ? wi[lane] : INT_MAX;
+      bz = lane < kWarps ? wz[lane] : 0.f;
+      spn::warp_argmin_payload(bv, bi, bz);
+      if (lane == 0) {
+        s_pick = bi;
+        s_z = bz;
+        ob[j] = bi;
+      }
+    }
+    __syncthreads();
+    last = s_pick;
+    lz = s_z;
+  }
+}
+
+// Greedy continuation (kernel #5): steps more picks from a density state.
+//   xyz [B, N, 3] live-lane coordinates, temp0 [B, N] densities with every
+//   earlier bump applied, orig [B, N] int32 original index (>= 8192: weight
+//   2), t [B] -> lane indices [B, steps] int32.
+// Replaces: sparenet_tpu/ops/pallas/mds_pallas.py:mds_pallas_continue (via
+// _run_stage), the exact tail of the hybrid schedule (ops/mds.py:
+// _mds_hybrid). Semantics: that function's XLA tail: each step takes the
+// lowest-lane argmin, pins it to 1e9, then adds w * exp(-d2 / t) to every
+// density (d2 the sqdist3 fma chain, exp flushed to 0 below the smallest
+// normal). The lanes are compacted by the caller with a stable sort, so the
+// lowest lane is the lowest original index and the picks are those of the
+// full-width tail. Coordinates stay f32 (the TPU kernel's bf16 coordinates
+// under fast math are not carried).
+//
+// Bound on an H100: latency of steps dependent steps, each an N-wide update
+// and a block argmin; one block a cloud keeps B of the 132 SMs busy, as
+// mds_kernel does. Design: mds_kernel's, with kContLanes points a thread
+// (N <= 5120; the hybrid's tail has 5048 live lanes), the weights from
+// orig, and no pending bump before the first argmin: the state starts at
+// temp0.
+constexpr int kContLanes = 10;
+
+__global__ void __launch_bounds__(kThreads, 1)
+mds_continue_kernel(const float* __restrict__ xyz,
+                    const float* __restrict__ temp0,
+                    const int* __restrict__ orig,
+                    const float* __restrict__ tparam, int n, int steps,
+                    int* __restrict__ out) {
+  __shared__ float sx[kContLanes * kThreads], sy[kContLanes * kThreads];
+  __shared__ float wv[kWarps], wz[kWarps];
+  __shared__ int wi[kWarps];
+  __shared__ int s_pick;
+  __shared__ float s_z;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  const float* p = xyz + (size_t)b * n * 3;
+  int* ob = out + (size_t)b * steps;
+
+  float z[kContLanes], temp[kContLanes], w[kContLanes];
+#pragma unroll
+  for (int l = 0; l < kContLanes; ++l) {
+    const int i = tid + l * kThreads;
+    const bool live = i < n;
+    sx[i] = live ? p[3 * i + 0] : 0.f;
+    sy[i] = live ? p[3 * i + 1] : 0.f;
+    z[l] = live ? p[3 * i + 2] : 0.f;
+    temp[l] = live ? temp0[(size_t)b * n + i] : inf;
+    w[l] = (live && orig[(size_t)b * n + i] >= kHeavyFrom) ? 2.f : 1.f;
+  }
+  const float t = tparam[b];
+  int last = -1;
+  float lz = 0.f;
+  __syncthreads();
+
+  for (int j = 0; j < steps; ++j) {
+    const bool bump = j > 0;
+    const float lx = bump ? sx[last] : 0.f, ly = bump ? sy[last] : 0.f;
+    float bv = inf, bz = 0.f;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int l = 0; l < kContLanes; ++l) {
+      const int i = tid + l * kThreads;
+      if (i < n) {
+        float tv = temp[l];
+        if (bump) {
+          const float d2 = spn::sqdist3(sx[i] - lx, sy[i] - ly, z[l] - lz);
+          float e = expf(__fdiv_rn(-d2, t));
+          if (e < kTiny) e = 0.f;
+          tv = __fadd_rn(i == last ? kBig : tv, __fmul_rn(w[l], e));
+          temp[l] = tv;
+        }
+        const float key = nan_first(tv);
+        if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
+          bv = key;
           bi = i;
           bz = z[l];
         }
@@ -139,5 +254,21 @@ extern "C" int spn_mds(const float* xyz, const float* t, int batch, int n,
   if (err != cudaSuccess) return (int)err;
   mds_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xyz, t, n, npoint, out);
+  return (int)cudaGetLastError();
+}
+
+// Largest live-lane count and step count the continuation takes (the TPU
+// kernel's pin encoding holds step < 2^14; kept as the same contract).
+extern "C" int spn_mds_continue_max_points(void) { return kContLanes * kThreads; }
+extern "C" int spn_mds_continue_max_steps(void) { return 1 << 14; }
+
+extern "C" int spn_mds_continue(const float* xyz, const float* temp0,
+                                const int* orig, const float* t, int batch,
+                                int n, int steps, int* out, void* stream) {
+  if (batch < 1 || n < 1 || n > kContLanes * kThreads || steps < 1 ||
+      steps > n || steps > (1 << 14))
+    return (int)cudaErrorInvalidValue;
+  mds_continue_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xyz, temp0, orig, t, n, steps, out);
   return (int)cudaGetLastError();
 }

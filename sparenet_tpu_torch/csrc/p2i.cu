@@ -32,6 +32,14 @@
 // float bits of out itself does. The pixel is read before the atomic, which
 // is skipped when the candidate is not above it (values only grow, so a
 // stale read only costs an atomic). No tiles: any H, W and R.
+//
+// The backward (p2i_bwd_kernel, spn_p2i_max_backward) computes the JAX
+// package's _p2i_max_bwd (sparenet_tpu/ops/p2i.py), which XLA runs there:
+// one thread a point gathers the pixels its id won over the same window, in
+// a fixed order, instead of scattering every pixel's gradient into its
+// winner (two index_add_ in the plain version, which deterministic mode
+// replaces by sort-based kernels). Bound: bytes, the window's ids read a
+// point.
 #include <algorithm>
 
 #include "common.cuh"
@@ -47,22 +55,30 @@ __constant__ float kCos[10] = {
     -0x1.a6d1f2p-7f, 0x1.f9d38ap-11f, -0x1.b6e250p-15f, 0x1.20c62cp-19f,
     -0x1.2a0c5ap-24f, 0x1.ef6e30p-30f};
 
-// f * w(r) at pixel (iy, ix) of a point at (y, x), or 0 when the pixel is
-// beyond R.
-__device__ __forceinline__ float splat_value(int iy, int ix, float y, float x,
-                                             float f, float radius,
-                                             float inv_r) {
-  const float dy = __fsub_rn((float)iy, y);
-  const float dx = __fsub_rn((float)ix, x);
-  const float r = __fsqrt_rn(__fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)));
-  if (!(r <= radius)) return 0.f;
+// w(r) = 1 + sum_k c_k s^k, s = (r / R)^2 as (r * (1 / R))^2, by Horner
+// with one rounding a step.
+__device__ __forceinline__ float cos_weight(float r, float inv_r) {
   const float s = __fmul_rn(r, inv_r);
   const float s2 = __fmul_rn(s, s);
   float w = kCos[9];
 #pragma unroll
   for (int k = 8; k >= 0; --k) w = __fmaf_rn(w, s2, kCos[k]);
-  w = __fmaf_rn(w, s2, 1.f);
-  return __fmul_rn(w, f);
+  return __fmaf_rn(w, s2, 1.f);
+}
+
+// sqrt(dy * dy + dx * dx), no fma.
+__device__ __forceinline__ float pixel_distance(float dy, float dx) {
+  return __fsqrt_rn(__fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)));
+}
+
+// f * w(r) at pixel (iy, ix) of a point at (y, x), or 0 when the pixel is
+// beyond R.
+__device__ __forceinline__ float splat_value(int iy, int ix, float y, float x,
+                                             float f, float radius,
+                                             float inv_r) {
+  const float r = pixel_distance(__fsub_rn((float)iy, y), __fsub_rn((float)ix, x));
+  if (!(r <= radius)) return 0.f;
+  return __fmul_rn(cos_weight(r, inv_r), f);
 }
 
 template <bool kIds>
@@ -112,6 +128,59 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ packed,
   }
 }
 
+// Backward of the max splat: each point gathers the gradients of the pixels
+// it won (ids[pixel] == its id), visiting its window in row-major order, so
+// the sums have one fixed order and no atomics (deterministic by
+// construction). For a won pixel at distance r, with g its gradient:
+//   d feat   += g * w(r)
+//   d (y, x) += k * (dy, dx),  k = g f sin(pi r / R) (pi / 2R) / max(r, 1e-10)
+// with dy = iy - y, dx = ix - x, each term in the plain version's order of
+// operations on the card (ops/p2i.py:p2i_max_backward_plain; the JAX
+// package's _p2i_max_bwd), each point's terms summed in pixel order (the
+// plain version's index_add_ sums them in its own order: the two agree to
+// rounding).
+__global__ void __launch_bounds__(kThreads)
+p2i_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ feat,
+               const int* __restrict__ binds, const int* __restrict__ ids,
+               const float* __restrict__ g, int n_points, int n_images, int h,
+               int w, float radius, int k, float* __restrict__ gpts,
+               float* __restrict__ gfeat) {
+  const float inv_r = __frcp_rn(radius);
+  const float pi = 3.14159265358979323846f;
+  for (int p = blockIdx.x * kThreads + threadIdx.x; p < n_points;
+       p += gridDim.x * kThreads) {
+    const int bi = binds[p];
+    const float y = pts[2 * (size_t)p], x = pts[2 * (size_t)p + 1];
+    const float f = feat[p];
+    float gy = 0.f, gx = 0.f, gf = 0.f;
+    if (bi >= 0 && bi < n_images) {
+      const int y0 = (int)floorf(__fsub_rn(y, radius));
+      const int x0 = (int)floorf(__fsub_rn(x, radius));
+      for (int iy = max(y0, 0); iy < min(y0 + k, h); ++iy) {
+        const size_t row = ((size_t)bi * h + iy) * w;
+        for (int ix = max(x0, 0); ix < min(x0 + k, w); ++ix) {
+          if (ids[row + ix] != p) continue;
+          const float gv = g[row + ix];
+          const float dy = __fsub_rn((float)iy, y);
+          const float dx = __fsub_rn((float)ix, x);
+          const float r = pixel_distance(dy, dx);
+          gf = __fadd_rn(gf, __fmul_rn(gv, cos_weight(r, inv_r)));
+          // a division by the scalar R is a product with 1 / R, as in
+          // PyTorch's CUDA division by a host scalar
+          const float sn = sinf(__fmul_rn(__fmul_rn(r, pi), inv_r));
+          float kf = __fmul_rn(__fmul_rn(__fmul_rn(gv, f), sn), 0.5f);
+          kf = __fdiv_rn(__fmul_rn(__fmul_rn(kf, pi), inv_r), fmaxf(r, 1e-10f));
+          gy = __fadd_rn(gy, __fmul_rn(kf, dy));
+          gx = __fadd_rn(gx, __fmul_rn(kf, dx));
+        }
+      }
+    }
+    gpts[2 * (size_t)p] = gy;
+    gpts[2 * (size_t)p + 1] = gx;
+    gfeat[p] = gf;
+  }
+}
+
 int blocks_for(size_t n) {
   return (int)std::min<size_t>((n + kThreads - 1) / kThreads, 132 * 64);
 }
@@ -146,5 +215,22 @@ extern "C" int spn_p2i_max(const float* pts, const float* feat,
   if (n_points > 0)
     splat_kernel<false><<<blocks_for(n_points), kThreads, 0, s>>>(
         pts, feat, binds, n_points, n_images, h, w, radius, k, out, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// Gradients of sum(g * out) for the winner ids of a splat: g, ids
+// [B, H, W] -> d points [P, 2], d feats [P] (every entry written).
+extern "C" int spn_p2i_max_backward(const float* pts, const float* feat,
+                                    const int* binds, const int* ids,
+                                    const float* g, int n_points, int n_images,
+                                    int h, int w, float radius, int k,
+                                    float* gpts, float* gfeat, void* stream) {
+  if (n_points < 1 || n_images < 1 || h < 1 || w < 1 || k < 1 ||
+      !(radius > 0.f))
+    return (int)cudaErrorInvalidValue;
+  p2i_bwd_kernel<<<blocks_for(n_points), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      pts, feat, binds, ids, g, n_points, n_images, h, w, radius, k, gpts,
+      gfeat);
   return (int)cudaGetLastError();
 }

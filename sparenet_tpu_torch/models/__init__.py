@@ -52,13 +52,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def build_generator(*, seed: int = 0, device=None, **config) -> SpareNetGenerator:
+def build_generator(*, seed: int = 0, device=None, serving: bool = False,
+                    mds: str = "auto", mml_calibration: float = 1.33,
+                    **config) -> SpareNetGenerator:
     """The flagship generator (``FLAGSHIP``, overridable by keyword) in eval
     mode on ``device``, with the reference's initialisation drawn on the CPU
-    from ``torch.Generator().manual_seed(seed)``."""
+    from ``torch.Generator().manual_seed(seed)``.
+
+    ``serving=True`` builds the reference's serving mode (``bench.py``'s
+    default: ``SPARENET_FAST_MATH=1`` with bf16 matmuls) with the MDS arm
+    ``mds`` ("auto" = "batched", "hybrid" or "exact") and the mml estimate's
+    ``mml_calibration``; the batched arms' G, schedule and tail default to
+    the reference's (``mds_g``, ``mds_schedule``, ``mds_tail`` override
+    them). The same parameters serve both modes."""
     dev = resolve_device(device)
     set_parity_mode()
-    model = SpareNetGenerator(**{**FLAGSHIP, **config})
+    model = SpareNetGenerator(**{**FLAGSHIP, **config}, serving=serving,
+                              mds=mds, mml_calibration=mml_calibration)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
@@ -66,7 +76,8 @@ def build_generator(*, seed: int = 0, device=None, **config) -> SpareNetGenerato
 @torch.no_grad()
 def complete(model: SpareNetGenerator, partial: torch.Tensor):
     """Eval forward on the model's device: partial [B, N_in, 3] ->
-    (coarse, middle, refine [B, num_points, 3], loss_mst)."""
+    (coarse, middle, refine [B, num_points, 3], loss_mst), in the mode the
+    model was built with (loss_mst is 0 in serving mode)."""
     set_parity_mode()
     dev = next(model.parameters()).device
     resolve_device(dev)

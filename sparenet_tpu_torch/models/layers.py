@@ -12,6 +12,15 @@ The 32 per-primitive folding decoders are one ``GridDecoderStack`` with
 stacked weights [P, out, in] and batched products; a load hook stacks the
 reference's per-primitive keys.
 
+Serving mode (eval with ``serving=True``, the reference's
+``SPARENET_FAST_MATH=1`` under ``bench.py``'s bf16 matmul precision) runs the
+wide chains as flax's ``dtype=bfloat16`` does (``serving_dtype``): the
+encoder's conv5 tail, the folding decoders and the residual refiner take
+bf16 inputs and parameters and give bf16 outputs (``dense``; BatchNorm and
+AdaIN compute in f32 and round to bf16 where flax does). Every other
+product of the network runs at the bf16 precision too (``product_bf16``:
+bf16 operands on cuBLAS, the result widened to f32).
+
 Train-mode BatchNorm follows the JAX package (flax), not ``nn.BatchNorm``'s
 own training update: statistics over every axis but the channel, the
 variance biased and computed as max(mean(x^2) - mean(x)^2, 0), and the
@@ -30,7 +39,7 @@ from torch import nn
 from ..ops import edge_gather, gather, knn
 
 __all__ = [
-    "conv1x1", "bn_eval", "bn_affine", "bn_apply", "bn_train_stats",
+    "serving_dtype", "dense", "product_bf16", "conv1x1", "bn_eval", "bn_affine", "bn_apply", "bn_train_stats",
     "external_stats_affine", "SELayer", "EdgeConvResFeat",
     "adaptive_instance_norm", "grid_decoder_adain_sizes", "num_adain_params",
     "split_adain_params", "StackedLinear", "StackedBatchNorm", "StackedSE",
@@ -42,18 +51,47 @@ __all__ = [
 # 1x1 convolutions, BatchNorm (eval), squeeze-excitation
 # ---------------------------------------------------------------------------
 
-def conv1x1(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def serving_dtype(module: nn.Module):
+    """bf16 for a module in serving mode's eval (``module.serving`` and not
+    training), else None (f32): the reference's serving_dtype."""
+    serving = getattr(module, "serving", False) and not module.training
+    return torch.bfloat16 if serving else None
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias=None, dtype=None):
+    """x [..., in] -> [..., out] with weight [out, in]: in f32 for dtype
+    None; for bf16 as flax's Dense(dtype=bf16): input, weight and bias cast
+    to bf16, one bf16 GEMM (f32 accumulation, bf16 result), the bias added
+    in bf16."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+def product_bf16(x: torch.Tensor, weight: torch.Tensor, bias=None, on=True):
+    """An f32 layer's product at serving precision (``on``): bf16 operands,
+    one bf16 GEMM, the result widened to f32, then the f32 bias; with
+    ``on`` False, the f32 product."""
+    if not on:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(torch.bfloat16), weight.to(torch.bfloat16)).float()
+    return y if bias is None else y + bias
+
+
+def conv1x1(conv: nn.Module, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """A 1x1 Conv1d/Conv2d (weight [out, in, 1(, 1)]) applied over the last
-    axis of channel-last x [..., in]."""
+    axis of channel-last x [..., in] (``dense`` with ``dtype``)."""
     w = conv.weight.reshape(conv.weight.shape[0], -1)
-    return F.linear(x, w, conv.bias)
+    return dense(x, w, conv.bias, dtype)
 
 
 def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode BatchNorm over the last axis, in flax's order of operations:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, computed in f32 and
+    returned in x's dtype (flax's BatchNorm(dtype=bf16))."""
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return (x - bn.running_mean) * mul + bn.bias
+    return ((x - bn.running_mean) * mul + bn.bias).to(x.dtype)
 
 
 _MOMENTUM = 0.9  # flax's EMA decay (torch momentum 0.1)
@@ -117,10 +155,17 @@ class SELayer(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, x: torch.Tensor, mean: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, mean: torch.Tensor | None = None,
+                serving: bool = False):
+        """``serving``: the two products at bf16 precision, the scale
+        rounded to x's dtype before the multiply (the reference's order)."""
         if mean is None:
-            mean = x.mean(dim=tuple(range(1, x.dim() - 1)))
-        y = self.fc(mean)
+            mean = x.float().mean(dim=tuple(range(1, x.dim() - 1)))
+        if serving:
+            h = F.relu(product_bf16(mean, self.fc[0].weight))
+            y = torch.sigmoid(product_bf16(h, self.fc[2].weight)).to(x.dtype)
+        else:
+            y = self.fc(mean)
         return x * y.reshape(y.shape[0], *([1] * (x.dim() - 2)), y.shape[1])
 
 
@@ -150,10 +195,12 @@ class EdgeConvResFeat(nn.Module):
     """
 
     def __init__(self, k: int = 8, hide_size: int = 4096,
-                 output_size: int = 4096, use_selayer: bool = False):
+                 output_size: int = 4096, use_selayer: bool = False,
+                 serving: bool = False):
         super().__init__()
         self.k = k
         self.use_selayer = use_selayer
+        self.serving = serving
         h = hide_size
         widths = [(3, h // 16), (h // 16, h // 16), (h // 16, h // 8),
                   (h // 8, h // 4)]
@@ -171,11 +218,15 @@ class EdgeConvResFeat(nn.Module):
     def _stage(self, feat: torch.Tensor, i: int) -> torch.Tensor:
         if self.training:
             return self._train_stage(feat, i)
-        nbr = knn.knn_idx(feat, self.k)                        # [B, N, k]
+        return self._eval_stage(feat, i)
+
+    def _eval_stage(self, feat: torch.Tensor, i: int) -> torch.Tensor:
+        serving = self.serving
+        nbr = knn.knn_idx(feat, self.k, packed=serving)        # [B, N, k]
         c = feat.shape[-1]
         w = getattr(self, f"conv{i}").weight.reshape(-1, 2 * c)
-        g1 = F.linear(feat, w[:, :c])
-        diff = F.linear(feat, w[:, c:]) - g1
+        g1 = product_bf16(feat, w[:, :c], on=serving)
+        diff = product_bf16(feat, w[:, c:], on=serving) - g1
         a, b0 = bn_affine(getattr(self, f"bn{i}"))
         g1s = g1 * a
         if not self.use_selayer:
@@ -184,7 +235,8 @@ class EdgeConvResFeat(nn.Module):
         m, s = gather.gather_max(g1s, nbr, need_sum=True)
         n, k = nbr.shape[1], nbr.shape[2]
         z_mean = s / float(n * k) + a * diff.mean(1) + b0
-        z = getattr(self, f"se{i}")(m + a * diff + b0, mean=z_mean)
+        z = getattr(self, f"se{i}")(m + a * diff + b0, mean=z_mean,
+                                    serving=serving)
         return F.leaky_relu(z, 0.2)
 
     def _train_stage(self, feat: torch.Tensor, i: int) -> torch.Tensor:
@@ -211,13 +263,17 @@ class EdgeConvResFeat(nn.Module):
         return F.leaky_relu(z, 0.2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = serving_dtype(self)
+
+        def res(conv, v):
+            return product_bf16(v, conv.weight[..., 0], on=dt is not None)
         x1 = self._stage(x, 1)
-        x2 = self._stage(x1, 2) + conv1x1(self.resconv1, x1)
-        x3 = self._stage(x2, 3) + conv1x1(self.resconv2, x2)
-        x4 = self._stage(x3, 4) + conv1x1(self.resconv3, x3)
+        x2 = self._stage(x1, 2) + res(self.resconv1, x1)
+        x3 = self._stage(x2, 3) + res(self.resconv2, x2)
+        x4 = self._stage(x3, 4) + res(self.resconv3, x3)
         xc = torch.cat([x1, x2, x3, x4], dim=-1)
-        xc = F.leaky_relu(bn_apply(self.bn5, conv1x1(self.conv5, xc)), 0.2)
-        return torch.cat([xc.amax(1), xc.mean(1)], dim=-1)
+        xc = F.leaky_relu(bn_apply(self.bn5, conv1x1(self.conv5, xc, dt)), 0.2)
+        return torch.cat([xc.amax(1).float(), xc.float().mean(1)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +283,14 @@ class EdgeConvResFeat(nn.Module):
 def adaptive_instance_norm(x: torch.Tensor, weight: torch.Tensor,
                            bias: torch.Tensor, eps: float = 1e-5):
     """AdaIN over the point axis (-2): x [..., B, N, C], weight/bias [B, C];
-    instance statistics per (sample, channel), biased variance."""
-    mean = x.mean(-2, keepdim=True)
-    var = ((x - mean) ** 2).mean(-2, keepdim=True)
-    xn = (x - mean) * torch.rsqrt(var + eps)
-    return xn * weight[:, None, :] + bias[:, None, :]
+    instance statistics per (sample, channel), biased variance. For bf16 x
+    the statistics are f32 and the normalisation runs in bf16 (the
+    reference's dtype-preserving form)."""
+    dt = x.dtype
+    mean = x.float().mean(-2, keepdim=True)
+    var = ((x - mean.to(dt)).float() ** 2).mean(-2, keepdim=True)
+    xn = (x - mean.to(dt)) * torch.rsqrt(var + eps).to(dt)
+    return xn * weight[:, None, :].to(dt) + bias[:, None, :].to(dt)
 
 
 def grid_decoder_adain_sizes(bottleneck_size: int) -> tuple[int, ...]:
@@ -271,12 +330,22 @@ class StackedLinear(nn.Module):
         self.weight = nn.Parameter(torch.empty(p, cout, cin))
         self.bias = nn.Parameter(torch.zeros(p, cout)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype=None,
+                bf16_product: bool = False) -> torch.Tensor:
+        """``dtype`` bf16: flax's Dense(dtype=bf16) (see ``dense``);
+        ``bf16_product``: an f32 layer at bf16 precision (``product_bf16``)."""
         p = self.weight.shape[0]
         lead = x.shape[1:-1]
         x2 = x.expand(p, *x.shape[1:]).reshape(p, -1, x.shape[-1])
         wt = self.weight.transpose(1, 2)
-        if self.bias is None:
+        if dtype is not None or bf16_product:
+            cast = dtype or torch.bfloat16
+            y = torch.bmm(x2.to(cast), wt.to(cast))
+            if bf16_product:
+                y = y.float()
+            if self.bias is not None:
+                y = y + self.bias[:, None, :].to(y.dtype)
+        elif self.bias is None:
             y = torch.bmm(x2, wt)
         else:
             y = torch.baddbmm(self.bias[:, None, :], x2, wt)
@@ -305,7 +374,7 @@ class StackedBatchNorm(nn.Module):
                     + self.bias.reshape(shape))
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return ((x - self.running_mean.reshape(shape)) * mul.reshape(shape)
-                + self.bias.reshape(shape))
+                + self.bias.reshape(shape)).to(x.dtype)
 
 
 class StackedSE(nn.Module):
@@ -321,8 +390,14 @@ class StackedSE(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc(x.mean(2))                                 # [P, B, C]
+    def forward(self, x: torch.Tensor, serving: bool = False) -> torch.Tensor:
+        """``serving``: the products at bf16 precision, the scale rounded
+        to x's dtype before the multiply."""
+        m = x.float().mean(2)                                  # [P, B, C]
+        if not serving:
+            return x * self.fc(m)[:, :, None, :]
+        h = F.relu(self.fc[0](m, bf16_product=True))
+        y = torch.sigmoid(self.fc[2](h, bf16_product=True)).to(x.dtype)
         return x * y[:, :, None, :]
 
 
@@ -338,9 +413,10 @@ class GridDecoderStack(nn.Module):
     takes either; the hook below stacks the reference layout."""
 
     def __init__(self, n_primitives: int, bottleneck_size: int = 1026,
-                 use_selayer: bool = False):
+                 use_selayer: bool = False, serving: bool = False):
         super().__init__()
         self.n_primitives = n_primitives
+        self.serving = serving
         self.sizes = grid_decoder_adain_sizes(bottleneck_size)
         chans = (2,) + self.sizes
         for i in range(3):
@@ -374,16 +450,17 @@ class GridDecoderStack(nn.Module):
 
     def forward(self, grid: torch.Tensor, adain_params: torch.Tensor):
         b = adain_params.shape[0]
+        dt = serving_dtype(self)
         x = grid.expand(1, b, *grid.shape)                     # [1, B, S, 2]
         for i, (w, bias) in enumerate(split_adain_params(adain_params,
                                                          self.sizes), 1):
-            x = getattr(self, f"conv{i}")(x)
+            x = getattr(self, f"conv{i}")(x, dt)
             x = adaptive_instance_norm(x, w, bias)
             x = getattr(self, f"bn{i}")(x)
             if self.use_selayer:
-                x = getattr(self, f"se{i}")(x)
+                x = getattr(self, f"se{i}")(x, serving=dt is not None)
             x = F.relu(x)
-        return torch.tanh(self.conv4(x))
+        return torch.tanh(self.conv4(x, dt)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +473,9 @@ class PointNetRes(nn.Module):
 
     _CHANNELS = (4, 64, 128, 1024, 512, 256, 128, 3)
 
-    def __init__(self, use_selayer: bool = False):
+    def __init__(self, use_selayer: bool = False, serving: bool = False):
         super().__init__()
+        self.serving = serving
         ch = self._CHANNELS
         for i in range(7):
             cin = 1088 if i == 3 else ch[i]
@@ -411,22 +489,24 @@ class PointNetRes(nn.Module):
             for i in (1, 2, 4, 5, 6):  # no se3
                 setattr(self, f"se{i}", SELayer(ch[i]))
 
-    def _block(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        x = bn_apply(getattr(self, f"bn{i}"), conv1x1(getattr(self, f"conv{i}"), x))
+    def _block(self, x: torch.Tensor, i: int, dt) -> torch.Tensor:
+        x = bn_apply(getattr(self, f"bn{i}"),
+                     conv1x1(getattr(self, f"conv{i}"), x, dt))
         if self.use_selayer:
-            x = getattr(self, f"se{i}")(x)
+            x = getattr(self, f"se{i}")(x, serving=dt is not None)
         return F.relu(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._block(x, 1)
+        dt = serving_dtype(self)
+        x = self._block(x, 1, dt)
         pointfeat = x
-        x = self._block(x, 2)
-        x = bn_apply(self.bn3, conv1x1(self.conv3, x))
+        x = self._block(x, 2, dt)
+        x = bn_apply(self.bn3, conv1x1(self.conv3, x, dt))
         g = x.amax(1, keepdim=True).expand(-1, x.shape[1], -1)
         x = torch.cat([g, pointfeat], dim=-1)
         for i in (4, 5, 6):
-            x = self._block(x, i)
-        return torch.tanh(conv1x1(self.conv7, x))
+            x = self._block(x, i, dt)
+        return torch.tanh(conv1x1(self.conv7, x, dt)).float()
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,18 @@
 """SpareNet generator (counterpart of sparenet_tpu/models/sparenet.py):
 encode -> decode -> refine twice, in eval or train mode (``training``).
 
-Parity mode only, ``use_adain="share"`` and ``encode="Residualnet"``; the
-other decoder and encoder arms wait for a later slice. Clouds are
-channel-last [B, N, 3]; primitive i owns points [i*S, (i+1)*S) of the coarse
-cloud. Module and parameter names follow the original reference's net_G
-state_dict.
+Parity mode by default; ``serving=True`` is the reference's serving mode
+(``SPARENET_FAST_MATH=1`` in eval, as ``bench.py`` runs it): packed-key kNN
+graphs, bf16 activation chains (models/layers.py), the NN-mean mml estimate
+in place of the expansion penalty (``loss_mst`` = 0), and the MDS arm
+``mds`` ("auto" = "batched", "hybrid" or "exact"; ops/mds.py) returning
+its selected rows, the flag channel being index math. Serving applies in
+eval mode only; a serving model in train mode runs the parity training
+path, as in the reference. ``use_adain="share"`` and
+``encode="Residualnet"`` only; the other decoder and encoder arms wait for a
+later slice. Clouds are channel-last [B, N, 3]; primitive i owns points
+[i*S, (i+1)*S) of the coarse cloud. Module and parameter names follow the
+original reference's net_G state_dict.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ from torch import nn
 from ..ops import expansion_penalty as _expansion
 from ..ops import mds as _mds
 from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_apply,
-                     grid_generation, num_adain_params)
+                     grid_generation, num_adain_params, product_bf16,
+                     serving_dtype)
 
 __all__ = ["SpareNetEncode", "SpareNetDecode", "SpareNetRefine",
            "SpareNetGenerator"]
@@ -31,17 +39,21 @@ class SpareNetEncode(nn.Module):
     partial [B, N_in, 3] -> style [B, bottleneck_size]."""
 
     def __init__(self, bottleneck_size: int = 4096, hide_size: int = 4096,
-                 use_selayer: bool = False):
+                 use_selayer: bool = False, serving: bool = False):
         super().__init__()
+        self.serving = serving
         # the reference fixes the extractor's internal width at 4096 and
         # sets only its output width from hide_size
         self.feat_extractor = EdgeConvResFeat(
-            k=8, hide_size=4096, output_size=hide_size, use_selayer=use_selayer)
+            k=8, hide_size=4096, output_size=hide_size,
+            use_selayer=use_selayer, serving=serving)
         self.linear = nn.Linear(hide_size, bottleneck_size)
         self.bn = nn.BatchNorm1d(bottleneck_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(bn_apply(self.bn, self.linear(self.feat_extractor(x))))
+        y = product_bf16(self.feat_extractor(x), self.linear.weight,
+                         self.linear.bias, on=serving_dtype(self) is not None)
+        return F.relu(bn_apply(self.bn, y))
 
 
 class SpareNetDecode(nn.Module):
@@ -50,21 +62,30 @@ class SpareNetDecode(nn.Module):
     every primitive's decoder consumes."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
-                 bottleneck_size: int = 4096, use_selayer: bool = False):
+                 bottleneck_size: int = 4096, use_selayer: bool = False,
+                 serving: bool = False):
         super().__init__()
         self.n_primitives = n_primitives
+        self.serving = serving
         self.mlp = nn.Sequential(
             nn.Linear(bottleneck_size, bottleneck_size),
             nn.ReLU(inplace=True),
             nn.Linear(bottleneck_size, num_adain_params(_DEC_BOTTLENECK)),
         )
         self.decoder = GridDecoderStack(n_primitives, _DEC_BOTTLENECK,
-                                        use_selayer)
+                                        use_selayer, serving)
         grid = (grid_generation(num_points, n_primitives) - 0.5) * 2.0
         self.register_buffer("grid", torch.from_numpy(grid), persistent=False)
 
+    def _style(self, style: torch.Tensor) -> torch.Tensor:
+        if serving_dtype(self) is None:
+            return self.mlp(style)
+        l1, l2 = self.mlp[0], self.mlp[2]
+        h = F.relu(product_bf16(style, l1.weight, l1.bias))
+        return product_bf16(h, l2.weight, l2.bias)
+
     def forward(self, style: torch.Tensor) -> torch.Tensor:
-        out = self.decoder(self.grid, self.mlp(style))         # [P, B, S, 3]
+        out = self.decoder(self.grid, self._style(style))      # [P, B, S, 3]
         b = style.shape[0]
         return out.permute(1, 0, 2, 3).reshape(b, -1, 3)
 
@@ -80,14 +101,29 @@ def flagged_base(coarse: torch.Tensor, partial: torch.Tensor) -> torch.Tensor:
 
 class SpareNetRefine(nn.Module):
     """Expansion penalty -> MDS resample of coarse + partial -> residual
-    delta. One module serves both refine passes, as in the reference."""
+    delta. One module serves both refine passes, as in the reference.
+
+    Serving branch (eval with ``serving``; the reference's
+    models/sparenet.py:203-227): mml from the NN-mean estimate times
+    ``mml_calibration`` (1.33, the reference's trained-weights fit;
+    ``utils.calibration.autocalibrate_mml`` fits it to a model), loss_mst 0,
+    the MDS arm ``mds`` with its selected rows (G, schedule and tail as
+    ``mds_g``, ``mds_schedule``, ``mds_tail``), the flag channel idx >= N."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
-                 use_selayer: bool = False):
+                 use_selayer: bool = False, serving: bool = False,
+                 mds: str = "auto", mml_calibration: float = 1.33,
+                 mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
+                 mds_tail: int = _mds.TAIL):
         super().__init__()
         self.num_points = num_points
         self.primitive_size = num_points // n_primitives
-        self.residual = PointNetRes(use_selayer)
+        self.serving = serving
+        self.mds = _mds.resolve_impl(mds, serving)
+        self.mml_calibration = mml_calibration
+        self.mds_g, self.mds_schedule, self.mds_tail = (
+            mds_g, tuple(mds_schedule), mds_tail)
+        self.residual = PointNetRes(use_selayer, serving)
 
     def finish(self, base: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Gather the MDS picks idx [B, N] of base [B, N + N_in, 4] and add
@@ -99,12 +135,25 @@ class SpareNetRefine(nn.Module):
         """coarse [B, N, 3], partial [B, N_in, 3] -> (refined, loss_mst).
         Gradient reaches coarse through the expansion penalty's backward and
         through the gathered points; the MDS picks carry none."""
+        if self.serving and not self.training:
+            return self.serve(coarse, partial)
         dist, _, mml = _expansion.expansion_penalty(
             coarse, self.primitive_size, _EXPANSION_ALPHA)
         base = flagged_base(coarse, partial)
         idx = _mds.minimum_density_sample(
             base[..., :3].contiguous(), self.num_points, mml)
         return self.finish(base, idx), dist.mean()
+
+    def serve(self, coarse: torch.Tensor, partial: torch.Tensor):
+        """The serving branch: (refined [B, N, 3], loss_mst = 0)."""
+        n = coarse.shape[1]
+        mml = _expansion.mean_mst_length_estimate(
+            coarse, self.primitive_size, self.mml_calibration)
+        idx, sel = _mds.minimum_density_sample_xyz(
+            torch.cat([coarse, partial], 1), n, mml, self.mds, g=self.mds_g,
+            schedule=self.mds_schedule, tail=self.mds_tail)
+        base = torch.cat([sel, (idx >= n).to(sel.dtype)[..., None]], -1)
+        return base[..., :3] + self.residual(base), coarse.new_zeros(())
 
 
 class SpareNetGenerator(nn.Module):
@@ -114,7 +163,10 @@ class SpareNetGenerator(nn.Module):
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
                  bottleneck_size: int = 4096, hide_size: int = 4096,
                  use_selayer: bool = False, use_adain: str = "share",
-                 encode: str = "Residualnet"):
+                 encode: str = "Residualnet", serving: bool = False,
+                 mds: str = "auto", mml_calibration: float = 1.33,
+                 mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
+                 mds_tail: int = _mds.TAIL):
         super().__init__()
         if use_adain != "share" or encode != "Residualnet":
             raise NotImplementedError(
@@ -122,10 +174,14 @@ class SpareNetGenerator(nn.Module):
                 "with 'Residualnet' is ported so far")
         # registered but unused by the forward, as in the reference
         self.conv1 = nn.Conv1d(3, 64, 1)
-        self.encoder = SpareNetEncode(bottleneck_size, hide_size, use_selayer)
+        self.serving = serving
+        self.encoder = SpareNetEncode(bottleneck_size, hide_size, use_selayer,
+                                      serving)
         self.decoder = SpareNetDecode(num_points, n_primitives,
-                                      bottleneck_size, use_selayer)
-        self.refine = SpareNetRefine(num_points, n_primitives, use_selayer)
+                                      bottleneck_size, use_selayer, serving)
+        self.refine = SpareNetRefine(
+            num_points, n_primitives, use_selayer, serving, mds,
+            mml_calibration, mds_g, mds_schedule, mds_tail)
 
     def forward(self, partial: torch.Tensor):
         coarse = self.decoder(self.encoder(partial))

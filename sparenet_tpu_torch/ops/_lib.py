@@ -38,7 +38,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_TIMEOUT_S = 600
 
 LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0, "nn_idx": 0,
-            "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0, "p2i": 0}
+            "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0, "p2i": 0,
+            "p2i_bwd": 0, "knn_packed": 0, "mds_continue": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # filled by build(): the command, its seconds and the compiler's -Xptxas -v
 # report (registers, shared memory and spills of every kernel)
@@ -63,6 +64,11 @@ _SIGNATURES = {
     "spn_edge_stats_fwd": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
     "spn_p2i_max": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P), _I),
+    "spn_p2i_max_backward": ((_P,) * 5 + (_I,) * 4 + (_F, _I) + (_P,) * 3, _I),
+    "spn_knn_packed": ((_P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
+    "spn_mds_continue_max_points": ((), _I),
+    "spn_mds_continue_max_steps": ((), _I),
+    "spn_mds_continue": ((_P, _P, _P, _P, _I, _I, _I, _P, _P), _I),
 }
 
 

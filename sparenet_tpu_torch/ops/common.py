@@ -2,19 +2,26 @@
 distance the MST and MDS steps use, and the checks every kernel wrapper
 makes before it launches.
 
-Parity mode only. The reference (``sparenet_tpu/ops/common.py``) computes
+In parity mode the reference (``sparenet_tpu/ops/common.py``) computes
 the kNN graph distance at its ``HIGH`` graph precision, which is NOT plain
 fp32: the inner product is the 3-term bf16 split ``xh.yh + xh.yl + xl.yh``
 accumulated in f32 (``graph_dot``), on the CPU too. The port computes that
 exact formula, here and in ``csrc/knn.cu``; a plain fp32 distance flips
 neighbour sets at near-ties far more often.
+
+Serving mode (the reference's ``SPARENET_FAST_MATH=1``, an explicit
+``serving`` argument here) takes the graph distance at ``DEFAULT``: one bf16
+pass with f32 accumulation (``pairwise_sqdist_serving``). Its other switches
+(bf16 activation chains, packed-key kNN, the MDS arms, the mml estimate)
+are arguments of the modules and ops that use them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["graph_dot", "pairwise_sqdist_graph", "sqdist3", "sqnorm3",
+__all__ = ["graph_dot", "pairwise_sqdist_graph", "pairwise_sqdist_serving",
+           "sqnorm_seq", "sqdist3", "sqnorm3",
            "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu"]
 
 
@@ -39,6 +46,31 @@ def pairwise_sqdist_graph(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x2 = (x * x).sum(-1, keepdim=True)
     y2 = (y * y).sum(-1)[:, None, :]
     return (x2 + y2 - 2.0 * graph_dot(x, y)).clamp_min(0.0)
+
+
+def sqnorm_seq(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 over the last axis summed in channel order, each product and
+    each sum rounded: ((x0 x0 + x1 x1) + x2 x2) + ...  (the serving kNN
+    kernel's order, and the reference's at the encoder's first widths)."""
+    s = x[..., 0] * x[..., 0]
+    for c in range(1, x.shape[-1]):
+        s = s + x[..., c] * x[..., c]
+    return s
+
+
+def pairwise_sqdist_serving(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Serving-mode graph distance max(|x|^2 + |y|^2 - 2 xh.yh, 0) for
+    x [B, N, C], y [B, M, C] -> [B, N, M]: graph_dot at DEFAULT, one bf16
+    pass accumulated in f32, in channel order (products of two bf16 values
+    are exact in f32, so the order is the only rounding), and the norms
+    from the f32 values (``sqnorm_seq``)."""
+    xh = x.to(torch.bfloat16).to(torch.float32)
+    yh = y.to(torch.bfloat16).to(torch.float32)
+    dot = x.new_zeros(x.shape[0], x.shape[1], y.shape[1])
+    for c in range(x.shape[-1]):
+        dot.addcmul_(xh[:, :, c, None], yh[:, None, :, c])
+    d = (sqnorm_seq(x)[:, :, None] + sqnorm_seq(y)[:, None, :]) - 2.0 * dot
+    return d.clamp_min(0.0)
 
 
 def sqdist3(d: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,11 @@ plain PyTorch around it. Its backward is the reference's, quirk included:
 grad xyz[u] = 2 g[u] (xyz[u] - xyz[assignment[u]]) for the charged endpoints
 u only (the squared-distance gradient applied to the unsquared distance);
 mean_mst_length carries no gradient.
+
+``mean_mst_length_estimate`` is serving mode's stand-in for the third
+output (the reference's function of that name): calibration x the mean
+nearest-neighbour distance within each primitive, one [S, S] product per
+primitive (f32), no kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from . import _lib
 from .common import check_input, is_cpu, sqdist3, sqrt_ieee
 
-__all__ = ["expansion_penalty", "mst_charges", "mst_charges_plain"]
+__all__ = ["expansion_penalty", "mst_charges", "mst_charges_plain",
+           "mean_mst_length_estimate"]
 
 _BIG = 1e9
 
@@ -156,3 +162,20 @@ def expansion_penalty(xyz: torch.Tensor, primitive_size: int, alpha: float):
     """xyz [B, N, 3] with N % primitive_size == 0 ->
     (dist [B, N] f32, assignment [B, N] int32, mean_mst_length [B])."""
     return _ExpansionPenalty.apply(xyz, primitive_size, alpha)
+
+
+def mean_mst_length_estimate(xyz: torch.Tensor, primitive_size: int,
+                             calibration: float = 3.18) -> torch.Tensor:
+    """xyz [B, N, 3] -> [B]: calibration * mean over the primitives of the
+    mean nearest-neighbour distance within each (the reference's
+    mean_mst_length_estimate; its default 3.18 is the random-init fit, the
+    models carry their own)."""
+    b, n, _ = xyz.shape
+    s = primitive_size
+    p = xyz.detach().float().reshape(b * (n // s), s, 3)
+    p2 = sqdist3(p)
+    d2 = (p2[:, :, None] + p2[:, None, :]) - 2.0 * torch.bmm(p, p.transpose(1, 2))
+    d2 = d2 + torch.eye(s, device=p.device) * _BIG
+    m = d2.amin(-1).clamp_min(0.0).sqrt().mean(-1)
+    return m.reshape(b, n // s).mean(-1) * torch.tensor(
+        calibration, dtype=torch.float32, device=p.device)

@@ -1,17 +1,35 @@
-"""Exact greedy minimum-density sampling and point gathering (counterpart of
-sparenet_tpu/ops/mds.py: _mds_one and gather_points).
+"""Minimum-density sampling and point gathering (counterpart of
+sparenet_tpu/ops/mds.py).
 
-``minimum_density_sample(xyz, npoint, mean_mst_length)``: xyz [B, N, 3] f32,
-mean_mst_length [B] -> idx [B, npoint] int32. Pick 0 is point 0, pinned to
-1e9; each step adds w * exp(-d2 / t) to every density (t = 5 * mml^2, d2 the
-squared distance to the previous pick, w = 2 for index >= 8192), picks the
-lowest-index argmin and pins it to 1e9. On a CUDA tensor it launches
-``csrc/mds.cu``; on a CPU tensor it runs ``mds_plain``.
+``minimum_density_sample(xyz, npoint, mean_mst_length)``: exact greedy MDS,
+xyz [B, N, 3] f32, mean_mst_length [B] -> idx [B, npoint] int32. Pick 0 is
+point 0, pinned to 1e9; each step adds w * exp(-d2 / t) to every density
+(t = 5 * mml^2, d2 the squared distance to the previous pick, w = 2 for
+index >= 8192), picks the lowest-index argmin and pins it to 1e9. On a CUDA
+tensor it launches ``csrc/mds.cu``; on a CPU tensor it runs ``mds_plain``.
 
 The density term exp(-d2 / t) is flushed to 0 below the smallest normal
 f32, as the reference computes it: its XLA CPU and TPU programs have no
 subnormals. Far points then add exactly 0, and which points tie at density 0
 decides the lowest-index picks of the early steps.
+
+Serving mode's arms (the reference's ``SPARENET_FAST_MATH=1`` dispatch,
+``resolve_impl`` and ``minimum_density_sample_xyz``):
+- ``"batched"`` (``mds_batched``, the reference's _mds_batched): rounds of
+  the G lowest densities, each followed by ONE density update summed over
+  the round's picks in exp2 dot form; plain PyTorch (the reference has no
+  Pallas kernel there), reduced in chunks of picks so the [B, N, picks]
+  tensor never exists whole;
+- ``"hybrid"`` (``mds_hybrid``, the reference's _mds_hybrid): a batched
+  prefix with G = 8192 and every bump applied, its picked lanes compacted
+  out (stable), then an exact greedy tail of ``tail`` picks on the live
+  lanes (``mds_continue``: kernel ``spn_mds_continue``, counted as
+  ``"mds_continue"``; plain version ``mds_continue_plain``);
+- ``"exact"``: the greedy kernel above, then a gather.
+Their densities and distances stay f32 (the reference's TPU program runs
+these products at its default one-pass bf16, which moves the exp2
+argument by ~1 at production temperatures); the reference's bf16 MDS
+coordinates under fast math are not carried either.
 """
 
 from __future__ import annotations
@@ -21,11 +39,21 @@ import torch
 from . import _lib
 from .common import check_input, is_cpu, sqdist3
 
-__all__ = ["minimum_density_sample", "mds_plain", "gather_points"]
+__all__ = ["minimum_density_sample", "mds_plain", "gather_points",
+           "resolve_impl", "select_smallest", "mds_batched", "mds_hybrid",
+           "mds_continue", "mds_continue_plain", "minimum_density_sample_xyz",
+           "compact_live", "batched_terms", "batched_update", "MDS_IMPLS", "BATCH_G", "SCHEDULE", "TAIL"]
 
 _BIG = 1e9
 _HEAVY_FROM = 8192  # points at index >= this get 2x density weight
 _TINY = torch.finfo(torch.float32).tiny  # smallest normal f32
+_L2E = 1.4426950408889634
+MDS_IMPLS = ("exact", "batched", "hybrid")
+# the reference's serving defaults (SPARENET_MDS_BATCH_G, _SCHEDULE, _TAIL)
+BATCH_G, SCHEDULE, TAIL = 8192, (2048,), 2048
+# picks a batched update reduces at once: [B, N, 512] f32 is 1.3 GB at
+# B = 32, N = 19384 (the whole [B, N, 8192] round would be 20 GB)
+_UPDATE_CHUNK = 512
 
 
 def _temperature(mean_mst_length: torch.Tensor) -> torch.Tensor:
@@ -89,3 +117,236 @@ def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """features [B, N, C], idx [B, M] -> [B, M, C] (plain indexing)."""
     c = features.shape[-1]
     return torch.gather(features, 1, idx.long()[..., None].expand(-1, -1, c))
+
+
+# ---------------------------------------------------------------------------
+# serving arms
+# ---------------------------------------------------------------------------
+
+def resolve_impl(impl: str = "auto", serving: bool = False) -> str:
+    """The arm ``minimum_density_sample_xyz`` runs: "auto" is "batched" in
+    serving mode (the reference's TPU serving default) and "exact"
+    otherwise."""
+    if impl == "auto":
+        return "batched" if serving else "exact"
+    if impl not in MDS_IMPLS:
+        raise ValueError(f"unknown MDS arm {impl!r}; expected one of "
+                         f"{MDS_IMPLS} or 'auto'")
+    return impl
+
+
+def select_smallest(temp: torch.Tensor, take: int) -> torch.Tensor:
+    """The ``take`` lowest densities of each row of temp [B, N] (finite,
+    >= 0): one stable sort of their int32 bit patterns with the index as
+    payload, so ties go to the lower index (the reference's
+    _select_smallest_sort, the "sort" arm) -> [B, take] int32 in ascending
+    value order."""
+    order = torch.sort(temp.view(torch.int32), dim=1, stable=True).indices
+    return order[:, :take].to(torch.int32)
+
+
+def _gather3(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _bump(x, s, kde, bias):
+    """sum over picks s [B, G, 3] of exp2(2 kde <x, s> + bias - kde |s|^2)
+    -> [B, N], reduced in chunks of _UPDATE_CHUNK picks."""
+    sk = (2.0 * kde[..., None]) * s                             # [B, G, 3]
+    s2k = sqdist3(s) * kde                                      # [B, G]
+    tot = None
+    for c0 in range(0, s.shape[1], _UPDATE_CHUNK):
+        c1 = c0 + _UPDATE_CHUNK
+        arg = (torch.bmm(x, sk[:, c0:c1].transpose(1, 2)) + bias[..., None]
+               - s2k[:, None, c0:c1])
+        part = torch.exp2(arg).sum(2)
+        tot = part if tot is None else tot + part
+    return tot
+
+
+def batched_terms(xyz: torch.Tensor, mean_mst_length: torch.Tensor):
+    """(x f32 [B, N, 3], kde [B, 1], bias [B, N]) of the exp2 dot form:
+    kde = log2(e) / (5 mml^2), bias = log2(w) - kde |x|^2."""
+    x = xyz.detach().float()
+    mml = mean_mst_length.detach().float()
+    kde = (_L2E / (5.0 * mml * mml))[:, None]
+    logw = (torch.arange(x.shape[1], device=x.device) >= _HEAVY_FROM).float()
+    return x, kde, logw - sqdist3(x) * kde
+
+
+def batched_update(x, temp, c, kde, bias):
+    """One round's update: every density gains the bumps of the picks c
+    [B, G], then the picks are pinned to 1e9."""
+    temp = temp + _bump(x, _gather3(x, c), kde, bias)
+    return temp.scatter_(1, c.long(), _BIG)
+
+
+def _round_sizes(npoint: int, g: int, schedule) -> list[int]:
+    takes, covered = [], 1
+    for r in schedule or ():
+        if covered >= npoint:
+            break
+        takes.append(min(int(r), npoint - covered))
+        covered += takes[-1]
+    while covered < npoint:
+        takes.append(min(g, npoint - covered))
+        covered += takes[-1]
+    return takes
+
+
+def mds_batched(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
+                g: int = BATCH_G, schedule=SCHEDULE, return_xyz: bool = False,
+                return_state: bool = False):
+    """Batch-greedy MDS (the reference's _mds_batched, "sort" selection):
+    pick 0 is point 0; then rounds of sizes ``schedule`` followed by G until
+    npoint picks, each round taking the lowest densities (ties to the lower
+    index) and, unless it is the last (or ``return_state``), adding the
+    round's bumps w * exp2(2 kde <x, s> + bias - kde |s|^2) (kde = log2(e) /
+    (5 mml^2), bias = log2(w) - kde |x|^2) and pinning its picks to 1e9.
+    Returns idx [B, npoint] int32, then with ``return_xyz`` the selected
+    rows of xyz, then with ``return_state`` the densities [B, N]."""
+    xyz = xyz.detach()
+    b, n, _ = xyz.shape
+    if not 1 <= npoint <= n or g < 1:
+        raise ValueError(f"mds_batched: npoint={npoint}, g={g}, N={n}")
+    x, kde, bias = batched_terms(xyz, mean_mst_length)
+    temp = _bump(x, x[:, :1], kde, bias)
+    temp[:, 0] = _BIG
+    out = torch.zeros((b, npoint), dtype=torch.int32, device=x.device)
+    out_xyz = None
+    if return_xyz:
+        out_xyz = xyz.new_zeros((b, npoint, 3))
+        out_xyz[:, :1] = xyz[:, :1]
+    done = 1
+    for take in _round_sizes(npoint, g, schedule):
+        c = select_smallest(temp, take)
+        out[:, done:done + take] = c
+        if return_xyz:
+            out_xyz[:, done:done + take] = _gather3(xyz, c)
+        if done + take < npoint or return_state:
+            temp = batched_update(x, temp, c, kde, bias)
+        done += take
+    outs = (out,)
+    if return_xyz:
+        outs += (out_xyz,)
+    if return_state:
+        outs += (temp,)
+    return outs if len(outs) > 1 else out
+
+
+def mds_continue_plain(xyz: torch.Tensor, temp0: torch.Tensor,
+                       orig: torch.Tensor, mean_mst_length: torch.Tensor,
+                       steps: int) -> torch.Tensor:
+    """Plain PyTorch version of the continuation kernel (the reference's
+    XLA tail in _mds_hybrid): each step takes the lowest-lane argmin, pins
+    it to 1e9 and adds w * exp(-d2 / t) to every density."""
+    _lib.PLAIN_CALLS["mds_continue"] += 1
+    b = xyz.shape[0]
+    dev = xyz.device
+    t = _temperature(mean_mst_length).reshape(b, 1)
+    weight = torch.where(orig >= _HEAVY_FROM, 2.0, 1.0)
+    temp = temp0.clone()
+    rows = torch.arange(b, device=dev)
+    idx = torch.zeros((b, steps), dtype=torch.int32, device=dev)
+    for j in range(steps):
+        nxt = temp.argmin(1)
+        idx[:, j] = nxt.to(torch.int32)
+        if j == steps - 1:
+            break
+        temp[rows, nxt] = _BIG
+        e = torch.exp(-sqdist3(xyz - xyz[rows, nxt][:, None, :]) / t)
+        temp = temp + weight * torch.where(e < _TINY, 0.0, e)
+    return idx
+
+
+def mds_continue(xyz: torch.Tensor, temp0: torch.Tensor, orig: torch.Tensor,
+                 mean_mst_length: torch.Tensor, steps: int) -> torch.Tensor:
+    """Greedy MDS continued for ``steps`` picks on live lanes: xyz [B, N, 3],
+    temp0 [B, N] f32 densities with every earlier bump applied, orig [B, N]
+    int32 original indices (>= 8192: weight 2), mean_mst_length [B] -> lane
+    indices [B, steps] int32 (no gradient). Raises at N or steps beyond the
+    kernel's limits; there is no fallback."""
+    xyz, temp0 = xyz.detach(), temp0.detach()
+    mean_mst_length = mean_mst_length.detach()
+    check_input("mds_continue xyz", xyz, torch.float32, 3, last=3)
+    check_input("mds_continue temp0", temp0, torch.float32, 2)
+    check_input("mds_continue orig", orig, torch.int32, 2)
+    b, n, _ = xyz.shape
+    if temp0.shape != (b, n) or orig.shape != (b, n):
+        raise ValueError("mds_continue: temp0 and orig must be [B, N]")
+    if mean_mst_length.shape != (b,) or len({t.device for t in (
+            xyz, temp0, orig, mean_mst_length)}) != 1:
+        raise ValueError("mds_continue: mean_mst_length must be [B] on xyz's "
+                         "device, as temp0 and orig")
+    if not 1 <= steps <= n:
+        raise ValueError(f"mds_continue: steps={steps} not in [1, {n}]")
+    if is_cpu(xyz):
+        return mds_continue_plain(xyz, temp0, orig, mean_mst_length, steps)
+    lib = _lib.lib()
+    if (n > lib.spn_mds_continue_max_points()
+            or steps > lib.spn_mds_continue_max_steps()):
+        raise ValueError(f"mds_continue: the CUDA kernel takes N <= "
+                         f"{lib.spn_mds_continue_max_points()} and steps <= "
+                         f"{lib.spn_mds_continue_max_steps()}, got N={n}, "
+                         f"steps={steps}")
+    t = _temperature(mean_mst_length.to(torch.float32)).contiguous()
+    out = torch.empty((b, steps), dtype=torch.int32, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        code = lib.spn_mds_continue(xyz.data_ptr(), temp0.data_ptr(),
+                                    orig.data_ptr(), t.data_ptr(), b, n, steps,
+                                    out.data_ptr(), _lib.stream_of(xyz))
+    _lib.check(code, "mds_continue")
+    _lib.LAUNCHES["mds_continue"] += 1
+    return out
+
+
+def compact_live(xyz: torch.Tensor, temp: torch.Tensor, nlive: int):
+    """The lanes not pinned (density < 5e8) of each row, in their order (a
+    stable sort on the picked flag): (xyz [B, nlive, 3] f32, temp
+    [B, nlive], orig [B, nlive] int32)."""
+    order = torch.sort((temp >= _BIG / 2).to(torch.int32), dim=1,
+                       stable=True).indices[:, :nlive]
+    return (_gather3(xyz.float(), order).contiguous(),
+            temp.gather(1, order).contiguous(), order.to(torch.int32))
+
+
+def mds_hybrid(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
+               g: int = BATCH_G, tail: int = TAIL, return_xyz: bool = False):
+    """Batched prefix of npoint - tail picks (fixed G, no schedule, every
+    bump applied), its picked lanes compacted out, then ``tail`` exact
+    greedy picks on the live lanes (the reference's _mds_hybrid). Returns
+    idx [B, npoint] int32 (and, with ``return_xyz``, the selected rows)."""
+    b, n, _ = xyz.shape
+    tail = int(min(tail, npoint - 1))
+    if tail <= 0:
+        return mds_batched(xyz, npoint, mean_mst_length, g=g, schedule=(),
+                           return_xyz=return_xyz)
+    npick = npoint - tail
+    pref = mds_batched(xyz, npick, mean_mst_length, g=g, schedule=(),
+                       return_xyz=return_xyz, return_state=True)
+    xyz_c, temp_c, orig = compact_live(xyz.detach(), pref[-1], n - npick)
+    lanes = mds_continue(xyz_c, temp_c, orig, mean_mst_length, tail)
+    out_tail = orig.gather(1, lanes.long())
+    out = torch.cat([pref[0], out_tail], 1)
+    if not return_xyz:
+        return out
+    return out, torch.cat([pref[1], _gather3(xyz.detach(), out_tail)], 1)
+
+
+def minimum_density_sample_xyz(xyz: torch.Tensor, npoint: int,
+                               mean_mst_length: torch.Tensor,
+                               impl: str = "exact", g: int = BATCH_G,
+                               schedule=SCHEDULE, tail: int = TAIL):
+    """(idx [B, npoint] int32, the selected rows of xyz [B, npoint, 3]) by
+    the arm ``impl`` (see ``resolve_impl``; G and schedule drive the
+    batched rounds, G and tail the hybrid's). The batched arms assemble the
+    rows from the gathers their rounds make anyway."""
+    impl = resolve_impl(impl)
+    if impl == "batched":
+        return mds_batched(xyz, npoint, mean_mst_length, g=g,
+                           schedule=schedule, return_xyz=True)
+    if impl == "hybrid":
+        return mds_hybrid(xyz, npoint, mean_mst_length, g=g, tail=tail,
+                          return_xyz=True)
+    idx = minimum_density_sample(xyz.contiguous(), npoint, mean_mst_length)
+    return idx, gather_points(xyz.detach(), idx)

@@ -15,9 +15,13 @@ CUDA tensor it launches ``csrc/p2i.cu``; on a CPU tensor it runs
 ``p2i_max_zbg(points, feats, binds, b, h, w, radius)`` -> out, differentiable
 in points and feats: a render that is differentiated launches the variant
 with ids, any other the values-only one. Its backward is the JAX package's
-``_p2i_max_bwd`` in plain PyTorch (XLA there too): the gradient of each
-pixel goes to its winner's feature through w, and to its (y, x) through
+``_p2i_max_bwd`` (XLA there too): the gradient of each pixel goes to its
+winner's feature through w, and to its (y, x) through
 dw/dr = -(pi / 2R) sin(pi r / R), with the reference's max(r, 1e-10) guard.
+``p2i_max_backward`` launches ``spn_p2i_max_backward`` on a CUDA tensor
+(counted as ``"p2i_bwd"``): one thread a point gathers the pixels it won
+over its window, deterministic with no atomics; on a CPU tensor it runs
+``p2i_max_backward_plain``, which scatters every pixel into its winner.
 
 Rounding follows the JAX package's XLA path bit for bit (its CPU program
 computes r as sqrt(dy * dy + dx * dx) without fma, the division by R as a
@@ -36,7 +40,8 @@ from . import _lib
 from .common import check_input, fma, is_cpu, sqrt_ieee
 
 __all__ = ["COS_COEFFS", "cos_weight_sq", "window_size", "p2i_max",
-           "p2i_max_plain", "p2i_max_backward", "p2i_max_zbg"]
+           "p2i_max_plain", "p2i_max_backward", "p2i_max_backward_plain",
+           "p2i_max_zbg"]
 
 # cos(pi sqrt(s)) / 2 + 1/2 = 1 + sum_k c_k s^k, c_k = (-1)^k pi^2k / (2 (2k)!),
 # k = 1 .. 10, rounded to f32 (the JAX package's _COS_COEFFS)
@@ -157,9 +162,12 @@ def p2i_max(points, feats, binds, b: int, h: int, w: int, radius: float,
     return out, ids
 
 
-def p2i_max_backward(points, feats, ids, g, radius: float):
-    """Gradients (points [P, 2], feats [P, 1]) of sum(g * out) for the
-    winner ids [B, H, W, 1] (the JAX package's _p2i_max_bwd)."""
+def p2i_max_backward_plain(points, feats, binds, ids, g, radius: float):
+    """Plain PyTorch version of the backward kernel: gradients (points
+    [P, 2], feats [P, 1]) of sum(g * out) for the winner ids [B, H, W, 1]
+    (the JAX package's _p2i_max_bwd; ``binds`` is not needed here, the ids
+    name each pixel's point)."""
+    _lib.PLAIN_CALLS["p2i_bwd"] += 1
     b, h, w, _ = g.shape
     p = points.shape[0]
     dev = g.device
@@ -181,18 +189,45 @@ def p2i_max_backward(points, feats, ids, g, radius: float):
     return pt, pf
 
 
+def p2i_max_backward(points, feats, binds, ids, g, radius: float):
+    """(d points [P, 2], d feats [P, 1]) of sum(g * out) for the winner ids
+    [B, H, W, 1] of a splat of points, feats and binds; see the module
+    docstring."""
+    check_input("p2i backward ids", ids, torch.int32, 4, last=1)
+    check_input("p2i backward g", g, torch.float32, 4, last=1)
+    if ids.shape != g.shape or ids.device != g.device:
+        raise ValueError("p2i backward: ids and g differ in shape or device")
+    if is_cpu(g):
+        return p2i_max_backward_plain(points, feats, binds, ids, g, radius)
+    b, h, w, _ = g.shape
+    p = points.shape[0]
+    gpt = torch.empty((p, 2), dtype=torch.float32, device=g.device)
+    gpf = torch.empty((p, 1), dtype=torch.float32, device=g.device)
+    if p == 0:
+        return gpt, gpf
+    with torch.cuda.device(g.device):
+        code = _lib.lib().spn_p2i_max_backward(
+            points.contiguous().data_ptr(), feats.contiguous().data_ptr(),
+            binds.data_ptr(), ids.data_ptr(), g.data_ptr(), p, b, h, w,
+            float(radius), window_size(radius), gpt.data_ptr(),
+            gpf.data_ptr(), _lib.stream_of(g))
+    _lib.check(code, "p2i_max_backward")
+    _lib.LAUNCHES["p2i_bwd"] += 1
+    return gpt, gpf
+
+
 class _P2iMaxZbg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, feats, binds, b, h, w, radius):
         out, ids = p2i_max(points, feats, binds, b, h, w, radius, True)
-        ctx.save_for_backward(points, feats, ids)
+        ctx.save_for_backward(points, feats, binds, ids)
         ctx.radius = radius
         return out
 
     @staticmethod
     def backward(ctx, g):
-        points, feats, ids = ctx.saved_tensors
-        pt, pf = p2i_max_backward(points, feats, ids, g.contiguous(),
+        points, feats, binds, ids = ctx.saved_tensors
+        pt, pf = p2i_max_backward(points, feats, binds, ids, g.contiguous(),
                                   ctx.radius)
         return pt, pf, None, None, None, None, None
 

@@ -1,1 +1,2 @@
-"""Utilities of the port (weight conversion from the JAX package)."""
+"""Utilities of the port (weight conversion from the JAX package, serving
+mode's mml calibration)."""

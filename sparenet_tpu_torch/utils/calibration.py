@@ -1,0 +1,47 @@
+"""Serving-mode mml calibration (counterpart of
+sparenet_tpu/utils/calibration.py and of BaseRunner._maybe_autocalibrate_mml).
+
+Serving mode replaces the exact Prim's mean MST edge length (the MDS density
+temperature t = 5 mml^2) by calibration x the per-primitive mean
+nearest-neighbour distance (``ops.expansion_penalty.
+mean_mst_length_estimate``). The ratio depends on the coarse cloud's
+distribution, so it is fitted on the model's own coarse output:
+``fit_mml_ratio`` runs the exact Prim's once (the expansion kernel on the
+card) and ``autocalibrate_mml`` sets the fitted ratio on a built generator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.expansion_penalty import expansion_penalty, mean_mst_length_estimate
+
+__all__ = ["fit_mml_ratio", "autocalibrate_mml"]
+
+
+@torch.no_grad()
+def fit_mml_ratio(coarse: torch.Tensor, primitive_size: int) -> torch.Tensor:
+    """coarse [B, N, 3] -> scalar: mean over the batch of Prim's mml over
+    the NN-mean estimate (calibration 1)."""
+    coarse = coarse.detach()
+    _, _, mml = expansion_penalty(coarse, primitive_size, 1.5)
+    nn_mean = mean_mst_length_estimate(coarse, primitive_size, calibration=1.0)
+    return (mml / nn_mean.clamp_min(1e-12)).mean()
+
+
+@torch.no_grad()
+def autocalibrate_mml(model, partial: torch.Tensor) -> float:
+    """Fit the ratio on ``model``'s coarse output for one batch of partial
+    clouds [B, N_in, 3] (on the model's device, eval mode) and set it as
+    the model's serving calibration; returns it."""
+    dev = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    try:
+        x = partial.to(device=dev, dtype=torch.float32).contiguous()
+        coarse = model.decoder(model.encoder(x))
+        ratio = float(fit_mml_ratio(coarse, model.refine.primitive_size))
+    finally:
+        model.train(was_training)
+    model.refine.mml_calibration = ratio
+    return ratio

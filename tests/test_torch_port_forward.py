@@ -213,7 +213,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('ops.p2i', 'renderer.depth_maps', 'models.discriminator',"
-        " 'runners.sparenet_gan'):\n"
+        " 'runners.sparenet_gan', 'utils.calibration', 'ops.mds', 'ops.knn'):\n"
         "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"

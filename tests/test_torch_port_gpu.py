@@ -219,7 +219,8 @@ def test_p2i_kernel_matches_plain(cuda, radius, h, w):
 
 def test_gan_step_launches_every_kernel(cuda, monkeypatch):
     """A small GAN step on the card (B=2, img 64) launches each kernel of the
-    step, p2i three times, and runs no plain version; losses finite."""
+    step, p2i three times and its backward once, and runs no plain version;
+    losses finite."""
     monkeypatch.setitem(sparenet_gan.CONFIG, "img_size", 64)
     gen = models.build_generator(num_points=1024, n_primitives=2,
                                  bottleneck_size=128, hide_size=128)
@@ -238,4 +239,103 @@ def test_gan_step_launches_every_kernel(cuda, monkeypatch):
                  "edge_stats_fwd", "edge_stats_bwd"):
         assert _lib.LAUNCHES[name] > 0, name
     assert _lib.LAUNCHES["p2i"] == 3
+    assert _lib.LAUNCHES["p2i_bwd"] == 1
     assert set(_lib.PLAIN_CALLS.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# serving mode: packed kNN, the MDS continuation, the p2i backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c,n", [(3, 3000), (256, 3000), (512, 3000), (40, 129)])
+def test_knn_packed_kernel_matches_plain(cuda, c, n):
+    """Exact indices: both sum the bf16 products and the norms in channel
+    order, and the keys are unique."""
+    x = torch.randn(2, n, c, generator=_gen()).to(cuda)
+    assert torch.equal(knn.knn_idx(x, 8, packed=True),
+                       knn.knn_packed_plain(x, 8))
+
+
+def test_knn_packed_kernel_lowest_index_on_ties(cuda):
+    base = torch.rand(1, 40, 3, generator=_gen())
+    x = torch.cat([base, base, base[:, :10]], 1).to(cuda)
+    got = knn.knn_idx(x, 8, packed=True)
+    assert torch.equal(got, knn.knn_packed_plain(x, 8))
+    assert got[0, 45, :3].tolist() == [5, 45, 85]
+
+
+def _prefix_state(xyz, mml, npick, g):
+    """The live lanes a batched prefix of npick picks leaves, as the hybrid
+    arm hands them to its tail."""
+    _, temp = mds.mds_batched(xyz, npick, mml, g=g, schedule=(),
+                              return_state=True)
+    return mds.compact_live(xyz, temp, xyz.shape[1] - npick)
+
+
+@pytest.mark.parametrize("n,npick,steps,g", [(19384, 14336, 2048, 8192),
+                                             (3000, 1000, 700, 256)])
+def test_mds_continue_kernel_matches_plain(cuda, n, npick, steps, g):
+    """Exact lane indices on prefix states, with duplicated points (exact
+    density ties) in the cloud."""
+    gen = _gen()
+    half = torch.rand(2, n // 2, 3, generator=gen) - 0.5
+    xyz = torch.cat([half, half[:, :n - n // 2]], 1).contiguous().to(cuda)
+    mml = torch.tensor([0.006, 0.012], device=cuda)
+    xc, tc, orig = _prefix_state(xyz, mml, npick, g)
+    got = mds.mds_continue(xc, tc, orig, mml, steps)
+    assert torch.equal(got, mds.mds_continue_plain(xc, tc, orig, mml, steps))
+    assert _lib.LAUNCHES["mds_continue"] > 0
+
+
+def test_mds_continue_kernel_lowest_lane_on_ties(cuda):
+    """All densities 0 and far-apart points: the picks are the lanes in
+    order, as the plain version's argmin."""
+    xyz = (torch.arange(300, dtype=torch.float32)[None, :, None]
+           * torch.ones(1, 1, 3)).to(cuda).contiguous()
+    temp = torch.zeros(1, 300, device=cuda)
+    orig = torch.arange(8000, 8300, dtype=torch.int32, device=cuda)[None]
+    mml = torch.tensor([0.01], device=cuda)
+    got = mds.mds_continue(xyz, temp, orig, mml, 64)
+    assert torch.equal(got, mds.mds_continue_plain(xyz, temp, orig, mml, 64))
+    assert got[0].tolist() == list(range(64))
+
+
+@pytest.mark.parametrize("radius", [5.0, 7.0, 10.0, 2.5])
+def test_p2i_backward_kernel_matches_plain(cuda, radius):
+    """Within 1e-6 of the largest entry (the plain version's index_add_ sums
+    each point's pixels in another order, with atomics outside
+    deterministic mode), and two launches bit for bit equal."""
+    h = w = 64 if radius == 2.5 else 256
+    pts, f, binds = (t.to(cuda) for t in _splat_case(_gen(), 6, 4000, h, w))
+    _, ids = p2i.p2i_max(pts, f, binds, 6, h, w, radius, True)
+    g = torch.randn(6, h, w, 1, generator=_gen()).to(cuda)
+    got = p2i.p2i_max_backward(pts, f, binds, ids, g, radius)
+    want = p2i.p2i_max_backward_plain(pts, f, binds, ids, g, radius)
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-6 * scale
+    again = p2i.p2i_max_backward(pts, f, binds, ids, g, radius)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("arm", ["batched", "hybrid", "exact"])
+def test_serving_forward_launches_its_kernels(cuda, arm):
+    """A B=2 serving forward launches the packed kNN 4 times, gather-max 4
+    times, MDS 2 times (exact) or the continuation 2 times (hybrid), no
+    expansion and no plain version; outputs finite, loss_mst 0."""
+    model = models.build_generator(num_points=2048, n_primitives=4,
+                                   bottleneck_size=128, hide_size=128,
+                                   serving=True, mds=arm, mds_g=512,
+                                   mds_schedule=(128,), mds_tail=256)
+    partial = torch.rand(2, 300, 3, generator=_gen()) - 0.5
+    _lib.reset_counts()
+    outs = models.complete(model, partial)
+    torch.cuda.synchronize()
+    want = {"knn_packed": 4, "gather_max": 4,
+            "mds": 2 if arm == "exact" else 0,
+            "mds_continue": 2 if arm == "hybrid" else 0}
+    assert _lib.LAUNCHES == {**dict.fromkeys(_lib.LAUNCHES, 0), **want}
+    assert set(_lib.PLAIN_CALLS.values()) == {0}
+    for o in outs[:3]:
+        assert o.shape == (2, 2048, 3) and bool(torch.isfinite(o).all())
+    assert float(outs[3]) == 0.0
