@@ -8,20 +8,30 @@ Phases, each printing a flushed line with its elapsed seconds:
   1. the build: one nvcc call over all csrc/*.cu into sparenet_tpu_torch/_build/
      (gitignored), its seconds and the -Xptxas -v register/shared-memory lines;
   2. each kernel against its plain PyTorch version on random inputs at the
-     shapes the flagship forward gives it (B=4);
+     shapes the flagship forward gives it (B=4); the kNN also bit for bit
+     against its fixed summation order, on an adversarial near-tie input
+     (zero padding, distinct lattice points in exact ties, duplicated grid
+     features; C=256) with the count of queries its margin test sent to
+     the exact scan and its time, and its tensor-core distances against
+     the fixed order's on operands of mixed exponents and with
+     cancellation, as a share of the margin E;
   3. the main path: the flagship SpareNet eval forward (3000 -> 16384 points,
      full widths, seeded random weights with jittered BatchNorm statistics)
      at B=4, with every launch count set to 0 just before and read just
      after; every kernel launched, no plain version ran;
   4. each kernel on the very inputs the main path gave it: its outputs there
      against the plain version's, and kernel, plain and library times summed
-     over the forward's calls (the numbers of the kernels line);
+     over the forward's calls (the numbers of the kernels line); the kNN
+     queries flagged for the exact scan on those inputs;
   5. the forward against plain forwards: free-running (every op plain), and
      anchored (the plain forward replays the kernel kNN graphs checked in
      phase 4, so that only reassociation separates the two); two controls
      show that the anchored check fails when one op is perturbed;
-  6. at B=32, bench.py's batch: clouds/s by CUDA events, and one
-     torch.profiler forward (device time by kernel group, busy share);
+  6. at B=32, bench.py's batch: clouds/s by CUDA events, one
+     torch.profiler forward (device time by kernel group, busy share), and
+     each kNN call of that forward timed beside its library call; then the
+     same on zero-padded clouds (2048 points and 952 zero rows, as the
+     loaders pad short clouds), with the flagged kNN queries;
   7. each training kernel (chamfer NN, auction bids, edge-stats forward and
      backward) against its plain version on random inputs at the shapes the
      flagship training step gives it, ties included;
@@ -36,8 +46,9 @@ Phases, each printing a flushed line with its elapsed seconds:
      graphs and MDS picks, both in deterministic mode: loss and every
      gradient leaf, and two perturbed-op controls the check must catch;
  11. training throughput: steps at B=24 (sparenet.yaml's batch, or the
-     largest that fits), clouds/s, peak memory, one profiled step, and the
-     same steps again in deterministic mode;
+     largest that fits), clouds/s, peak memory, the same on zero-padded
+     partial clouds with the flagged kNN queries, one profiled step, and
+     the same steps again in deterministic mode;
  12. the p2i splat kernel against its plain version on random inputs in the
      renderer's layout at 256 x 256, every radius of sparenet_gan.yaml, with
      duplicated points and exact ties: values and ids bit for bit;
@@ -58,7 +69,8 @@ Phases, each printing a flushed line with its elapsed seconds:
      same steps in deterministic mode, with one profiled step there;
  17. the serving kernels against their plain versions on random inputs: the
      packed-key kNN at N 3000 and the encoder's widths (duplicated points
-     included), bit for bit; the MDS continuation on the prefix states the
+     included) and on phase 2's adversarial input (its flagged queries and
+     time), bit for bit; the MDS continuation on the prefix states the
      plain batched prefix gives at the production shape (19384 points,
      14336 batched picks, 2048 continued; duplicated points give exact
      ties), bit for bit; the p2i backward at R 5/7/10 within 1e-6 of the
@@ -67,20 +79,26 @@ Phases, each printing a flushed line with its elapsed seconds:
      serving=True, mds=arm)``, the same parameters as phase 3) at B=4 in
      each MDS arm, batched, hybrid and exact, counts set to 0 just before
      and read just after: packed kNN 4, gather-max 4, MDS 2 (exact) or the
-     continuation 2 (hybrid), no expansion, no plain version;
- 19. each serving kernel on the hybrid forward's own inputs (times, as
-     phase 4), and the kernel serving forward of each arm against a plain
+     continuation 2 (hybrid), no expansion, no plain version; the packed
+     kNN queries flagged for the exact scan;
+ 19. each serving kernel on the hybrid forward's own inputs (times and
+     flagged kNN queries, as phase 4), and the kernel serving forward of each arm against a plain
      serving forward replaying its kNN graphs and MDS picks; two controls
      (a continuation skipping its first bump; a kNN off by one); the
      free-running Chamfer of each arm against parity as readings;
  20. B=32 forwards in each arm beside parity (CUDA events), each arm's MDS
-     time on its own inputs, one profiled forward for batched and hybrid.
+     time on its own inputs, one profiled forward for batched and hybrid,
+     each kNN call of the batched forward timed beside its library call,
+     and the batched forward on zero-padded clouds with its flagged kNN
+     queries.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
 mode needs.
-The output ends with one JSON line of per-kernel numbers (every TPU kernel of
-the JAX package, the packed kNN arm and the p2i backward), the card's name
+The output ends with a line "paths {...}" of each path's end-to-end time (the
+line two runs are compared by), one JSON line of per-kernel numbers (every
+TPU kernel of the JAX package, the packed kNN arm and the p2i backward), the
+card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
 """
@@ -112,7 +130,8 @@ from sparenet_tpu_torch.ops import chamfer as chamfer_op
 from sparenet_tpu_torch.ops import p2i as p2i_op
 from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
-from sparenet_tpu_torch.ops.common import pairwise_sqdist_graph, sqdist3
+from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
+                                           pairwise_sqdist_graph_seq, sqdist3)
 from sparenet_tpu_torch.runners import base as train_base
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
@@ -201,6 +220,14 @@ TRAIN_OPS = ("nn_idx", "emd_bids", "edge_stats_fwd", "edge_stats_bwd")
 KERNEL = {name: getattr(*OPS[name]) for name in OPS}
 # the serving kNN is knn_idx(..., packed=True); it has a row of its own
 KERNEL["knn_packed"] = knn.knn_idx
+
+
+# csrc/knn.cu (both arms): pre-pass, grouping of equal rows, tensor-core
+# main kernel, the merge and re-rank, the exact scan of flagged queries
+KNN_KERNELS = ("knn_prepass", "knn_dedup", "knn_mma", "knn_rerank", "knn_scan")
+# each path's end-to-end time, printed on one line ("paths {...}") so that
+# two runs compare line against line
+PATHS: dict = {}
 
 
 def plain_knn(x, k=8, packed=False):
@@ -385,8 +412,20 @@ def check_random(gen, dev) -> dict:
     for c in KNN_WIDTHS:
         x = (torch.rand(B_CHECK, n, c, generator=gen) - 0.5 if c == 3 else
              torch.randn(B_CHECK, n, c, generator=gen)).to(dev)
-        verdict("knn", f"C={c}", compare_knn(x, knn.knn_idx(x, K),
-                                             knn.knn_plain(x, K)))
+        got = knn.knn_idx(x, K)
+        verdict("knn", f"C={c}", compare_knn(x, got, knn.knn_plain(x, K)))
+        verdict("knn", f"C={c}, against its fixed summation order",
+                compare_exact(got, knn.smallest_k(pairwise_sqdist_graph_seq(x), K)))
+    x = near_tie_features(gen, dev)
+    before = _lib.device_count("knn_flagged")
+    got = knn.knn_idx(x, K)
+    flagged = _lib.device_count("knn_flagged") - before
+    verdict("knn", f"C={x.shape[2]}, zero rows, lattice points and a "
+            f"duplicated grid, {flagged} of {x.shape[0] * x.shape[1]} queries "
+            f"flagged for the exact scan, "
+            f"{cuda_ms(lambda: knn.knn_idx(x, K), reps=3):.3f} ms",
+            compare_knn(x, got, knn.knn_plain(x, K)))
+    check_margin_premise(gen, dev)
     for c in GATHER_WIDTHS:
         table = torch.randn(B_CHECK, n, c, generator=gen).to(dev)
         idx = torch.randint(0, n, (B_CHECK, n, K), generator=gen,
@@ -406,6 +445,92 @@ def check_random(gen, dev) -> dict:
         xyz, mml, mds.minimum_density_sample(xyz, N_OUT, mml),
         mds.mds_plain(xyz, N_OUT, mml)))
     return errs
+
+
+def near_tie_features(gen, dev):
+    """Adversarial kNN input at N=3000, C=256: in each cloud, 1000 zero rows
+    (the loaders' padding: exact ties in bulk, one group); 1000 distinct
+    points of the lattice {0..7}^4 in 4 channels (up to 24 others at one
+    distance: more than 32 keys in one truncation bucket, which the margin
+    test sends to the exact scan); 500 features on a grid of 3 values in
+    every channel, each twice."""
+    n, c = N_INPUT_POINTS, 256
+    x = torch.zeros(B_CHECK, n, c)
+    g = torch.stack(torch.meshgrid(*[torch.arange(8.0)] * 4, indexing="ij"),
+                    -1).reshape(-1, 4)
+    for b in range(B_CHECK):
+        x[b, 1000:2000, :4] = g[torch.randperm(len(g), generator=gen)[:1000]]
+    grid = torch.randint(-1, 2, (B_CHECK, 500, c), generator=gen) * 0.5
+    x[:, 2000:] = torch.cat([grid, grid], 1)
+    return x.to(dev)
+
+
+def check_margin_premise(gen, dev) -> None:
+    """The margin E assumes each add of the tensor cores keeps 24
+    significant bits (csrc/knn.cu). Each arm's main-kernel dots and
+    distances against its fixed order's, on points whose entries are
+    scaled by 2^e, e uniform in [-12, 12], each beside a copy moved by
+    1e-3: max |dot' - dot| over the bound derived for it, which must stay
+    under 0.5, and max |d' - d| / E, under 1."""
+    for c in KNN_WIDTHS:
+        base = torch.randn(1, 1024, c, generator=gen) * 2.0 ** torch.randint(
+            -12, 13, (1, 1024, c), generator=gen).float()
+        near = base * (1 + 1e-3 * torch.randn(1, 1024, c, generator=gen))
+        x = torch.cat([base, near], 1).to(dev)
+        for packed in (False, True):
+            dot_ratio, d_ratio = knn.tensor_core_error(x, packed)
+            arm = "knn_packed" if packed else "knn"
+            log(f"  {arm} C={c}: tensor cores over {x.shape[1] ** 2} pairs, "
+                f"max |dot' - dot| / bound {dot_ratio:.3e}, max |d' - d| / E "
+                f"{d_ratio:.3e}")
+            if not (dot_ratio < 0.5 and d_ratio < 1.0):
+                fail(f"{arm} C={c}: the tensor cores' error reaches "
+                     f"{dot_ratio:.3e} of its bound, {d_ratio:.3e} E")
+
+
+def zero_padded(partial):
+    """partial [B, 3000, 3] with its rows from 2048 on set to 0: the
+    loaders' RandomSamplePoints pads a cloud of 2048 points (a Completion3D
+    partial) so."""
+    out = partial.clone()
+    out[:, 2048:] = 0.0
+    return out
+
+
+def flagged_by(fn, name: str) -> int:
+    """The queries that ``fn()`` sends to the exact kNN scan (counter
+    ``name``)."""
+    before = _lib.device_count(name)
+    fn()
+    return _lib.device_count(name) - before
+
+
+def report_flagged(kcalls, what: str) -> None:
+    """How many queries of each recorded kNN input (exact or packed arm, as
+    recorded) the kernel's margin test sends to the exact scan."""
+    counts = []
+    for args, kw, _ in kcalls:
+        packed = kw.get("packed", False) and knn.packed_applies(*args[0].shape[1:])
+        name = "knn_packed_flagged" if packed else "knn_flagged"
+        before = _lib.device_count(name)
+        knn.knn_idx(*args, **kw)
+        counts.append(_lib.device_count(name) - before)
+    rows = sum(a[0].shape[0] * a[0].shape[1] for a, _, _ in kcalls)
+    log(f"  kNN on {what}: {sum(counts)} of {rows} queries flagged for the "
+        f"exact scan (per call {counts})")
+
+
+def time_knn_calls(model, partial, what: str) -> None:
+    """Each kNN call of one forward of ``model`` on ``partial``, timed on its
+    own inputs: the kernel and the library call (CUDA events)."""
+    calls: dict = {}
+    with swapped(**recording(calls)):
+        complete(model, partial)
+    for i, (args, kw, _) in enumerate(calls["knn"]):
+        ms = cuda_ms(lambda: knn.knn_idx(*args, **kw), reps=5)
+        lms = cuda_ms(lambda: _library_knn(*args, **kw), reps=3)
+        log(f"  {what} kNN call {i} {list(args[0].shape)}: kernel {ms:.4f} ms, "
+            f"library {lms:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -795,7 +920,7 @@ def compare_steps(state, partial, gt, calls, dev) -> None:
 
 _TRAIN_GROUPS = (("mds", ("mds_kernel",)),
                  ("emd_bids", ("bids_kernel",)),
-                 ("knn", ("knn_kernel", "sqnorm_kernel")),
+                 ("knn", KNN_KERNELS),
                  ("nn_idx", ("::nn_kernel",)),
                  ("edge_stats", ("stats_fwd_kernel", "route_kernel", "count_kernel",
                                  "scan_kernel", "fill_kernel", "sort_kernel",
@@ -866,6 +991,15 @@ def train_throughput(state, gen, dev) -> None:
         log(f"  B={b}: {ms:.1f} ms per training step, {b / (ms / 1e3):.2f} "
             f"clouds/s, peak memory {peak:.2f} GiB (max_memory_allocated) "
             f"on {nvidia_smi()}")
+        padded = zero_padded(partial)
+        flagged = flagged_by(lambda: run_step(model, opt, padded, gt),
+                             "knn_flagged")
+        pad_ms = timed_steps(lambda i: run_step(model, opt, padded, gt))
+        log(f"  B={b}, zero-padded partial clouds: {pad_ms:.1f} ms per "
+            f"training step; kNN queries flagged for the exact scan "
+            f"{flagged} of {4 * b * N_INPUT_POINTS}")
+        PATHS.update({f"train_b{b}_ms": ms, f"train_b{b}_padded_ms": pad_ms,
+                      f"train_b{b}_padded_flagged": flagged})
         profile_step(lambda: run_step(model, opt, partial, gt), b)
         with deterministic():
             det = timed_steps(lambda i: run_step(model, opt, partial, gt))
@@ -1135,6 +1269,7 @@ def gan_throughput(gstate: dict, dstate: dict, gen, dev) -> None:
         log(f"  B={b}: {ms:.1f} ms per GAN step (radii {list(RADII)}, one a "
             f"step), {b / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} GiB "
             f"(max_memory_allocated) on {nvidia_smi()}")
+        PATHS[f"gan_b{b}_ms"] = ms
         profile_step(lambda: step(1), b)
         with deterministic():
             det = timed_steps(step, len(RADII))
@@ -1310,7 +1445,7 @@ def compare_forwards(model, partial, calls, outs) -> None:
         fail(f"anchored loss_mst differs by {loss_rel:.2e} (relative)")
 
 
-_GROUPS = (("knn", ("knn_kernel", "sqnorm_kernel")),
+_GROUPS = (("knn", KNN_KERNELS),
            ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
            ("expansion", ("expansion_kernel",)),
            ("mds", ("mds_kernel",)),
@@ -1403,6 +1538,15 @@ def check_random_serving(gen, dev) -> dict:
         x = x.to(dev)
         verdict("knn_packed", f"C={c}", compare_exact(
             knn.knn_idx(x, K, packed=True), knn.knn_packed_plain(x, K)))
+    x = near_tie_features(gen, dev)
+    before = _lib.device_count("knn_packed_flagged")
+    got = knn.knn_idx(x, K, packed=True)
+    flagged = _lib.device_count("knn_packed_flagged") - before
+    verdict("knn_packed", f"C={x.shape[2]}, zero rows, lattice points and a "
+            f"duplicated grid, {flagged} of {x.shape[0] * x.shape[1]} queries "
+            f"flagged for the exact scan, "
+            f"{cuda_ms(lambda: knn.knn_idx(x, K, packed=True), reps=3):.3f} ms",
+            compare_exact(got, knn.knn_packed_plain(x, K)))
     # prefix states of the production hybrid: 19384 points (1/16 of the
     # coarse ones duplicated: exact density ties), a batched prefix of
     # 14336 picks (G 8192, every bump applied), its live lanes compacted
@@ -1447,9 +1591,11 @@ def serving_forward(state, arm, partial, dev):
         outs = complete(model, partial)
         torch.cuda.synchronize()
         launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        flagged = _lib.device_count("knn_packed_flagged")
     mml = [c[0][2].tolist() for c in calls["mds_xyz"]]
     log(f"  {arm}: {time.perf_counter() - t:.2f} s; mml per refine pass "
-        f"{mml}; launches {launches}, plain calls {plain}")
+        f"{mml}; launches {launches}, plain calls {plain}; packed kNN "
+        f"queries flagged for the exact scan {flagged}")
     for name, v in zip(("coarse", "middle", "refine"), outs[:3]):
         if v.shape != (B_CHECK, N_OUT, 3) or not bool(torch.isfinite(v).all()):
             fail(f"serving {arm} {name}: shape {tuple(v.shape)} or non-finite")
@@ -1526,6 +1672,7 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
                                 "mds_continue": calls["mds_continue"]},
                                errs, ("knn_packed", "mds_continue"),
                                "serving forward")
+    report_flagged(calls["knn"], "the hybrid serving forward's inputs")
     for arm, (model, outs, calls, _) in runs.items():
         compare_serving(model, partial, calls, outs, arm)
     serving_controls(*runs["hybrid"][:1], partial, runs["hybrid"][2])
@@ -1537,7 +1684,7 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
     return {arm: r[3] for arm, r in runs.items()}, rows
 
 
-_SERVE_GROUPS = (("knn (packed)", ("knn_packed_kernel", "sqnorm_seq_kernel")),
+_SERVE_GROUPS = (("knn (packed)", KNN_KERNELS),
                  ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
                  ("mds (exact)", ("mds_kernel",)),
                  ("mds continuation", ("mds_continue_kernel",)),
@@ -1569,6 +1716,18 @@ def serving_throughput(state: dict, parity_state: dict, gen, dev) -> None:
             f"{mds_ms:.2f} ms ({100 * mds_ms / ms[arm]:.1f}%)")
         if arm in ("batched", "hybrid"):
             profile_forward(model, partial, _SERVE_GROUPS)
+        if arm == "batched":
+            time_knn_calls(model, partial, f"B={B_BENCH} serving forward's")
+            padded = zero_padded(partial)
+            pad_ms = cuda_ms(lambda: complete(model, padded), reps=3)
+            flagged = flagged_by(lambda: complete(model, padded),
+                                 "knn_packed_flagged")
+            log(f"  batched, zero-padded clouds: {pad_ms:.1f} ms per forward; "
+                f"packed kNN queries flagged for the exact scan {flagged} of "
+                f"{4 * B_BENCH * N_INPUT_POINTS}")
+            PATHS.update(serving_batched_b32_padded_ms=pad_ms,
+                         serving_batched_b32_padded_flagged=flagged)
+        PATHS[f"serving_{arm}_b32_ms"] = ms[arm]
         del model, calls
     log(f"  B={B_BENCH} on {nvidia_smi()}: parity {ms['parity']:.1f} ms "
         f"({B_BENCH / (ms['parity'] / 1e3):.2f} clouds/s), "
@@ -1622,8 +1781,10 @@ def main() -> int:
         outs = complete(model, partial)
         torch.cuda.synchronize()
         launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        flagged = _lib.device_count("knn_flagged")
     log(f"  kernel forward: {time.perf_counter() - t:.2f} s; launches "
-        f"{launches}, plain calls {plain}")
+        f"{launches}, plain calls {plain}; kNN queries flagged for the "
+        f"exact scan {flagged}")
     for name, v in zip(("coarse", "middle", "refine"), outs[:3]):
         if v.shape != (B_CHECK, N_OUT, 3) or not bool(torch.isfinite(v).all()):
             fail(f"{name}: shape {tuple(v.shape)} or non-finite values")
@@ -1638,6 +1799,7 @@ def main() -> int:
 
     log("phase 4: each kernel on the inputs the main path gave it")
     results = check_forward_calls(calls, errs)
+    report_flagged(calls["knn"], "the forward's inputs")
 
     log("phase 5: the kernel forward against plain forwards")
     compare_forwards(model, partial, calls, outs)
@@ -1650,6 +1812,16 @@ def main() -> int:
     log(f"  B={B_BENCH}: {fwd_ms:.1f} ms per forward, {cps:.2f} clouds/s on "
         f"{smi}")
     profile_forward(model, partial32)
+    time_knn_calls(model, partial32, f"B={B_BENCH} forward's")
+    padded32 = zero_padded(partial32)
+    pad_ms = cuda_ms(lambda: complete(model, padded32), reps=3, warmup=1)
+    flagged = flagged_by(lambda: complete(model, padded32), "knn_flagged")
+    log(f"  B={B_BENCH}, zero-padded clouds: {pad_ms:.1f} ms per forward, "
+        f"{B_BENCH / (pad_ms / 1e3):.2f} clouds/s; kNN queries flagged for "
+        f"the exact scan {flagged} of {4 * B_BENCH * N_INPUT_POINTS}")
+    time_knn_calls(model, padded32, f"B={B_BENCH} zero-padded forward's")
+    PATHS.update(parity_b32_ms=fwd_ms, parity_b32_padded_ms=pad_ms,
+                 parity_b32_padded_flagged=flagged)
 
     train_state = snapshot(model)
     parity_outs = [o.clone() for o in outs[:3]]
@@ -1730,6 +1902,7 @@ def main() -> int:
     log(f"all phases passed; kernel times summed over the B={B_CHECK} "
         f"forward's (or training or GAN step's) calls; forward B={B_BENCH} "
         f"{cps:.2f} clouds/s")
+    print("paths " + json.dumps(PATHS), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,7 +13,11 @@ concurrent builds need no lock file.
 
 Every wrapper in ``sparenet_tpu_torch.ops`` counts its kernel launches in
 ``LAUNCHES`` and the calls of its plain PyTorch version in ``PLAIN_CALLS``;
-a run can show with them which path it took.
+a run can show with them which path it took. Counts that kernels keep on
+the card (``DEVICE_COUNTS``, one int64 tensor a device) are read with
+``device_count``: "knn_flagged" and "knn_packed_flagged", the kNN queries
+of each arm whose shortlist failed its margin test and took the exact-scan
+kernel (csrc/knn.cu).
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "BUILD_INFO", "reset_counts", "build",
-           "lib", "check", "stream_of", "compile_command", "nvcc_command"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "DEVICE_COUNTS", "BUILD_INFO",
+           "reset_counts", "device_counter", "device_count", "build", "lib",
+           "check", "stream_of", "compile_command", "nvcc_command"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -41,6 +46,8 @@ LAUNCHES = {"knn": 0, "gather_max": 0, "expansion": 0, "mds": 0, "nn_idx": 0,
             "emd_bids": 0, "edge_stats_fwd": 0, "edge_stats_bwd": 0, "p2i": 0,
             "p2i_bwd": 0, "knn_packed": 0, "mds_continue": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
+# name -> {device: int64 tensor of one element}, added to by kernels
+DEVICE_COUNTS: dict = {"knn_flagged": {}, "knn_packed_flagged": {}}
 # filled by build(): the command, its seconds and the compiler's -Xptxas -v
 # report (registers, shared memory and spills of every kernel)
 BUILD_INFO: dict = {}
@@ -52,7 +59,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "spn_error_string": ((_I,), ctypes.c_char_p),
-    "spn_knn": ((_P, _P, _I, _I, _I, _I, _P, _P), _I),
+    "spn_knn_scratch_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
+    "spn_knn": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
     "spn_gather_rows_per_block": ((), _I),
     "spn_gather_max": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
     "spn_expansion": ((_P, _I, _I, _P, _P, _P, _P), _I),
@@ -65,7 +73,8 @@ _SIGNATURES = {
     "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
     "spn_p2i_max": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P), _I),
     "spn_p2i_max_backward": ((_P,) * 5 + (_I,) * 4 + (_F, _I) + (_P,) * 3, _I),
-    "spn_knn_packed": ((_P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
+    "spn_knn_packed": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
+    "spn_knn_dots": ((_P, _P) + (_I,) * 5 + (_P,) * 4, _I),
     "spn_mds_continue_max_points": ((), _I),
     "spn_mds_continue_max_steps": ((), _I),
     "spn_mds_continue": ((_P, _P, _P, _P, _I, _I, _I, _P, _P), _I),
@@ -73,10 +82,26 @@ _SIGNATURES = {
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count to 0."""
+    """Set every launch, plain-call and device count to 0."""
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+    for per_device in DEVICE_COUNTS.values():
+        for t in per_device.values():
+            t.zero_()
+
+
+def device_counter(name: str, device: torch.device) -> torch.Tensor:
+    """The card's counter ``name`` on ``device`` (made at first use)."""
+    per_device = DEVICE_COUNTS[name]
+    if device not in per_device:
+        per_device[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return per_device[device]
+
+
+def device_count(name: str) -> int:
+    """The counter ``name`` summed over the devices (synchronises)."""
+    return sum(int(t.item()) for t in DEVICE_COUNTS[name].values())
 
 
 def _sources() -> list[Path]:

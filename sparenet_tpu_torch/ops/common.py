@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["graph_dot", "pairwise_sqdist_graph", "pairwise_sqdist_serving",
+__all__ = ["graph_dot", "pairwise_sqdist_graph", "pairwise_sqdist_graph_seq",
+           "graph_dot_seq", "sqnorm_fma", "sqdist_from", "serving_dot",
+           "pairwise_sqdist_serving",
            "sqnorm_seq", "sqdist3", "sqnorm3",
            "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu"]
 
@@ -48,6 +50,42 @@ def pairwise_sqdist_graph(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x2 + y2 - 2.0 * graph_dot(x, y)).clamp_min(0.0)
 
 
+def graph_dot_seq(x: torch.Tensor) -> torch.Tensor:
+    """graph_dot(x, x) in the exact kNN kernel's fixed order (csrc/knn.cu):
+    per channel, in channel order, dot = fma(xl, yh, fma(xh, yl,
+    fma(xh, yh, dot))), each fma computed in f64 and rounded once.
+    x [B, N, C] -> [B, N, N]."""
+    xh, xl = _split_bf16(x)
+    dot = x.new_zeros(x.shape[0], x.shape[1], x.shape[1])
+    for c in range(x.shape[-1]):
+        qh, ql = xh[:, :, c, None], xl[:, :, c, None]
+        yh, yl = xh[:, None, :, c], xl[:, None, :, c]
+        dot = fma(ql, yh, fma(qh, yl, fma(qh, yh, dot)))
+    return dot
+
+
+def sqnorm_fma(x: torch.Tensor) -> torch.Tensor:
+    """|x|^2 over the last axis as an fma chain in channel order (the exact
+    kNN kernel's norms)."""
+    s = x.new_zeros(x.shape[:-1])
+    for c in range(x.shape[-1]):
+        s = fma(x[..., c], x[..., c], s)
+    return s
+
+
+def sqdist_from(sq: torch.Tensor, dot: torch.Tensor) -> torch.Tensor:
+    """max((|x_q|^2 + |y_j|^2) - 2 dot, 0) from the norms sq [B, N] and the
+    dots [B, N, N], each step rounded, as the kNN kernels combine them."""
+    return ((sq[:, :, None] + sq[:, None, :]) - 2.0 * dot).clamp_min(0.0)
+
+
+def pairwise_sqdist_graph_seq(x: torch.Tensor) -> torch.Tensor:
+    """pairwise_sqdist_graph(x, x) summed in one fixed order, the exact kNN
+    kernel's: ``graph_dot_seq`` and ``sqnorm_fma``. x [B, N, C] ->
+    [B, N, N]."""
+    return sqdist_from(sqnorm_fma(x), graph_dot_seq(x))
+
+
 def sqnorm_seq(x: torch.Tensor) -> torch.Tensor:
     """|x|^2 over the last axis summed in channel order, each product and
     each sum rounded: ((x0 x0 + x1 x1) + x2 x2) + ...  (the serving kNN
@@ -58,18 +96,25 @@ def sqnorm_seq(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def pairwise_sqdist_serving(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Serving-mode graph distance max(|x|^2 + |y|^2 - 2 xh.yh, 0) for
-    x [B, N, C], y [B, M, C] -> [B, N, M]: graph_dot at DEFAULT, one bf16
-    pass accumulated in f32, in channel order (products of two bf16 values
-    are exact in f32, so the order is the only rounding), and the norms
-    from the f32 values (``sqnorm_seq``)."""
+def serving_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """xh.yh for x [B, N, C], y [B, M, C] -> [B, N, M]: graph_dot at
+    DEFAULT, one bf16 pass accumulated in f32, in channel order (products
+    of two bf16 values are exact in f32, so the order is the only
+    rounding)."""
     xh = x.to(torch.bfloat16).to(torch.float32)
     yh = y.to(torch.bfloat16).to(torch.float32)
     dot = x.new_zeros(x.shape[0], x.shape[1], y.shape[1])
     for c in range(x.shape[-1]):
         dot.addcmul_(xh[:, :, c, None], yh[:, None, :, c])
-    d = (sqnorm_seq(x)[:, :, None] + sqnorm_seq(y)[:, None, :]) - 2.0 * dot
+    return dot
+
+
+def pairwise_sqdist_serving(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Serving-mode graph distance max(|x|^2 + |y|^2 - 2 xh.yh, 0) for
+    x [B, N, C], y [B, M, C] -> [B, N, M]: ``serving_dot``, and the norms
+    from the f32 values (``sqnorm_seq``)."""
+    d = ((sqnorm_seq(x)[:, :, None] + sqnorm_seq(y)[:, None, :])
+         - 2.0 * serving_dot(x, y))
     return d.clamp_min(0.0)
 
 

@@ -14,7 +14,8 @@ import torch
 from sparenet_tpu_torch import models
 from sparenet_tpu_torch.ops import (_lib, chamfer, edge_gather, emd,
                                     expansion_penalty, gather, knn, mds, p2i)
-from sparenet_tpu_torch.ops.common import pairwise_sqdist_graph
+from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
+                                           pairwise_sqdist_graph_seq)
 from sparenet_tpu_torch.runners import base, sparenet, sparenet_gan
 
 pytestmark = pytest.mark.gpu
@@ -33,20 +34,24 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
-@pytest.mark.parametrize("c,n", [(3, 3000), (256, 3000), (40, 129)])
-def test_knn_kernel_matches_plain(cuda, c, n):
+def _near_ties_only(x, got, want):
     """Index mismatches only at near-ties: the distance gap of each is
     within 1e-5 of |x|^2 + |y|^2 (the two sum the same terms in another
-    order)."""
-    x = torch.randn(2, n, c, generator=_gen()).to(cuda)
-    got = knn.knn_idx(x, 8).long()
-    want = knn.knn_plain(x, 8).long()
+    order), and fewer than 1e-3 of the entries."""
+    got, want = got.long(), want.long()
     d = pairwise_sqdist_graph(x, x)
     gap = (d.gather(2, got) - d.gather(2, want)).abs()
     x2 = (x * x).sum(-1)
-    scale = x2[:, :, None] + x2.gather(1, want.reshape(2, -1)).reshape(want.shape)
+    b = x.shape[0]
+    scale = x2[:, :, None] + x2.gather(1, want.reshape(b, -1)).reshape(want.shape)
     assert bool((gap <= 1e-5 * scale).all())
     assert (got != want).float().mean() < 1e-3
+
+
+@pytest.mark.parametrize("c,n", [(3, 3000), (256, 3000), (40, 129)])
+def test_knn_kernel_matches_plain(cuda, c, n):
+    x = torch.randn(2, n, c, generator=_gen()).to(cuda)
+    _near_ties_only(x, knn.knn_idx(x, 8), knn.knn_plain(x, 8))
 
 
 def test_knn_kernel_lowest_index_on_ties(cuda):
@@ -54,6 +59,106 @@ def test_knn_kernel_lowest_index_on_ties(cuda):
     x = torch.cat([base, base, base[:, :10]], 1).to(cuda)
     np.testing.assert_array_equal(knn.knn_idx(x, 8).cpu().numpy(),
                                   knn.knn_plain(x, 8).cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [129, 3000, 4097])
+@pytest.mark.parametrize("k", [1, 16, 20, 32])
+def test_knn_kernels_take_any_k(cuda, k, n):
+    """Both arms at k other than the model's 8 (the kernels are built for
+    K = 8, 16, 32 and write the first k): exact arm within the near-tie
+    rule, packed arm bit for bit."""
+    x = torch.randn(1, n, 64, generator=_gen()).to(cuda)
+    _near_ties_only(x, knn.knn_idx(x, k), knn.knn_plain(x, k))
+    assert torch.equal(knn.knn_idx(x, k, packed=True), knn.knn_packed_plain(x, k))
+
+
+def test_knn_kernels_refuse_k_above_32(cuda):
+    x = torch.randn(1, 64, 8, generator=_gen()).to(cuda)
+    for packed in (False, True):
+        with pytest.raises(ValueError, match="k <= 32"):
+            knn.knn_idx(x, 33, packed=packed)
+
+
+@pytest.mark.parametrize("c,n", [(3, 3000), (256, 3000), (40, 129)])
+def test_knn_kernel_equals_its_fixed_order(cuda, c, n):
+    """The exact arm ranks by its fixed summation order
+    (pairwise_sqdist_graph_seq), lowest index on ties: bit for bit."""
+    x = torch.randn(2, n, c, generator=_gen()).to(cuda)
+    want = knn.smallest_k(pairwise_sqdist_graph_seq(x), 8)
+    assert torch.equal(knn.knn_idx(x, 8), want)
+
+
+def _lattice(c):
+    """Two clouds of 3000 distinct points of {0..7}^4 (in the first 4 of c
+    channels): a query has up to 8 others at distance 1 and 24 at 2, exact
+    ties among distinct points."""
+    g = torch.stack(torch.meshgrid(*[torch.arange(8.0)] * 4, indexing="ij"),
+                    -1).reshape(-1, 4)
+    x = torch.zeros(2, 3000, c)
+    for b in range(2):
+        x[b, :, :4] = g[torch.randperm(len(g), generator=_gen())[:3000]]
+    return x
+
+
+@pytest.mark.parametrize("c", [4, 256])
+def test_knn_flagged_queries_take_the_exact_scan(cuda, c):
+    """Distinct lattice points: more than 32 keys share a truncation
+    bucket, the margin test flags those queries in both arms and the scan
+    kernel answers them, bit for bit."""
+    x = _lattice(c).to(cuda)
+    _lib.reset_counts()
+    packed = knn.knn_idx(x, 8, packed=True)
+    exact = knn.knn_idx(x, 8)
+    assert _lib.device_count("knn_packed_flagged") > 0
+    assert _lib.device_count("knn_flagged") > 0
+    assert torch.equal(packed, knn.knn_packed_plain(x, 8))
+    assert torch.equal(exact, knn.smallest_k(pairwise_sqdist_graph_seq(x), 8))
+
+
+@pytest.mark.parametrize("c", [3, 256])
+def test_knn_equal_rows_rank_as_groups(cuda, c):
+    """Zero-padded clouds (2048 points and 952 zero rows, as the loaders'
+    RandomSamplePoints gives), and 8 points each ~125 times in the first
+    1000 rows: the equal rows rank as groups, no query is flagged, and both
+    arms give the plain answer, bit for bit."""
+    x = torch.zeros(2, 3000, c)
+    x[:, 1000:2048] = torch.randn(2, 1048, c, generator=_gen())
+    x[:, :1000, :3] = torch.randint(0, 2, (2, 1000, 3), generator=_gen()).float()
+    x = x.to(cuda)
+    _lib.reset_counts()
+    packed = knn.knn_idx(x, 8, packed=True)
+    exact = knn.knn_idx(x, 8)
+    assert _lib.device_count("knn_packed_flagged") == 0
+    assert _lib.device_count("knn_flagged") == 0
+    assert torch.equal(packed, knn.knn_packed_plain(x, 8))
+    assert torch.equal(exact, knn.smallest_k(pairwise_sqdist_graph_seq(x), 8))
+
+
+def _mixed_operands(c):
+    """Operands that stress the tensor cores' sums: each entry scaled by
+    2^e, e uniform in [-12, 12] (terms of mixed exponents in one k-step),
+    and every point beside a copy of itself moved by 1e-3 (cancellation:
+    d far below |x|^2)."""
+    g = _gen()
+    base = torch.randn(1, 128, c, generator=g) * 2.0 ** torch.randint(
+        -12, 13, (1, 128, c), generator=g).float()
+    near = base * (1 + 1e-3 * torch.randn(1, 128, c, generator=g))
+    return torch.cat([base, near], 1)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["exact", "packed"])
+@pytest.mark.parametrize("c", [3, 256, 512])
+def test_knn_tensor_core_error_within_margin(cuda, c, packed):
+    """The margin's premise on the card: the main kernel's dots differ from
+    the arm's fixed-order dots by well under the bound derived for them
+    (each add of the tensor cores keeping 24 significant bits), and its
+    distances from the fixed order's by less than E."""
+    dot_ratio, d_ratio = knn.tensor_core_error(_mixed_operands(c).to(cuda),
+                                               packed)
+    print(f"C={c} {'packed' if packed else 'exact'}: max |dot' - dot| / bound "
+          f"{dot_ratio:.3e}, max |d' - d| / E {d_ratio:.3e}")
+    assert dot_ratio < 0.5
+    assert d_ratio < 1.0
 
 
 @pytest.mark.parametrize("c", [4, 256, 1024])

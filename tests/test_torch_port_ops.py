@@ -33,13 +33,18 @@ def _t(a):
 # kNN graph
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c,n", [(3, 300), (16, 200), (40, 120)])
-def test_knn_matches_jax(rng, c, n):
-    """Index equality (exact) on random inputs."""
+@pytest.mark.parametrize("c,n,k", [
+    pytest.param(3, 300, 8, id="3-300"), pytest.param(16, 200, 8, id="16-200"),
+    pytest.param(40, 120, 8, id="40-120"),
+    pytest.param(3, 300, 1, id="3-300-k1"), pytest.param(16, 200, 16, id="16-200-k16"),
+    pytest.param(40, 120, 20, id="40-120-k20")])
+def test_knn_matches_jax(rng, c, n, k):
+    """Index equality (exact) on random inputs, at the model's k = 8 and at
+    other k (the CUDA kernels take k <= 32)."""
     x = rng.randn(2, n, c).astype(np.float32)
-    want = np.asarray(jax_knn(jnp.asarray(x), 8))
-    got = knn.knn_idx(_t(x), 8)
-    assert got.dtype == torch.int32 and got.shape == (2, n, 8)
+    want = np.asarray(jax_knn(jnp.asarray(x), k))
+    got = knn.knn_idx(_t(x), k)
+    assert got.dtype == torch.int32 and got.shape == (2, n, k)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -45,15 +45,18 @@ def _t(a):
 # packed-key kNN
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c,n", [(3, 300), (8, 128), (16, 200), (40, 120),
-                                 (64, 256), (128, 300)])
-def test_knn_packed_matches_pallas_interpret(rng, fast_math, c, n):
+@pytest.mark.parametrize("c,n,k", [
+    pytest.param(c, n, 8, id=f"{c}-{n}") for c, n in
+    [(3, 300), (8, 128), (16, 200), (40, 120), (64, 256), (128, 300)]] + [
+    pytest.param(16, 200, k, id=f"16-200-k{k}") for k in (1, 16, 20)])
+def test_knn_packed_matches_pallas_interpret(rng, fast_math, c, n, k):
     """Indices exact against the Pallas kernel's packed arm in interpret
-    mode (one bf16 pass, truncated keys, lowest index on ties)."""
+    mode (one bf16 pass, truncated keys, lowest index on ties), at the
+    model's k = 8 and at other k (the CUDA kernels take k <= 32)."""
     x = rng.randn(2, n, c).astype(np.float32)
-    want = np.asarray(knn_self_pallas(jnp.asarray(x), 8, interpret=True,
+    want = np.asarray(knn_self_pallas(jnp.asarray(x), k, interpret=True,
                                       packed=True))
-    got = knn.knn_idx(_t(x), 8, packed=True)
+    got = knn.knn_idx(_t(x), k, packed=True)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
