@@ -14,7 +14,9 @@ Phases, each printing a flushed line with its elapsed seconds:
      features; C=256) with the count of queries its margin test sent to
      the exact scan and its time, and its tensor-core distances against
      the fixed order's on operands of mixed exponents and with
-     cancellation, as a share of the margin E;
+     cancellation, as a share of the margin E; greedy MDS at the cluster
+     size it chooses against plain, and at every cluster size C = 1..16
+     bit for bit against C = 1, with its time at C = 1, 2, 4, 8, 16;
   3. the main path: the flagship SpareNet eval forward (3000 -> 16384 points,
      full widths, seeded random weights with jittered BatchNorm statistics)
      at B=4, with every launch count set to 0 just before and read just
@@ -22,7 +24,11 @@ Phases, each printing a flushed line with its elapsed seconds:
   4. each kernel on the very inputs the main path gave it: its outputs there
      against the plain version's, and kernel, plain and library times summed
      over the forward's calls (the numbers of the kernels line); the kNN
-     queries flagged for the exact scan on those inputs;
+     queries flagged for the exact scan on those inputs; MDS at every
+     cluster size on each of its calls' inputs, bit for bit against C = 1;
+     the MDS latency floor: an empty step (no lane pass: the CTA argmin,
+     the record exchange and its wait) in us at each C, and the
+     C chosen at B = 4, 24 and 32;
   5. the forward against plain forwards: free-running (every op plain), and
      anchored (the plain forward replays the kernel kNN graphs checked in
      phase 4, so that only reassociation separates the two); two controls
@@ -34,14 +40,18 @@ Phases, each printing a flushed line with its elapsed seconds:
      loaders pad short clouds), with the flagged kNN queries;
   7. each training kernel (chamfer NN, auction bids, edge-stats forward and
      backward) against its plain version on random inputs at the shapes the
-     flagship training step gives it, ties included;
+     flagship training step gives it, ties included; the bids also at full
+     width with the counts on the card (u = 1, 37, 8908, 16384 bidders),
+     with the kernel's plan (bidder tiles, object chunks) at each u;
   8. the second main path: one flagship training step (the same model and
      widths, EMD + consistency-Chamfer loss, Adam) at B=4 through
      ``runners.sparenet.train_step``, counts set to 0 just before and read
      just after: every kernel of the step launched, no plain version ran;
   9. each training kernel on the very inputs the step gave it: outputs
      against the plain version's, kernel, plain and library times summed
-     over the step's calls;
+     over the step's calls; the bids' plan at the smallest and largest u of
+     the step's rounds (the rounds run at full width, no host read a
+     round);
  10. the kernel step against a plain step on the card that replays its kNN
      graphs and MDS picks, both in deterministic mode: loss and every
      gradient leaf, and two perturbed-op controls the check must catch;
@@ -228,6 +238,9 @@ KNN_KERNELS = ("knn_prepass", "knn_dedup", "knn_mma", "knn_rerank", "knn_scan")
 # each path's end-to-end time, printed on one line ("paths {...}") so that
 # two runs compare line against line
 PATHS: dict = {}
+# the MDS latency floor (phase 4): us a step at each cluster size, the size
+# chosen at B = 4, 24, 32
+FLOOR: dict = {}
 
 
 def plain_knn(x, k=8, packed=False):
@@ -441,10 +454,37 @@ def check_random(gen, dev) -> dict:
     partial = (torch.rand(B_CHECK, n, 3, generator=gen) - 0.5).to(dev)
     _, _, mml = expansion_penalty.expansion_penalty(coarse, PRIM_S, 1.5)
     xyz = torch.cat([coarse, partial], 1).contiguous()
-    verdict("mds", f"{list(xyz.shape)} -> {N_OUT}", compare_mds(
-        xyz, mml, mds.minimum_density_sample(xyz, N_OUT, mml),
-        mds.mds_plain(xyz, N_OUT, mml)))
+    picks = mds.minimum_density_sample(xyz, N_OUT, mml)
+    c, per_sm = mds.cluster_size(B_CHECK, xyz.shape[1])
+    verdict("mds", f"{list(xyz.shape)} -> {N_OUT}, C={c} ({per_sm} CTA(s) an "
+            f"SM)", compare_mds(
+                xyz, mml, picks, mds.mds_plain(xyz, N_OUT, mml)))
+    check_mds_clusters(xyz, N_OUT, mml, picks, errs, "random input")
     return errs
+
+
+def check_mds_clusters(xyz, npoint, mml, picks, errs, what: str) -> None:
+    """Every cluster size C = 1..16, forced, against C = 1, and C = 1
+    against the picks of the chosen size: bit for bit, with the kernel's
+    time at each C."""
+    ref = mds.minimum_density_sample(xyz, npoint, mml, _cluster=1)
+    same = []
+    for c in range(1, 17):
+        got = (ref if c == 1 else
+               mds.minimum_density_sample(xyz, npoint, mml, _cluster=c))
+        ok, err, _ = compare_exact(got, ref)
+        errs["mds"] = max(errs["mds"], err)
+        same.append(ok)
+        if not ok:
+            fail(f"mds {what}: C={c} picks differ from C=1's")
+    ok, err, msg = compare_exact(picks, ref)
+    if not ok:
+        fail(f"mds {what}: the chosen C's picks differ from C=1's ({msg})")
+    times = {c: cuda_ms(lambda: mds.minimum_density_sample(
+        xyz, npoint, mml, _cluster=c), reps=1) for c in (1, 2, 4, 8, 16)}
+    log(f"  mds {what} {list(xyz.shape)} -> {npoint}: C = 1..16 bit for bit "
+        f"equal to C=1: {all(same)}; ms a call at C " + ", ".join(
+            f"{c}: {ms:.3f}" for c, ms in times.items()))
 
 
 def near_tie_features(gen, dev):
@@ -537,6 +577,37 @@ def time_knn_calls(model, partial, what: str) -> None:
 # phase 4: each kernel on the inputs the main path gave it, timed
 # ---------------------------------------------------------------------------
 
+FLOOR_STEPS = 4096
+
+
+def mds_latency_floor(args, dev) -> None:
+    """The greedy kernel's latency floor: a chain of FLOOR_STEPS steps with
+    no lane pass (barriers and the record exchange only) on the forward's
+    input, in microseconds a step at each cluster size; the size chosen at
+    B = 4, 24 and 32 for the N the forward sees."""
+    xyz, _, mml = args
+    n = xyz.shape[1]
+
+    def us_a_step(c, cta_only=False):
+        ms = cuda_ms(lambda: mds.mds_floor(xyz, FLOOR_STEPS + 1, mml, c,
+                                           cta_only), reps=3)
+        return 1e3 * ms / FLOOR_STEPS
+    per_step = {c: us_a_step(c) for c in range(1, 17)}
+    cta = {c: us_a_step(c, True) for c in (1, 16)}
+    stages = {st: cuda_ms(lambda: mds.minimum_density_sample(
+        xyz, args[1], mml, _stage=st), reps=2) for st in (0, 256, 1024, 4096)}
+    log(f"  mds on the forward's input, ms a call by compaction period "
+        f"(0: none): " + ", ".join(f"{st}: {t:.3f}" for st, t in stages.items()))
+    chosen = {b: mds.cluster_size(b, n) for b in (B_CHECK, B_TRAIN, B_BENCH)}
+    FLOOR.update(per_step_us=per_step, cta_only_us=cta, chosen=chosen)
+    log(f"  mds latency floor (an empty step: CTA argmin, record exchange, "
+        f"its wait), us a step at C: " + ", ".join(
+            f"{c}: {us:.3f}" for c, us in per_step.items())
+        + "; the CTA argmin and barrier alone at C " + ", ".join(
+            f"{c}: {us:.3f}" for c, us in cta.items())
+        + f"; (C, CTAs an SM) chosen for N={n} at B " + ", ".join(
+            f"{b}: {c}" for b, c in chosen.items()) + f" on {nvidia_smi()}")
+
 def _library_knn(x, k=8, packed=False):
     """cdist + topk: ranks the exact f32 distances (neither the bf16 split
     of parity mode nor serving mode's one bf16 pass and truncated keys)."""
@@ -596,8 +667,20 @@ def _library_nn(x1, x2):
     return torch.cdist(x1, x2).argmin(-1)
 
 
-def _library_bids(x1, x2, price):
+def _library_bids(x1, x2, price, count=None):
+    """cdist and topk over the bidders the call scores: the list cut to its
+    largest count where the call has counts (a host read)."""
+    if count is not None:
+        x1 = x1[:, :max(1, int(count.max()))]
     return ((3.0 - price)[:, None, :] - torch.cdist(x1, x2)).topk(2, -1)
+
+
+def _bids_pairs(a) -> float:
+    """(bidder, object) pairs the call scores: count[b] bidders a cloud
+    where the call has counts (this run's data), else all M."""
+    b, m = a[0].shape[:2]
+    rows = b * m if len(a) < 4 or a[3] is None else float(a[3].sum())
+    return rows * a[1].shape[1]
 
 
 def _library_stats_fwd(table, idx):
@@ -623,13 +706,13 @@ SPECS.update({
                    4 * (a[0].numel() + a[1].numel() + out.numel()),
                    8.0 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1],
                    FP32_FLOPS)),
-    # as nn_idx plus the square root, a subtraction and a second compare
+    # as nn_idx plus the square root, a subtraction and a second compare,
+    # for the pairs of the bidders the call scores
     "emd_bids": (_library_bids, 3, lambda a, got, want: compare_exact(got, want),
                  lambda a, out: bound(
                      4 * (a[0].numel() + a[1].numel() + a[2].numel()
                           + 2 * out[0].numel()),
-                     11.0 * a[0].shape[0] * a[0].shape[1] * a[1].shape[1],
-                     FP32_FLOPS)),
+                     11.0 * _bids_pairs(a), FP32_FLOPS)),
     # max, min, add, fma (2) per gathered element
     "edge_stats_fwd": (_library_stats_fwd, 10,
                        lambda a, got, want: compare_exact(got, want),
@@ -752,6 +835,13 @@ def check_random_train(gen, dev) -> dict:
         price = price.to(dev)
         verdict("emd_bids", f"[{b}, {N_OUT}] x [{b}, {N_OUT}] {what}", compare_exact(
             emd.emd_bids(x1, x2, price), emd.emd_bids_plain(x1, x2, price)))
+        for u in (1, 37, 8908, N_OUT):      # an auction's rounds: full width
+            count = torch.tensor([u, max(1, u // 3), u, 1][:b] + [u] * (b - 4),
+                                 dtype=torch.int32, device=dev)
+            verdict("emd_bids", f"{what}, full-width list, counts "
+                    f"{count.tolist()}, grid {emd.bids_plan(b, N_OUT, N_OUT, u)}",
+                    compare_exact(emd.emd_bids(x1, x2, price, count),
+                                  emd.emd_bids_plain(x1, x2, price, count)))
     n = N_INPUT_POINTS
     for c in (256, 1024):
         table = torch.randn(b, n, c, generator=gen)
@@ -861,9 +951,9 @@ def stats_bwd_route_to_slot0(table, idx, mx, mn, gmx, gmn, gs1, gs2):
     return base.scatter_add(1, first[..., None].expand(-1, -1, c), gmx + gmn)
 
 
-def bids_without_second(xyz1, xyz2, price):
+def bids_without_second(xyz1, xyz2, price, count=None):
     """Bids whose increment ignores the second-best value (best - best)."""
-    t, inc = emd.emd_bids_plain(xyz1, xyz2, price)
+    t, inc = emd.emd_bids_plain(xyz1, xyz2, price, count)
     return t, torch.zeros_like(inc)
 
 
@@ -918,8 +1008,8 @@ def compare_steps(state, partial, gt, calls, dev) -> None:
                 fail(f"the step check does not see a {what}")
 
 
-_TRAIN_GROUPS = (("mds", ("mds_kernel",)),
-                 ("emd_bids", ("bids_kernel",)),
+_TRAIN_GROUPS = (("mds", ("mds_cluster_kernel",)),
+                 ("emd_bids", ("bids_kernel", "bids_merge_kernel")),
                  ("knn", KNN_KERNELS),
                  ("nn_idx", ("::nn_kernel",)),
                  ("edge_stats", ("stats_fwd_kernel", "route_kernel", "count_kernel",
@@ -1044,6 +1134,12 @@ def main_train(model_state, dev) -> tuple[dict, dict, dict]:
 
     log("phase 9: each training kernel on the inputs the step gave it")
     rows = check_forward_calls(calls, errs, TRAIN_OPS, "step")
+    us = [int(a[3].max()) for a, _, _ in calls["emd_bids"]]
+    b, m = calls["emd_bids"][0][0][0].shape[:2]
+    log(f"  emd_bids grid: {len(us)} calls, u from {min(us)} to {max(us)} "
+        f"bidders; at u={max(us)} {emd.bids_plan(b, m, m, max(us))}, at "
+        f"u={min(us)} {emd.bids_plan(b, m, m, min(us))}; rounds with u = 0 "
+        f"run (no host read a round): {sum(u == 0 for u in us)}")
 
     log("phase 10: the kernel step against the anchored plain step")
     compare_steps(model_state, partial, gt, calls, dev)
@@ -1448,7 +1544,7 @@ def compare_forwards(model, partial, calls, outs) -> None:
 _GROUPS = (("knn", KNN_KERNELS),
            ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
            ("expansion", ("expansion_kernel",)),
-           ("mds", ("mds_kernel",)),
+           ("mds", ("mds_cluster_kernel",)),
            ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
 
 
@@ -1686,7 +1782,7 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
 
 _SERVE_GROUPS = (("knn (packed)", KNN_KERNELS),
                  ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
-                 ("mds (exact)", ("mds_kernel",)),
+                 ("mds (exact)", ("mds_cluster_kernel",)),
                  ("mds continuation", ("mds_continue_kernel",)),
                  ("sort", ("radix", "sort")),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
@@ -1800,6 +1896,11 @@ def main() -> int:
     log("phase 4: each kernel on the inputs the main path gave it")
     results = check_forward_calls(calls, errs)
     report_flagged(calls["knn"], "the forward's inputs")
+    for i, (a, kw, out) in enumerate(calls["mds"]):
+        check_mds_clusters(a[0], a[1], a[2], out, errs,
+                           f"forward call {i}'s input")
+    results["mds"]["max_abs_err"] = max(results["mds"]["max_abs_err"], errs["mds"])
+    mds_latency_floor(calls["mds"][0][0], dev)
 
     log("phase 5: the kernel forward against plain forwards")
     compare_forwards(model, partial, calls, outs)

@@ -26,29 +26,34 @@
 // and six [B, M, C] inputs and writes one [B, N, C] output.
 //
 // Design, forward: as the gather-max kernel, a block takes 32 points of one
-// cloud; threads run across C with 16-byte loads, so a gathered row is read
-// by neighbouring threads at neighbouring addresses; all four statistics
-// accumulate in registers in slot order.
+// cloud; threads run across C with 16-byte loads (where C % 4 == 0 and the
+// rows are 16-byte aligned; else one channel a thread), so a gathered row
+// is read by neighbouring threads at neighbouring addresses; all four
+// statistics accumulate in registers in slot order.
 //
 // Design, backward: the TPU kernel scatters every (m, j) contribution into a
 // gradient table held in VMEM, in ascending (m, j) order because its grid
 // runs in sequence. Hopper blocks run in no order and atomic adds would sum
 // in an order that changes from run to run, so the scatter becomes a gather:
 //   1. route: per (m, c), the first slot equal to mx and to mn (two 4-bit
-//      slot numbers in one byte; 15 where none is equal);
+//      slot numbers in one byte, 15 where none is equal; above 15 slots two
+//      16-bit slot numbers in 32 bits, 0xFFFF for none);
 //   2. the inverse adjacency as CSR lists per cloud: count the in-degree of
 //      each n, scan it, fill each list, then sort each (short) list so it
 //      holds the flat slots m * k + j in ascending order;
 //   3. accumulate: one block per range of rows n, threads across C; each n
 //      walks its list in order and sums the contributions in registers.
-// Every step is deterministic, and the sum order is the reference's.
+// Every step is deterministic, and the sum order is the reference's. The
+// arithmetic is per channel, so the 16-byte and the one-channel paths give
+// the same bits.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRows = 32;      // points (forward, route) or rows (backward)
 constexpr int kThreads = 256;  // per block
-constexpr int kMaxK = 15;      // slots fit in 4 bits; 15 means "none"
+constexpr int kStageK = 16;    // neighbour lists staged in shared memory
+constexpr int kNarrowK = 15;   // slots that fit a 4-bit route code
 constexpr int kScanThreads = 1024;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -59,94 +64,165 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
-// threads: blockDim.x = tx across the C/4 vectors, blockDim.y = 256 / tx
+// V consecutive elements at p (aligned to V elements when V = 4)
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load(const unsigned* p, unsigned (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void load(const unsigned char* p, unsigned char (&v)[V]) {
+  if constexpr (V == 4) {
+    const uchar4 t = *reinterpret_cast<const uchar4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+template <int V>
+__device__ __forceinline__ void store(unsigned* p, const unsigned (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+template <int V>
+__device__ __forceinline__ void store(unsigned char* p, const unsigned char (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<uchar4*>(p) = make_uchar4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+
+// The k slot indices of the block's points: staged in shared memory up to
+// kStageK slots, read from device memory above that.
+__device__ __forceinline__ const int* stage_idx(int* sidx, const int* ib,
+                                                int rows, int k, int tid) {
+  const bool staged = k <= kStageK;
+  if (staged)
+    for (int e = tid; e < rows * k; e += kThreads) sidx[e] = ib[e];
+  __syncthreads();
+  return staged ? sidx : ib;
+}
+
+// threads: blockDim.x = tx across the C / V vectors, blockDim.y = 256 / tx
+template <int V>
 __global__ void __launch_bounds__(kThreads)
-stats_fwd_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
-                 int n, int m, int cv, int k, float4* __restrict__ mx,
-                 float4* __restrict__ mn, float4* __restrict__ s1,
-                 float4* __restrict__ s2) {
-  __shared__ int sidx[kRows * kMaxK];
+stats_fwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                 int n, int m, int c, int k, float* __restrict__ mx,
+                 float* __restrict__ mn, float* __restrict__ s1,
+                 float* __restrict__ s2) {
+  __shared__ int sidx[kRows * kStageK];
   const int b = blockIdx.y;
   const int m0 = blockIdx.x * kRows;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int rows = min(kRows, m - m0);
-  const int* ib = idx + ((size_t)b * m + m0) * k;
-  for (int e = tid; e < rows * k; e += kThreads) sidx[e] = ib[e];
-  __syncthreads();
+  const int* ix = stage_idx(sidx, idx + ((size_t)b * m + m0) * k, rows, k, tid);
 
-  const float4* tb = table + (size_t)b * n * cv;
-  const size_t ob = (size_t)b * m * cv;
-  for (int v = threadIdx.x; v < cv; v += blockDim.x) {
+  const float* tb = table + (size_t)b * n * c;
+  const size_t ob = (size_t)b * m * c;
+  for (int v = threadIdx.x; v < c / V; v += blockDim.x) {
     for (int r = threadIdx.y; r < rows; r += blockDim.y) {
-      const int* ir = sidx + r * k;
-      const float4 r0 = tb[(size_t)ir[0] * cv + v];
-      float4 a = r0, i = r0, s = r0;
-      float4 q = make_float4(__fmul_rn(r0.x, r0.x), __fmul_rn(r0.y, r0.y),
-                             __fmul_rn(r0.z, r0.z), __fmul_rn(r0.w, r0.w));
+      const int* ir = ix + r * k;
+      float r0[V], a[V], i[V], s[V], q[V];
+      load<V>(tb + (size_t)ir[0] * c + v * V, r0);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        a[e] = i[e] = s[e] = r0[e];
+        q[e] = __fmul_rn(r0[e], r0[e]);
+      }
       for (int j = 1; j < k; ++j) {
-        const float4 rj = tb[(size_t)ir[j] * cv + v];
-        a = make_float4(max_nan(a.x, rj.x), max_nan(a.y, rj.y),
-                        max_nan(a.z, rj.z), max_nan(a.w, rj.w));
-        i = make_float4(min_nan(i.x, rj.x), min_nan(i.y, rj.y),
-                        min_nan(i.z, rj.z), min_nan(i.w, rj.w));
-        s = make_float4(__fadd_rn(s.x, rj.x), __fadd_rn(s.y, rj.y),
-                        __fadd_rn(s.z, rj.z), __fadd_rn(s.w, rj.w));
+        float rj[V];
+        load<V>(tb + (size_t)ir[j] * c + v * V, rj);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          a[e] = max_nan(a[e], rj[e]);
+          i[e] = min_nan(i[e], rj[e]);
+          s[e] = __fadd_rn(s[e], rj[e]);
+        }
         if (j == 1) {
           // the reference contracts r0*r0 + r1*r1 into fma(r0, r0, r1*r1)
-          q = make_float4(__fmaf_rn(r0.x, r0.x, __fmul_rn(rj.x, rj.x)),
-                          __fmaf_rn(r0.y, r0.y, __fmul_rn(rj.y, rj.y)),
-                          __fmaf_rn(r0.z, r0.z, __fmul_rn(rj.z, rj.z)),
-                          __fmaf_rn(r0.w, r0.w, __fmul_rn(rj.w, rj.w)));
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            q[e] = __fmaf_rn(r0[e], r0[e], __fmul_rn(rj[e], rj[e]));
         } else {
-          q = make_float4(__fmaf_rn(rj.x, rj.x, q.x), __fmaf_rn(rj.y, rj.y, q.y),
-                          __fmaf_rn(rj.z, rj.z, q.z), __fmaf_rn(rj.w, rj.w, q.w));
+#pragma unroll
+          for (int e = 0; e < V; ++e) q[e] = __fmaf_rn(rj[e], rj[e], q[e]);
         }
       }
-      const size_t o = ob + (size_t)(m0 + r) * cv + v;
-      mx[o] = a;
-      mn[o] = i;
-      s1[o] = s;
-      s2[o] = q;
+      const size_t o = ob + (size_t)(m0 + r) * c + v * V;
+      store<V>(mx + o, a);
+      store<V>(mn + o, i);
+      store<V>(s1 + o, s);
+      store<V>(s2 + o, q);
     }
   }
 }
 
-__device__ __forceinline__ unsigned route1(float r, float a, float i, int j,
-                                           unsigned code) {
-  if ((code & 0xFu) == 0xFu && r == a) code = (code & 0xF0u) | (unsigned)j;
-  if ((code >> 4) == 0xFu && r == i) code = (code & 0x0Fu) | ((unsigned)j << 4);
-  return code;
-}
+// Route codes: the first slot equal to mx in the low field, to mn in the
+// high field; an all-ones field means none. unsigned char: 4-bit fields
+// (k <= 15); unsigned: 16-bit fields.
+template <typename Code>
+struct Route {
+  static constexpr int kBits = sizeof(Code) == 1 ? 4 : 16;
+  static constexpr unsigned kNone = (1u << kBits) - 1;
+  static constexpr Code kEmpty = (Code)((kNone << kBits) | kNone);
+  __device__ static Code first(float r, float a, float i, int j, Code code) {
+    unsigned c = code;
+    if ((c & kNone) == kNone && r == a) c = (c & (kNone << kBits)) | (unsigned)j;
+    if ((c >> kBits) == kNone && r == i) c = (c & kNone) | ((unsigned)j << kBits);
+    return (Code)c;
+  }
+  __device__ static bool is_max(Code code, unsigned j) { return (code & kNone) == j; }
+  __device__ static bool is_min(Code code, unsigned j) { return (unsigned)(code >> kBits) == j; }
+};
 
-// route[b, m, c]: low nibble = first slot equal to mx, high = first equal to mn
+// route[b, m, c]
+template <int V, typename Code>
 __global__ void __launch_bounds__(kThreads)
-route_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
-             const float4* __restrict__ mx, const float4* __restrict__ mn,
-             int n, int m, int cv, int k, uchar4* __restrict__ route) {
-  __shared__ int sidx[kRows * kMaxK];
+route_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+             const float* __restrict__ mx, const float* __restrict__ mn,
+             int n, int m, int c, int k, Code* __restrict__ route) {
+  __shared__ int sidx[kRows * kStageK];
   const int b = blockIdx.y;
   const int m0 = blockIdx.x * kRows;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int rows = min(kRows, m - m0);
-  const int* ib = idx + ((size_t)b * m + m0) * k;
-  for (int e = tid; e < rows * k; e += kThreads) sidx[e] = ib[e];
-  __syncthreads();
+  const int* ix = stage_idx(sidx, idx + ((size_t)b * m + m0) * k, rows, k, tid);
 
-  const float4* tb = table + (size_t)b * n * cv;
-  const size_t ob = (size_t)b * m * cv;
-  for (int v = threadIdx.x; v < cv; v += blockDim.x) {
+  const float* tb = table + (size_t)b * n * c;
+  const size_t ob = (size_t)b * m * c;
+  for (int v = threadIdx.x; v < c / V; v += blockDim.x) {
     for (int r = threadIdx.y; r < rows; r += blockDim.y) {
-      const size_t o = ob + (size_t)(m0 + r) * cv + v;
-      const float4 a = mx[o], i = mn[o];
-      unsigned cx = 0xFFu, cy = 0xFFu, cz = 0xFFu, cw = 0xFFu;
+      const size_t o = ob + (size_t)(m0 + r) * c + v * V;
+      float a[V], i[V];
+      load<V>(mx + o, a);
+      load<V>(mn + o, i);
+      Code code[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) code[e] = Route<Code>::kEmpty;
       for (int j = 0; j < k; ++j) {
-        const float4 rj = tb[(size_t)sidx[r * k + j] * cv + v];
-        cx = route1(rj.x, a.x, i.x, j, cx);
-        cy = route1(rj.y, a.y, i.y, j, cy);
-        cz = route1(rj.z, a.z, i.z, j, cz);
-        cw = route1(rj.w, a.w, i.w, j, cw);
+        float rj[V];
+        load<V>(tb + (size_t)ix[r * k + j] * c + v * V, rj);
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          code[e] = Route<Code>::first(rj[e], a[e], i[e], j, code[e]);
       }
-      route[o] = make_uchar4(cx, cy, cz, cw);
+      store<V>(route + o, code);
     }
   }
 }
@@ -219,49 +295,52 @@ __global__ void sort_kernel(const int* __restrict__ offs, int n, int mk,
   }
 }
 
-__device__ __forceinline__ float contrib(float row2, float g1, float g2,
-                                         float gx, float gn, unsigned code,
-                                         unsigned j) {
-  float c = __fmaf_rn(row2, g2, g1);
-  c = __fadd_rn(c, (code & 0xFu) == j ? gx : 0.f);
-  c = __fadd_rn(c, (code >> 4) == j ? gn : 0.f);
-  return c;
-}
-
 // gtable[b, t] = ordered sum over t's list; threads as in the forward
+template <int V, typename Code>
 __global__ void __launch_bounds__(kThreads)
-accum_kernel(const float4* __restrict__ table, const int* __restrict__ offs,
-             const int* __restrict__ list, const float4* __restrict__ gmx,
-             const float4* __restrict__ gmn, const float4* __restrict__ gs1,
-             const float4* __restrict__ gs2, const uchar4* __restrict__ route,
-             int n, int m, int cv, int k, float4* __restrict__ gtable) {
+accum_kernel(const float* __restrict__ table, const int* __restrict__ offs,
+             const int* __restrict__ list, const float* __restrict__ gmx,
+             const float* __restrict__ gmn, const float* __restrict__ gs1,
+             const float* __restrict__ gs2, const Code* __restrict__ route,
+             int n, int m, int c, int k, float* __restrict__ gtable) {
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kRows;
   const int rows = min(kRows, n - t0);
   const int* ob = offs + (size_t)b * (n + 1);
   const int* lb = list + (size_t)b * m * k;
-  const size_t gb = (size_t)b * m * cv;
-  for (int v = threadIdx.x; v < cv; v += blockDim.x) {
+  const size_t gb = (size_t)b * m * c;
+  for (int v = threadIdx.x; v < c / V; v += blockDim.x) {
     for (int r = threadIdx.y; r < rows; r += blockDim.y) {
       const int t = t0 + r;
-      const size_t to = ((size_t)b * n + t) * cv + v;
-      const float4 row = table[to];
-      const float4 r2 = make_float4(2.f * row.x, 2.f * row.y, 2.f * row.z,
-                                    2.f * row.w);
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int p = ob[t]; p < ob[t + 1]; ++p) {
-        const int e = lb[p];
-        const int mm = e / k;
-        const unsigned j = (unsigned)(e - mm * k);
-        const size_t o = gb + (size_t)mm * cv + v;
-        const float4 a = gs1[o], q = gs2[o], x = gmx[o], y = gmn[o];
-        const uchar4 c = route[o];
-        acc.x = __fadd_rn(acc.x, contrib(r2.x, a.x, q.x, x.x, y.x, c.x, j));
-        acc.y = __fadd_rn(acc.y, contrib(r2.y, a.y, q.y, x.y, y.y, c.y, j));
-        acc.z = __fadd_rn(acc.z, contrib(r2.z, a.z, q.z, x.z, y.z, c.z, j));
-        acc.w = __fadd_rn(acc.w, contrib(r2.w, a.w, q.w, x.w, y.w, c.w, j));
+      const size_t to = ((size_t)b * n + t) * c + v * V;
+      float row[V], acc[V];
+      load<V>(table + to, row);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        row[e] = 2.f * row[e];
+        acc[e] = 0.f;
       }
-      gtable[to] = acc;
+      for (int p = ob[t]; p < ob[t + 1]; ++p) {
+        const int f = lb[p];
+        const int mm = f / k;
+        const unsigned j = (unsigned)(f - mm * k);
+        const size_t o = gb + (size_t)mm * c + v * V;
+        float a[V], q[V], x[V], y[V];
+        Code code[V];
+        load<V>(gs1 + o, a);
+        load<V>(gs2 + o, q);
+        load<V>(gmx + o, x);
+        load<V>(gmn + o, y);
+        load<V>(route + o, code);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          float con = __fmaf_rn(row[e], q[e], a[e]);
+          con = __fadd_rn(con, Route<Code>::is_max(code[e], j) ? x[e] : 0.f);
+          con = __fadd_rn(con, Route<Code>::is_min(code[e], j) ? y[e] : 0.f);
+          acc[e] = __fadd_rn(acc[e], con);
+        }
+      }
+      store<V>(gtable + to, acc);
     }
   }
 }
@@ -272,27 +351,55 @@ dim3 row_block(int cv) {
   return dim3(tx, kThreads / tx);
 }
 
+// the 16-byte path: C % 4 == 0 and every tensor 16-byte aligned
+template <typename... P>
+bool vector_path(int c, const P*... ptrs) {
+  return c % 4 == 0 && ((reinterpret_cast<size_t>(ptrs) % 16 == 0) && ...);
+}
+
+template <int V, typename Code>
+cudaError_t route_and_accum(const float* table, const int* idx, const float* mx,
+                            const float* mn, const float* gmx, const float* gmn,
+                            const float* gs1, const float* gs2, int batch, int n,
+                            int m, int c, int k, void* route, const int* offs,
+                            const int* list, float* gtable, cudaStream_t st,
+                            bool first) {
+  const dim3 block = row_block(c / V);
+  Code* rt = static_cast<Code*>(route);
+  if (first) {
+    route_kernel<V, Code><<<dim3((m + kRows - 1) / kRows, batch), block, 0, st>>>(
+        table, idx, mx, mn, n, m, c, k, rt);
+  } else {
+    accum_kernel<V, Code><<<dim3((n + kRows - 1) / kRows, batch), block, 0, st>>>(
+        table, offs, list, gmx, gmn, gs1, gs2, rt, n, m, c, k, gtable);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int spn_edge_stats_max_k(void) { return kMaxK; }
+// Bytes of the route code a (point, channel) at k slots.
+extern "C" int spn_edge_stats_route_bytes(int k) { return k <= kNarrowK ? 1 : 4; }
 
 extern "C" int spn_edge_stats_fwd(const float* table, const int* idx, int batch,
                                   int n, int m, int c, int k, float* mx,
                                   float* mn, float* s1, float* s2,
                                   void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || c < 4 || c % 4 != 0 || k < 1 || k > kMaxK)
-    return (int)cudaErrorInvalidValue;
-  const int cv = c / 4;
+  if (batch < 1 || n < 1 || m < 1 || c < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((m + kRows - 1) / kRows, batch);
-  stats_fwd_kernel<<<grid, row_block(cv), 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(table), idx, n, m, cv, k,
-      reinterpret_cast<float4*>(mx), reinterpret_cast<float4*>(mn),
-      reinterpret_cast<float4*>(s1), reinterpret_cast<float4*>(s2));
+  if (vector_path(c, table, mx, mn, s1, s2))
+    stats_fwd_kernel<4><<<grid, row_block(c / 4), 0, st>>>(table, idx, n, m, c, k,
+                                                          mx, mn, s1, s2);
+  else
+    stats_fwd_kernel<1><<<grid, row_block(c), 0, st>>>(table, idx, n, m, c, k,
+                                                      mx, mn, s1, s2);
   return (int)cudaGetLastError();
 }
 
-// Scratch, allocated by the caller: route [B, M, C] bytes; cnt and cursor
-// [B, N] int32 (zeroed here); offs [B, N + 1] int32; list [B, M * k] int32.
+// Scratch, allocated by the caller: route [B, M, C] codes of
+// spn_edge_stats_route_bytes(k) bytes; cnt and cursor [B, N] int32 (zeroed
+// here); offs [B, N + 1] int32; list [B, M * k] int32.
 extern "C" int spn_edge_stats_bwd(const float* table, const int* idx,
                                   const float* mx, const float* mn,
                                   const float* gmx, const float* gmn,
@@ -301,16 +408,18 @@ extern "C" int spn_edge_stats_bwd(const float* table, const int* idx,
                                   unsigned char* route, int* cnt, int* cursor,
                                   int* offs, int* list, float* gtable,
                                   void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || c < 4 || c % 4 != 0 || k < 1 || k > kMaxK)
-    return (int)cudaErrorInvalidValue;
+  if (batch < 1 || n < 1 || m < 1 || c < 1 || k < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cv = c / 4;
-  const dim3 block = row_block(cv);
-  route_kernel<<<dim3((m + kRows - 1) / kRows, batch), block, 0, st>>>(
-      reinterpret_cast<const float4*>(table), idx,
-      reinterpret_cast<const float4*>(mx), reinterpret_cast<const float4*>(mn),
-      n, m, cv, k, reinterpret_cast<uchar4*>(route));
-  cudaError_t err = cudaGetLastError();
+  const bool vec = vector_path(c, table, mx, mn, gmx, gmn, gs1, gs2, gtable,
+                               route),
+             narrow = k <= kNarrowK;
+  auto stage = [&](bool first) {
+    auto go = vec ? (narrow ? route_and_accum<4, unsigned char> : route_and_accum<4, unsigned>)
+                  : (narrow ? route_and_accum<1, unsigned char> : route_and_accum<1, unsigned>);
+    return go(table, idx, mx, mn, gmx, gmn, gs1, gs2, batch, n, m, c, k, route,
+              offs, list, gtable, st, first);
+  };
+  cudaError_t err = stage(true);
   if (err != cudaSuccess) return (int)err;
 
   const int mk = m * k, total = batch * mk;
@@ -324,12 +433,5 @@ extern "C" int spn_edge_stats_bwd(const float* table, const int* idx,
                                                    cursor, list);
   sort_kernel<<<(batch * n + 255) / 256, 256, 0, st>>>(offs, n, mk, batch, list);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  accum_kernel<<<dim3((n + kRows - 1) / kRows, batch), block, 0, st>>>(
-      reinterpret_cast<const float4*>(table), offs, list,
-      reinterpret_cast<const float4*>(gmx), reinterpret_cast<const float4*>(gmn),
-      reinterpret_cast<const float4*>(gs1), reinterpret_cast<const float4*>(gs2),
-      reinterpret_cast<const uchar4*>(route), n, m, cv, k,
-      reinterpret_cast<float4*>(gtable));
-  return (int)cudaGetLastError();
+  return (int)stage(false);
 }

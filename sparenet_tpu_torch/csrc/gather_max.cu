@@ -12,7 +12,9 @@
 // and the indices and one write of the output.
 //
 // Design: a block takes 32 output rows of one cloud and stages their
-// indices in shared memory. Threads run across C with 16-byte loads, so a
+// indices in shared memory (read from device memory directly above 16
+// neighbours). Threads run across C, with 16-byte loads where C % 4 == 0
+// and the table is 16-byte aligned, else one channel a thread; either way a
 // gathered row is read by neighbouring threads at neighbouring addresses.
 // The max is taken in registers with no reassociation, so it equals the
 // plain version exactly. The sum avoids atomics: each block writes its
@@ -24,29 +26,42 @@ namespace {
 
 constexpr int kRows = 32;      // output rows per block
 constexpr int kThreads = 256;
-constexpr int kMaxK = 16;
+constexpr int kStageK = 16;    // neighbour lists staged in shared memory
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   // NaN-propagating max, as torch.amax / jnp.max
   return (a > b || a != a) ? a : b;
 }
 
-__device__ __forceinline__ float4 max4(float4 a, float4 b) {
-  return make_float4(max_nan(a.x, b.x), max_nan(a.y, b.y), max_nan(a.z, b.z),
-                     max_nan(a.w, b.w));
+// V consecutive floats at p (16-byte aligned when V = 4)
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
 }
 
-// blockDim.x = tx (threads across the C/4 vectors), blockDim.y = 256 / tx
+// V channels a thread (4: float4 loads; 1: any C and alignment);
+// blockDim.x = tx threads across the C / V vectors, blockDim.y = 256 / tx
+template <int V>
 __global__ void __launch_bounds__(kThreads)
-gather_max_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
-                  int n, int m, int cv, int k, float4* __restrict__ out,
-                  float4* __restrict__ partial) {
-  __shared__ int sidx[kRows * kMaxK];
-  __shared__ float4 sred[kThreads];
+gather_max_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                  int n, int m, int c, int k, float* __restrict__ out,
+                  float* __restrict__ partial) {
+  __shared__ int sidx[kRows * kStageK];
+  __shared__ __align__(16) float sred[kThreads * V];
 
   const int b = blockIdx.y;
   const int blk = blockIdx.x;
@@ -54,38 +69,56 @@ gather_max_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * blockDim.x + tx;
   const int rows = min(kRows, m - m0);
+  const int cv = c / V;
 
   const int* ib = idx + ((size_t)b * m + m0) * k;
-  for (int e = tid; e < rows * k; e += kThreads) sidx[e] = ib[e];
+  const bool staged = k <= kStageK;
+  if (staged)
+    for (int e = tid; e < rows * k; e += kThreads) sidx[e] = ib[e];
   __syncthreads();
+  const int* isrc = staged ? sidx : ib;
 
-  const float4* tb = table + (size_t)b * n * cv;
-  float4* ob = out + (size_t)b * m * cv;
+  const float* tb = table + (size_t)b * n * c;
+  float* ob = out + (size_t)b * m * c;
   for (int v0 = 0; v0 < cv; v0 += blockDim.x) {
     const int v = v0 + tx;
     const bool active = v < cv;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    float s[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[i] = 0.f;
     if (active) {
       for (int r = ty; r < rows; r += blockDim.y) {
-        const int* ir = sidx + r * k;
-        float4 row = tb[(size_t)ir[0] * cv + v];
-        float4 mx = row;
-        s = add4(s, row);
-        for (int j = 1; j < k; ++j) {
-          row = tb[(size_t)ir[j] * cv + v];
-          mx = max4(mx, row);
-          s = add4(s, row);
+        const int* ir = isrc + r * k;
+        float row[V], mx[V];
+        load<V>(tb + (size_t)ir[0] * c + v * V, row);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          mx[i] = row[i];
+          s[i] += row[i];
         }
-        ob[(size_t)(m0 + r) * cv + v] = mx;
+        for (int j = 1; j < k; ++j) {
+          load<V>(tb + (size_t)ir[j] * c + v * V, row);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            mx[i] = max_nan(mx[i], row[i]);
+            s[i] += row[i];
+          }
+        }
+        store<V>(ob + (size_t)(m0 + r) * c + v * V, mx);
       }
     }
     if (partial != nullptr) {
-      sred[tid] = s;
+      store<V>(sred + tid * V, s);
       __syncthreads();
       if (ty == 0 && active) {
-        float4 tot = sred[tx];
-        for (int y = 1; y < blockDim.y; ++y) tot = add4(tot, sred[y * blockDim.x + tx]);
-        partial[((size_t)b * gridDim.x + blk) * cv + v] = tot;
+        float tot[V], o[V];
+        load<V>(sred + tx * V, tot);
+        for (int y = 1; y < blockDim.y; ++y) {
+          load<V>(sred + (y * blockDim.x + tx) * V, o);
+#pragma unroll
+          for (int i = 0; i < V; ++i) tot[i] += o[i];
+        }
+        store<V>(partial + ((size_t)b * gridDim.x + blk) * c + v * V, tot);
       }
       __syncthreads();
     }
@@ -103,6 +136,19 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int nblk,
   sum[(size_t)b * c + col] = s;
 }
 
+template <int V>
+cudaError_t launch(const float* table, const int* idx, int batch, int n, int m,
+                   int c, int k, float* out, float* partial, int nblk,
+                   cudaStream_t st) {
+  const int cv = c / V;
+  int tx = 1;
+  while (tx * 2 <= cv && tx * 2 <= kThreads) tx *= 2;
+  const dim3 block(tx, kThreads / tx);
+  gather_max_kernel<V><<<dim3(nblk, batch), block, 0, st>>>(
+      table, idx, n, m, c, k, out, partial);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int spn_gather_rows_per_block(void) { return kRows; }
@@ -111,20 +157,16 @@ extern "C" int spn_gather_rows_per_block(void) { return kRows; }
 extern "C" int spn_gather_max(const float* table, const int* idx, int batch,
                               int n, int m, int c, int k, float* out,
                               float* partial, float* sum, void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || c < 4 || c % 4 != 0 || k < 1 || k > kMaxK ||
+  if (batch < 1 || n < 1 || m < 1 || c < 1 || k < 1 ||
       ((partial == nullptr) != (sum == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cv = c / 4;
-  int tx = 1;
-  while (tx * 2 <= cv && tx * 2 <= kThreads) tx *= 2;
-  const dim3 block(tx, kThreads / tx);
   const int nblk = (m + kRows - 1) / kRows;
-  const dim3 grid(nblk, batch);
-  gather_max_kernel<<<grid, block, 0, st>>>(
-      reinterpret_cast<const float4*>(table), idx, n, m, cv, k,
-      reinterpret_cast<float4*>(out), reinterpret_cast<float4*>(partial));
-  cudaError_t err = cudaGetLastError();
+  const bool vec = c % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0 &&
+                   reinterpret_cast<size_t>(partial) % 16 == 0;
+  cudaError_t err = vec ? launch<4>(table, idx, batch, n, m, c, k, out, partial, nblk, st)
+                        : launch<1>(table, idx, batch, n, m, c, k, out, partial, nblk, st);
   if (err != cudaSuccess || partial == nullptr) return (int)err;
   const dim3 g2((c + 255) / 256, batch);
   sum_partials_kernel<<<g2, 256, 0, st>>>(partial, nblk, c, sum);

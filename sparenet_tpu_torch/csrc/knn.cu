@@ -1,7 +1,8 @@
 // Self-kNN graph on the tensor cores: x [B, N, C] f32 -> idx [B, N, k]
-// int32, self included, ascending, for any k <= 32 (the kernels are built
-// for K = 8, 16 and 32 and write the first k of the smallest K >= k; in
-// both arms' orders the top k is a prefix of the top K).
+// int32, self included, ascending. For k <= 32 the kernels below are built
+// for K = 8, 16 and 32 and write the first k of the smallest K >= k (in
+// both arms' orders the top k is a prefix of the top K); above 32 every
+// query takes an exact scan of all N candidates (knn_scan_all_kernel).
 //
 // Replaces sparenet_tpu/ops/pallas/knn_pallas.py: the entry :152
 // knn_self_pallas, its C-chunked kernel :32 _knn_kernel (the exact arm) and
@@ -829,11 +830,98 @@ knn_scan_kernel(const bf16* __restrict__ xh, const bf16* __restrict__ xl,
   }
 }
 
+// k > 32 (spn_knn and spn_knn_packed at any k): every query ranks the exact
+// keys of all N candidates, as knn_scan_kernel does, and keeps the k
+// smallest in device memory. One block a query (grid-stride); the
+// candidates come in chunks of kScanThreads, keyed (one a thread) and
+// bitonic-sorted in shared memory; each chunk is merged into the sorted
+// list of the k smallest so far: a key's place in the merged list is its
+// rank in its own list plus the count of smaller keys in the other (binary
+// search), and keys are unique (the index is in them), so no two keys take
+// one place. lists: [gridDim.x, 2, k] u64 of scratch, two a block.
+template <bool kPacked>
+__global__ void __launch_bounds__(kScanThreads)
+knn_scan_all_kernel(const bf16* __restrict__ xh, const bf16* __restrict__ xl,
+                    const float* __restrict__ sq, int batch, int n, int n_pad,
+                    int c, int c_pad, int k, int bits, u64* __restrict__ lists,
+                    int* __restrict__ out) {
+  __shared__ u64 chunk[kScanThreads];
+  const int tid = threadIdx.x;
+  const int mask = -(1 << bits);
+  u64* la = lists + (size_t)blockIdx.x * 2 * k;
+  u64* lb = la + k;
+  // the count of entries of the sorted a[0, len) below v
+  auto below = [](const u64* a, int len, u64 v) {
+    int lo = 0, hi = len;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a[mid] < v) lo = mid + 1;
+      else hi = mid;
+    }
+    return lo;
+  };
+  for (int r = blockIdx.x; r < batch * n; r += gridDim.x) {
+    const int b = r / n, q = r % n;
+    const size_t cloud = (size_t)b * n_pad;
+    const size_t plane = (size_t)b * (c_pad / 16) * n_pad * 16;
+    const float sqq = sq[cloud + q];
+    int have = 0;
+    for (int j0 = 0; j0 < n; j0 += kScanThreads) {
+      const int cnt = min(kScanThreads, n - j0);
+      u64 key = none_key(u64());
+      if (tid < cnt) {
+        const int j[1] = {j0 + tid};
+        const float sqj[1] = {sq[cloud + j0 + tid]};
+        u64 kk[1];
+        exact_keys<1, kPacked>(xh + plane, xl + plane, n_pad, q, j, sqq, sqj,
+                               c, mask, kk);
+        key = kk[0];
+      }
+      chunk[tid] = key;
+      __syncthreads();
+      for (int size = 2; size <= kScanThreads; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const int partner = tid ^ stride;
+          if (partner > tid) {
+            const u64 a = chunk[tid], z = chunk[partner];
+            if ((a > z) == ((tid & size) == 0)) {
+              chunk[tid] = z;
+              chunk[partner] = a;
+            }
+          }
+          __syncthreads();
+        }
+      }
+      for (int i = tid; i < have; i += kScanThreads) {
+        const u64 v = la[i];
+        const int at = i + below(chunk, cnt, v);
+        if (at < k) lb[at] = v;
+      }
+      if (tid < cnt) {
+        const int at = tid + below(la, have, chunk[tid]);
+        if (at < k) lb[at] = chunk[tid];
+      }
+      __syncthreads();
+      u64* t = la;
+      la = lb;
+      lb = t;
+      have = min(k, have + cnt);
+    }
+    for (int o = tid; o < k; o += kScanThreads)
+      out[(size_t)r * k + o] = key_index<kPacked>(la[o], mask);
+    __syncthreads();
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
 int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+// the largest k of the filtered kernels (built for K = 8, 16 and 32); above
+// it knn_scan_all_kernel answers every query
+constexpr int kMaxListK = 32;
 
 int kernel_k(int k) { return k <= 8 ? 8 : k <= 16 ? 16 : 32; }
 
@@ -856,9 +944,9 @@ int device_attr(cudaDeviceAttr attr) {
 // "zeroed" part (cmax, count, nrep, cnt) is set to 0 and the table to
 // kEmpty at the start of each call.
 struct Layout {
-  int n_pad, c_pad, splits, K, L, tsize;
+  int n_pad, c_pad, splits, K, L, tsize, scan_blocks;
   size_t xh, xl, sq, nh, hsh, table, rep, next, live, zeroed, cmax, count,
-      nrep, cnt, zeroed_bytes, flagged, part, bytes;
+      nrep, cnt, zeroed_bytes, flagged, part, lists, bytes;
 };
 
 Layout layout(int batch, int n, int c, int k, bool packed) {
@@ -896,7 +984,12 @@ Layout layout(int batch, int n, int c, int k, bool packed) {
   l.nrep = l.count + sizeof(int);
   l.cnt = l.nrep + batch * sizeof(int);
   l.flagged = take((size_t)batch * n * sizeof(int));
-  l.part = take((size_t)batch * n * l.splits * l.L * sizeof(int));
+  if (k > kMaxListK) {  // knn_scan_all_kernel: two lists of k keys a block
+    l.scan_blocks = std::min(batch * n, 4 * device_attr(cudaDevAttrMultiProcessorCount));
+    l.lists = take((size_t)l.scan_blocks * 2 * k * sizeof(u64));
+  } else {
+    l.part = take((size_t)batch * n * l.splits * l.L * sizeof(int));
+  }
   l.bytes = off;
   return l;
 }
@@ -944,6 +1037,14 @@ int run(const float* x, unsigned char* s, int batch, int n, int c, int k,
                           kDedupThreads, 0, st>>>(n, l.n_pad, rep, cnt, next);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  if (k > kMaxListK) {
+    if (probe) return (int)cudaErrorInvalidValue;
+    knn_scan_all_kernel<kPacked><<<l.scan_blocks, kScanThreads, 0, st>>>(
+        xh, xl, sq, batch, n, l.n_pad, c, l.c_pad, k, bits,
+        carve<u64>(s, l.lists), out);
+    return (int)cudaGetLastError();
+  }
+
   const int planes = kPacked ? 1 : 2;
   const bool resident =
       mma_smem(planes, l.c_pad, true) <=
@@ -976,7 +1077,7 @@ int run(const float* x, unsigned char* s, int batch, int n, int c, int k,
 template <bool kPacked>
 int dispatch(const float* x, void* scratch, int batch, int n, int c, int k,
              void* total, int* out, float* probe, void* stream) {
-  if (batch < 1 || c < 1 || k < 1 || k > 32 || n < k || key_bits(n) > 30)
+  if (batch < 1 || c < 1 || k < 1 || n < k || key_bits(n) > 30)
     return (int)cudaErrorInvalidValue;
   auto* s = static_cast<unsigned char*>(scratch);
   auto* tot = static_cast<u64*>(total);

@@ -8,36 +8,87 @@
 //
 // Replaces: sparenet_tpu/ops/pallas/mds_pallas.py:mds_pallas (via
 // _run_stage). Semantics: sparenet_tpu/ops/mds.py:_mds_one. The TPU kernel's
-// 2^40 pin encoding, exp2 bias form and lane compaction are workarounds for
-// that chip and are not carried over.
+// 2^40 pin encoding and exp2 bias form are workarounds for that chip and
+// are not carried over; its staged lane compaction is (below).
 //
 // Bound on an H100: latency of a chain of npoint-1 dependent steps, each an
-// N-wide update (an exp per point) and a block-wide argmin. One cloud's
-// state (19384 densities and coordinates, about 310 KB) is larger than one
-// SM's shared memory, and no work crosses clouds, so a cloud runs on one SM
-// and a batch of B clouds keeps only B of the 132 SMs busy.
+// N-wide update (an exp per point) and an argmin over the cloud. No work
+// crosses clouds, so a batch of B clouds has B chains; one SM a cloud keeps
+// only B of the 132 SMs busy.
 //
-// Design: one block of 512 threads per cloud. Thread t owns points
-// t, t + 512, t + 1024, ...: their densities and z coordinates live in
-// registers, x and y in shared memory (160 KB). A step is one pass
-// over the thread's points, a (value, index) warp-shuffle argmin carrying
-// the winner's z, and one shared-memory stage: two barriers per step. The
-// previous pick is pinned lazily at the start of the next step, which gives
-// the same densities as pinning it at the end of its own. The density
-// arithmetic is IEEE and unfused where the reference is: d2 is the fma chain
-// of sqdist3, then (-d2) / t, expf (no fast math) flushed to 0 below the
-// smallest normal float (the reference's XLA CPU and TPU programs have no
-// subnormals), w * e, and one add.
+// Design: one cloud on a thread-block cluster of C CTAs (C <= 16). Among
+// the shapes at which all B clusters are resident at once
+// (cudaOccupancyMaxActiveClusters), one or two CTAs an SM, the launch takes
+// the one with the fewest points an SM (choose_shape: C = 16 at B = 4,
+// every cloud on its own 16 SMs). Points go to the
+// CTAs in chunks of 32: point i to CTA (i / 32) mod C, so the picks spread
+// evenly. In a CTA of 512 threads, local point p = l * 512 + t is lane l of
+// thread t; lanes ascend in the original index. A thread keeps z and the
+// density of its lanes in registers, x and y (and each slot's original
+// lane) in shared memory. A step:
+//   1. the lane pass: each lane gains its bump (the pick of the previous
+//      step pinned lazily to 1e9 first, which gives the same densities as
+//      pinning it at the end of its own step), and the thread keeps its
+//      lowest-index argmin;
+//   2. a warp argmin on (density, original index) in lexicographic order
+//      (two redux.sync: the density's bits as an ordered integer, then the
+//      least index among the lanes holding that minimum), the 16 warp
+//      winners in shared memory, ONE __syncthreads, then every warp reduces
+//      the 16: each knows the CTA's winner;
+//   3. the warp holding it writes the record (density, index, x, y, z) into
+//      slot `rank` of every peer CTA's shared memory (distributed shared
+//      memory) with st.async, which completes 32 bytes of the peer's
+//      mbarrier transaction count; the slots and mbarriers are
+//      double-buffered by step parity;
+//   4. each CTA waits on its own mbarrier for its C records (no cluster
+//      barrier a step), then reduces them in the same order, so each has
+//      the pick and its coordinates without reading another CTA's points.
+// A CTA arms its mbarrier for a step (expect 32 C bytes) before or after
+// records for that step arrive (the count may go below zero meanwhile).
+// Double buffering is enough: a peer sends step j + 2's record only after
+// it has every CTA's step j + 1 record, which a CTA sends after it has
+// read its step j records and waited on step j's phase.
+// The argmin compares (density, original index) lexicographically at every
+// level, so the picks do not depend on C: every C gives the picks of C = 1.
+//
+// Staged compaction (as the TPU kernel's, per thread): every `stage` steps
+// each thread packs its live lanes (not yet picked) to the front, stably,
+// in registers (a select network) and in its shared-memory column, with
+// the original lane kept beside each slot; its lane loop then ends at the
+// warp's largest live count. A picked lane's density is >= 1e9 and it is
+// never the argmin again unless a density is NaN, so compaction is on only
+// where no NaN can arise: t finite and > 0, and every coordinate of the
+// cloud finite (agreed over the cluster before the first step).
+//
+// The density arithmetic is IEEE and unfused where the reference is: d2 is
+// the fma chain of sqdist3, then (-d2) / t, expf (no fast math) flushed to
+// 0 below the smallest normal float (the reference's XLA CPU and TPU
+// programs have no subnormals), w * e, and one add.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <map>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kLanes = 40;  // points per thread: N <= 20480
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;         // points a chunk; chunk i to CTA i mod C
+constexpr int kMaxCluster = 16;
+constexpr int kMaxLanes = 40;      // lanes a thread: 20480 points a CTA
 constexpr int kHeavyFrom = 8192;
 constexpr float kBig = 1e9f;
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
+// dynamic shared memory of a CTA at least: more than half an SM's, so one
+// CTA an SM and a cloud spreads over C SMs; or more than a third, so at
+// most two (where the registers allow two)
+constexpr int kMinSmem = 116 * 1024;
+constexpr int kMinSmem2 = 77 * 1024;
 
 // The argmin's comparison value: a NaN density is the minimum (the first
 // NaN wins, as argmin in the reference and in PyTorch). Densities turn NaN
@@ -47,90 +98,274 @@ __device__ __forceinline__ float nan_first(float v) {
   return isnan(v) ? -__int_as_float(0x7f800000) : v;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-mds_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
-           int n, int npoint, int* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = smem + kLanes * kThreads;
-  __shared__ float wv[kWarps], wz[kWarps];
-  __shared__ int wi[kWarps];
-  __shared__ int s_pick;
-  __shared__ float s_z;
+// The argmin key as an unsigned integer in the float order (the key is
+// never NaN: nan_first maps NaN to -inf), so that a warp's minimum is one
+// redux.sync.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
 
-  const int b = blockIdx.x;
+// Warp-wide lexicographic (key, index) minimum; every lane ends with it.
+__device__ __forceinline__ void warp_lexmin(unsigned& key, int& idx) {
+  const unsigned k = __reduce_min_sync(spn::kFullMask, key);
+  idx = __reduce_min_sync(spn::kFullMask, key == k ? idx : INT_MAX);
+  key = k;
+}
+
+// original index of lane l of thread t in CTA `rank` of a C-CTA cluster
+__device__ __forceinline__ int orig_index(int l, int t, int rank, int c) {
+  const int p = l * kThreads + t;
+  return ((p / kChunk) * c + rank) * kChunk + (p % kChunk);
+}
+
+using u64 = unsigned long long;
+
+// The record exchange: st.async into a peer's shared memory, completing
+// its mbarrier's transaction count; each CTA waits on its own mbarrier.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_async(unsigned addr, uint4 v, unsigned mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+      "r"(mbar)
+      : "memory");
+}
+__device__ __forceinline__ void expect_bytes(unsigned mbar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool try_wait_parity(unsigned mbar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(mbar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ u64 global_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// A step's wait longer than this means a record was lost (a step takes
+// about a microsecond): the kernel traps, the launch fails with an error
+// and the process's CUDA context is lost, rather than spinning forever.
+constexpr u64 kWaitNs = 10000000000ull;
+// Spin until the mbarrier's phase of this parity completes (acquiring the
+// cluster's writes); the clock is read once the first try fails and
+// checked every 256 tries after.
+__device__ __forceinline__ void wait_phase(unsigned mbar, unsigned parity) {
+  if (try_wait_parity(mbar, parity)) return;
+  const u64 start = global_ns();
+  for (unsigned tries = 1;; ++tries) {
+    if (try_wait_parity(mbar, parity)) return;
+    if ((tries & 255u) == 0 && global_ns() - start > kWaitNs) __trap();
+  }
+}
+
+// kMode: kPicks, the MDS; kFloor, the same chain of steps with no lane pass
+// (each thread offers its first lane): the latency floor; kCtaFloor, as
+// kFloor without the record exchange and its wait (each CTA
+// takes its own winner after its __syncthreads): the CTA's share of it.
+enum { kPicks = 0, kFloor = 1, kCtaFloor = 2 };
+
+template <int L, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
+                   int n, int npoint, int stage, int* __restrict__ out) {
+  extern __shared__ float2 sxy[];  // [L * 512] (x, y) of each slot
+  unsigned char* sorig = reinterpret_cast<unsigned char*>(sxy + L * kThreads);
+  __shared__ unsigned wv[kWarps];
+  __shared__ int wi[kWarps];
+  __shared__ float4 rec[2][kMaxCluster][2];  // (key, index, x, y), (z, -, -, -)
+  __shared__ int flags[kMaxCluster];
+  __shared__ __align__(8) u64 mbar[2];        // rec[p] complete: C records
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nc = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const float inf = __int_as_float(0x7f800000);
   const float* p = xyz + (size_t)b * n * 3;
   int* ob = out + (size_t)b * npoint;
 
-  float z[kLanes], temp[kLanes];
+  float z[L], temp[L];
+  u64 heavy = 0;  // bit l: lane l weighs 2
+  int mylive = 0;  // lanes 0..mylive-1 hold points (they ascend in index)
+  bool finite = true;
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    const int i = tid + l * kThreads;
-    if (i < n) {
-      sx[i] = p[3 * i + 0];
-      sy[i] = p[3 * i + 1];
-      z[l] = p[3 * i + 2];
-      temp[l] = (i == 0) ? kBig : 0.f;
-    } else {
-      sx[i] = 0.f;
-      sy[i] = 0.f;
-      z[l] = 0.f;
-      temp[l] = inf;
+  for (int l = 0; l < L; ++l) {
+    const int i = orig_index(l, tid, rank, nc);
+    const bool valid = i < n;
+    const float x = valid ? p[3 * i + 0] : 0.f, y = valid ? p[3 * i + 1] : 0.f;
+    z[l] = valid ? p[3 * i + 2] : 0.f;
+    finite = finite && isfinite(x) && isfinite(y) && isfinite(z[l]);
+    sxy[l * kThreads + tid] = make_float2(x, y);
+    sorig[l * kThreads + tid] = (unsigned char)l;
+    temp[l] = (i == 0) ? kBig : 0.f;
+    if (valid) {
+      mylive = l + 1;
+      if (i >= kHeavyFrom) heavy |= 1ull << l;
     }
   }
   const float t = tparam[b];
-  int last = 0;
-  float lz = p[2];
-  if (tid == 0) ob[0] = 0;
-  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&mbar[i])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  finite = __syncthreads_and(finite);
+  cluster.sync();  // every CTA of the cluster runs: its shared memory is live
+  if (tid < nc) *cluster.map_shared_rank(&flags[rank], tid) = finite ? 1 : 0;
+  cluster.sync();
+  bool compact = stage > 0 && isfinite(t) && t > 0.f;
+  for (int r = 0; r < nc; ++r) compact = compact && flags[r] != 0;
+
+  int until = stage;                         // steps to the next compaction
+  u64 dead = 0;                              // picked lanes, until compacted
+  int pin = (rank == 0 && tid == 0) ? 0 : -1;  // lane to pin this step
+  if (pin == 0) dead = 1;
+  int wlive = __reduce_max_sync(spn::kFullMask, mylive);
+  float lx = p[0], ly = p[1], lz = p[2];
+  int prev = 0;  // the floor modes' last winner
+  if (rank == 0 && tid == 0) ob[0] = 0;
 
   for (int j = 1; j < npoint; ++j) {
-    const float lx = sx[last], ly = sy[last];
-    float bv = inf, bz = 0.f;
-    int bi = INT_MAX;
+    const int par = j & 1;
+    const unsigned my_mbar = smem_addr(&mbar[par]);
+    if (kMode != kCtaFloor && tid == 0) expect_bytes(my_mbar, 32u * nc);
+    if (compact && --until == 0) {  // every stage steps: j = stage, 2 stage, ...
+      until = stage;
+      const u64 present = mylive >= 64 ? ~0ull : (1ull << mylive) - 1;
+      const u64 live = present & ~dead;
+      int d = 0;
+      for (u64 m = live; m; m &= m - 1, ++d) {  // shared-memory column
+        const int l = __ffsll((long long)m) - 1;
+        if (l != d) {
+          sxy[d * kThreads + tid] = sxy[l * kThreads + tid];
+          sorig[d * kThreads + tid] = sorig[l * kThreads + tid];
+        }
+      }
+      u64 m = live, hv = 0;
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l) {
-      const int i = tid + l * kThreads;
-      if (i < n) {
-        const float d2 = spn::sqdist3(sx[i] - lx, sy[i] - ly, z[l] - lz);
-        float e = expf(__fdiv_rn(-d2, t));
-        if (e < kTiny) e = 0.f;
-        const float w = i >= kHeavyFrom ? 2.f : 1.f;
-        const float tv = __fadd_rn(i == last ? kBig : temp[l], __fmul_rn(w, e));
-        temp[l] = tv;
-        const float key = nan_first(tv);
-        if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
-          bv = key;
-          bi = i;
-          bz = z[l];
+      for (int dd = 0; dd < L; ++dd) {  // registers, in place: src >= dd
+        const int src = m ? __ffsll((long long)m) - 1 : -1;
+        m &= m - 1;
+#pragma unroll
+        for (int l = dd + 1; l < L; ++l) {
+          if (src == l) {
+            z[dd] = z[l];
+            temp[dd] = temp[l];
+          }
+        }
+        if (src >= 0) hv |= ((heavy >> src) & 1ull) << dd;
+      }
+      heavy = hv;
+      mylive = d;
+      dead = 0;
+      pin = -1;  // the lane to pin was picked, so it is gone
+      wlive = __reduce_max_sync(spn::kFullMask, mylive);
+    }
+
+    float bv = inf, bz = 0.f;
+    int bl = -1;
+    if (kMode != kPicks) {
+      if (mylive > 0) {  // a key that depends on the last step's winner
+        bv = (float)((prev + tid) & 7);
+        bl = 0;
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        if (l >= wlive) break;
+        if (l < mylive) {
+          const float2 q = sxy[l * kThreads + tid];
+          const float d2 = spn::sqdist3(q.x - lx, q.y - ly, z[l] - lz);
+          float e = expf(__fdiv_rn(-d2, t));
+          if (e < kTiny) e = 0.f;
+          const float w = ((heavy >> l) & 1ull) ? 2.f : 1.f;
+          const float tv = __fadd_rn(l == pin ? kBig : temp[l], __fmul_rn(w, e));
+          temp[l] = tv;
+          const float key = nan_first(tv);
+          if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
+            bv = key;
+            bl = l;
+            bz = z[l];
+          }
         }
       }
     }
-    spn::warp_argmin_payload(bv, bi, bz);
+    const int bi = bl >= 0 ? orig_index(sorig[bl * kThreads + tid], tid, rank, nc)
+                           : INT_MAX;
+    unsigned v = order_key(bv);
+    int vi = bi;
+    warp_lexmin(v, vi);
     if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-      wz[warp] = bz;
+      wv[warp] = v;
+      wi[warp] = vi;
     }
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? wv[lane] : inf;
-      bi = lane < kWarps ? wi[lane] : INT_MAX;
-      bz = lane < kWarps ? wz[lane] : 0.f;
-      spn::warp_argmin_payload(bv, bi, bz);
-      if (lane == 0) {
-        s_pick = bi;
-        s_z = bz;
-        ob[j] = bi;
+    v = lane < kWarps ? wv[lane] : ~0u;
+    vi = lane < kWarps ? wi[lane] : INT_MAX;
+    warp_lexmin(v, vi);  // every warp: the CTA's winner (v, vi)
+    if (kMode == kCtaFloor) {
+      prev = vi;
+      continue;
+    }
+
+    // the warp holding it sends the record to every CTA of the cluster
+    const unsigned who = __ballot_sync(spn::kFullMask, vi != INT_MAX && bi == vi);
+    if (who != 0 || (vi == INT_MAX && warp == 0)) {
+      float2 xy = make_float2(0.f, 0.f);
+      float wz = 0.f;
+      if (who != 0) {
+        const int src = __ffs(who) - 1;
+        if (lane == src) xy = sxy[bl * kThreads + tid];
+        xy.x = __shfl_sync(spn::kFullMask, xy.x, src);
+        xy.y = __shfl_sync(spn::kFullMask, xy.y, src);
+        wz = __shfl_sync(spn::kFullMask, bz, src);
+      }
+      if (lane < nc) {
+        const unsigned dst = peer_addr(smem_addr(&rec[par][rank][0]), lane);
+        const unsigned mb = peer_addr(my_mbar, lane);
+        st_async(dst, make_uint4(v, (unsigned)vi, __float_as_uint(xy.x),
+                                 __float_as_uint(xy.y)), mb);
+        st_async(dst + 16, make_uint4(__float_as_uint(wz), 0u, 0u, 0u), mb);
       }
     }
-    __syncthreads();
-    last = s_pick;
-    lz = s_z;
+    wait_phase(my_mbar, ((j - 1) >> 1) & 1);
+
+    const float4 mine = lane < nc ? rec[par][lane][0]
+                                  : make_float4(__uint_as_float(~0u), __int_as_float(INT_MAX), 0.f, 0.f);
+    const int ri = __float_as_int(mine.y);
+    unsigned kv = __float_as_uint(mine.x);
+    int pick = ri;
+    warp_lexmin(kv, pick);
+    const int src = __ffs(__ballot_sync(spn::kFullMask, lane < nc && ri == pick)) - 1;
+    const float4 r0 = rec[par][src][0];
+    lx = r0.z;
+    ly = r0.w;
+    lz = rec[par][src][1].x;
+    pin = (bl >= 0 && bi == pick) ? bl : -1;
+    if (pin >= 0) dead |= 1ull << pin;
+    if (rank == 0 && tid == 0) ob[j] = pick;
+    prev = pick;
   }
+  cluster.sync();  // no CTA leaves while a peer may still write to it
 }
 
 // Greedy continuation (kernel #5): steps more picks from a density state.
@@ -148,20 +383,32 @@ mds_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
 // under fast math are not carried).
 //
 // Bound on an H100: latency of steps dependent steps, each an N-wide update
-// and a block argmin; one block a cloud keeps B of the 132 SMs busy, as
-// mds_kernel does. Design: mds_kernel's, with kContLanes points a thread
-// (N <= 5120; the hybrid's tail has 5048 live lanes), the weights from
-// orig, and no pending bump before the first argmin: the state starts at
-// temp0.
-constexpr int kContLanes = 10;
+// and a block argmin; one block a cloud keeps B of the 132 SMs busy. Design:
+// one block of 512 threads a cloud, thread t owning lanes t, t + 512, ...:
+// their densities, z and weights in registers (the weights as a bit mask at
+// 40 lanes), x and y in shared memory (static at 10 lanes, dynamic above);
+// L lanes a thread (10, 20 or 40: N <= 20480; the hybrid's tail has 5048
+// live lanes); a (value, index) warp-shuffle argmin carrying the winner's
+// z and one shared-memory stage, two barriers per step; no
+// pending bump before the first argmin: the state starts at temp0.
+constexpr int kContMaxLanes = 40;
 
+template <int L>
 __global__ void __launch_bounds__(kThreads, 1)
 mds_continue_kernel(const float* __restrict__ xyz,
                     const float* __restrict__ temp0,
                     const int* __restrict__ orig,
                     const float* __restrict__ tparam, int n, int steps,
                     int* __restrict__ out) {
-  __shared__ float sx[kContLanes * kThreads], sy[kContLanes * kThreads];
+  float* sx;  // sx, sy [L * 512]
+  if constexpr (L == 10) {
+    __shared__ float sbuf[2 * 10 * kThreads];
+    sx = sbuf;
+  } else {
+    extern __shared__ float smem[];
+    sx = smem;
+  }
+  float* sy = sx + L * kThreads;
   __shared__ float wv[kWarps], wz[kWarps];
   __shared__ int wi[kWarps];
   __shared__ int s_pick;
@@ -174,16 +421,21 @@ mds_continue_kernel(const float* __restrict__ xyz,
   const float* p = xyz + (size_t)b * n * 3;
   int* ob = out + (size_t)b * steps;
 
-  float z[kContLanes], temp[kContLanes], w[kContLanes];
+  // the weights: in registers up to 20 lanes (as floats), else as a mask
+  constexpr bool kMask = L > 20;
+  float z[L], temp[L], w[kMask ? 1 : L];
+  u64 heavy = 0;
 #pragma unroll
-  for (int l = 0; l < kContLanes; ++l) {
+  for (int l = 0; l < L; ++l) {
     const int i = tid + l * kThreads;
     const bool live = i < n;
     sx[i] = live ? p[3 * i + 0] : 0.f;
     sy[i] = live ? p[3 * i + 1] : 0.f;
     z[l] = live ? p[3 * i + 2] : 0.f;
     temp[l] = live ? temp0[(size_t)b * n + i] : inf;
-    w[l] = (live && orig[(size_t)b * n + i] >= kHeavyFrom) ? 2.f : 1.f;
+    const bool h = live && orig[(size_t)b * n + i] >= kHeavyFrom;
+    if constexpr (kMask) heavy |= (u64)h << l;
+    else w[l] = h ? 2.f : 1.f;
   }
   const float t = tparam[b];
   int last = -1;
@@ -196,7 +448,7 @@ mds_continue_kernel(const float* __restrict__ xyz,
     float bv = inf, bz = 0.f;
     int bi = INT_MAX;
 #pragma unroll
-    for (int l = 0; l < kContLanes; ++l) {
+    for (int l = 0; l < L; ++l) {
       const int i = tid + l * kThreads;
       if (i < n) {
         float tv = temp[l];
@@ -204,7 +456,8 @@ mds_continue_kernel(const float* __restrict__ xyz,
           const float d2 = spn::sqdist3(sx[i] - lx, sy[i] - ly, z[l] - lz);
           float e = expf(__fdiv_rn(-d2, t));
           if (e < kTiny) e = 0.f;
-          tv = __fadd_rn(i == last ? kBig : tv, __fmul_rn(w[l], e));
+          const float wl = kMask ? (((heavy >> l) & 1ull) ? 2.f : 1.f) : w[kMask ? 0 : l];
+          tv = __fadd_rn(i == last ? kBig : tv, __fmul_rn(wl, e));
           temp[l] = tv;
         }
         const float key = nan_first(tv);
@@ -239,36 +492,235 @@ mds_continue_kernel(const float* __restrict__ xyz,
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// lanes a thread that CTA 0 (which holds the most) needs at cluster size c
+int lanes_needed(int n, int c) {
+  const int chunks = (n + kChunk - 1) / kChunk;
+  const int local = (chunks + c - 1) / c * kChunk;
+  return (local + kThreads - 1) / kThreads;
+}
+
+// the instantiated lane count for `need` lanes (0: none holds them)
+int lanes_built(int need) {
+  for (int l : {2, 4, 8, 16, 24, kMaxLanes})
+    if (need <= l) return l;
+  return 0;
+}
+
+// A launch's shape: C CTAs a cloud, at most `per_sm` CTAs an SM (the
+// dynamic shared memory is padded so that no more fit).
+struct Shape {
+  int c, per_sm;
+};
+
+template <int L, int kMode>
+struct Cluster {
+  static int smem(int per_sm) {
+    const int need = L * kThreads * (int)(sizeof(float2) + 1);
+    const int pad = per_sm == 1 ? kMinSmem : kMinSmem2;
+    return need > pad ? need : pad;
+  }
+  static cudaError_t prepare() {
+    cudaError_t err = cudaFuncSetAttribute(mds_cluster_kernel<L, kMode>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem(1));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(mds_cluster_kernel<L, kMode>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  }
+  static void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                     Shape sh, int batch, cudaStream_t st) {
+    cfg = {};
+    cfg.gridDim = dim3(sh.c, batch);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem(sh.per_sm);
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = sh.c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  // clusters of this shape that can be resident at once (0 where an SM
+  // cannot hold per_sm CTAs)
+  static int resident(Shape sh, int batch) {
+    if (prepare() != cudaSuccess) return 0;
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, mds_cluster_kernel<L, kMode>, kThreads, smem(sh.per_sm)) !=
+            cudaSuccess || blocks < sh.per_sm) {
+      cudaGetLastError();
+      return 0;
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(cfg, attr, sh, batch, nullptr);
+    int num = 0;
+    if (cudaOccupancyMaxActiveClusters(&num, mds_cluster_kernel<L, kMode>, &cfg) !=
+        cudaSuccess) {
+      cudaGetLastError();  // a size the card refuses: clear its error
+      return 0;
+    }
+    return num;
+  }
+  static int launch(const float* xyz, const float* t, int batch, int n,
+                    int npoint, Shape sh, int stage, int* out, cudaStream_t st) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(cfg, attr, sh, batch, st);
+    err = cudaLaunchKernelEx(&cfg, mds_cluster_kernel<L, kMode>, xyz, t, n,
+                             npoint, stage, out);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int kMode>
+int resident_clusters(int lanes, Shape sh, int batch) {
+  switch (lanes) {
+    case 2: return Cluster<2, kMode>::resident(sh, batch);
+    case 4: return Cluster<4, kMode>::resident(sh, batch);
+    case 8: return Cluster<8, kMode>::resident(sh, batch);
+    case 16: return Cluster<16, kMode>::resident(sh, batch);
+    case 24: return Cluster<24, kMode>::resident(sh, batch);
+    default: return Cluster<kMaxLanes, kMode>::resident(sh, batch);
+  }
+}
+
+template <int kMode>
+int launch_cluster(const float* xyz, const float* t, int batch, int n,
+                   int npoint, Shape sh, int stage, int* out, cudaStream_t st) {
+  switch (lanes_built(lanes_needed(n, sh.c))) {
+    case 2: return Cluster<2, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    case 4: return Cluster<4, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    case 8: return Cluster<8, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    case 16: return Cluster<16, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    case 24: return Cluster<24, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    case kMaxLanes:
+      return Cluster<kMaxLanes, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+    default: return (int)cudaErrorInvalidValue;  // c CTAs cannot hold n points
+  }
+}
+
+// The launch shape for B clouds of N points: among the shapes (C <= 16 and
+// at most one CTA a chunk; 1 or 2 CTAs an SM) at which all B clusters are
+// resident at once, the one with the fewest points an SM, per_sm x (points
+// a CTA), then the fewer CTAs an SM, then the larger C; where none is, the
+// smallest C that holds N at one CTA an SM (the clusters then run in
+// waves). Cached per (device, B, N).
+Shape choose_shape(int batch, int n) {
+  static std::map<std::tuple<int, int, int>, Shape> cache;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(dev, batch, n);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second;
+  const int chunks = (n + kChunk - 1) / kChunk;
+  int smallest = 0;
+  for (int c = 1; c <= kMaxCluster; ++c)
+    if (lanes_built(lanes_needed(n, c))) {
+      smallest = c;
+      break;
+    }
+  if (smallest == 0) return {0, 0};
+  Shape chosen{smallest, 1};
+  long best = -1;
+  for (int per_sm = 1; per_sm <= 2; ++per_sm) {
+    for (int c = std::min(kMaxCluster, std::max(chunks, smallest)); c >= smallest; --c) {
+      const long cost = (long)per_sm * ((chunks + c - 1) / c);
+      if ((best >= 0 && cost >= best) ||
+          resident_clusters<kPicks>(lanes_built(lanes_needed(n, c)), {c, per_sm},
+                                    batch) < batch)
+        continue;
+      best = cost;
+      chosen = {c, per_sm};
+    }
+  }
+  cache[key] = chosen;
+  return chosen;
+}
+
+template <int L>
+int launch_continue(const float* xyz, const float* temp0, const int* orig,
+                    const float* t, int batch, int n, int steps, int* out,
+                    cudaStream_t st) {
+  const int smem = L == 10 ? 0 : 2 * L * kThreads * (int)sizeof(float);
+  if (L != 10) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mds_continue_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mds_continue_kernel<L><<<batch, kThreads, smem, st>>>(xyz, temp0, orig, t, n,
+                                                      steps, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Largest N the kernel takes.
-extern "C" int spn_mds_max_points(void) { return kLanes * kThreads; }
+// Largest N the kernel takes: a 16-CTA cluster's points.
+extern "C" int spn_mds_max_points(void) { return kMaxCluster * kMaxLanes * kThreads; }
 
+// The launch shape spn_mds takes for B clouds of N points: out[0] the
+// cluster size, out[1] the CTAs an SM (0 and 0: N too large).
+extern "C" void spn_mds_shape(int batch, int n, int* out) {
+  Shape sh{0, 0};
+  if (batch >= 1 && n >= 1 && n <= kMaxCluster * kMaxLanes * kThreads)
+    sh = choose_shape(batch, n);
+  out[0] = sh.c;
+  out[1] = sh.per_sm;
+}
+
+// cluster: 0 for choose_shape's, else 1..16 at one CTA an SM (C = 1 is one
+// block a cloud);
+// stage: steps between compactions (0: none).
 extern "C" int spn_mds(const float* xyz, const float* t, int batch, int n,
-                       int npoint, int* out, void* stream) {
-  if (batch < 1 || n < 1 || n > kLanes * kThreads || npoint < 1 || npoint > n)
+                       int npoint, int cluster, int stage, int* out,
+                       void* stream) {
+  if (batch < 1 || n < 1 || n > kMaxCluster * kMaxLanes * kThreads ||
+      npoint < 1 || npoint > n || cluster < 0 || cluster > kMaxCluster || stage < 0)
     return (int)cudaErrorInvalidValue;
-  const int smem = 2 * kLanes * kThreads * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  mds_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, t, n, npoint, out);
-  return (int)cudaGetLastError();
+  const Shape sh = cluster ? Shape{cluster, 1} : choose_shape(batch, n);
+  return launch_cluster<kPicks>(xyz, t, batch, n, npoint, sh, stage, out,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The latency floor: spn_mds's chain of npoint - 1 steps at cluster size c
+// with no lane pass (each thread offers its first lane), for timing; with
+// cta_only, without the record exchange and its wait too. What
+// it writes is not MDS picks.
+extern "C" int spn_mds_floor(const float* xyz, const float* t, int batch, int n,
+                             int npoint, int cluster, int cta_only, int* out,
+                             void* stream) {
+  if (batch < 1 || n < 1 || npoint < 1 || npoint > n || cluster < 1 ||
+      cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Shape sh{cluster, 1};
+  return cta_only ? launch_cluster<kCtaFloor>(xyz, t, batch, n, npoint, sh, 0, out, st)
+                  : launch_cluster<kFloor>(xyz, t, batch, n, npoint, sh, 0, out, st);
 }
 
 // Largest live-lane count and step count the continuation takes (the TPU
 // kernel's pin encoding holds step < 2^14; kept as the same contract).
-extern "C" int spn_mds_continue_max_points(void) { return kContLanes * kThreads; }
+extern "C" int spn_mds_continue_max_points(void) { return kContMaxLanes * kThreads; }
 extern "C" int spn_mds_continue_max_steps(void) { return 1 << 14; }
 
 extern "C" int spn_mds_continue(const float* xyz, const float* temp0,
                                 const int* orig, const float* t, int batch,
                                 int n, int steps, int* out, void* stream) {
-  if (batch < 1 || n < 1 || n > kContLanes * kThreads || steps < 1 ||
+  if (batch < 1 || n < 1 || n > kContMaxLanes * kThreads || steps < 1 ||
       steps > n || steps > (1 << 14))
     return (int)cudaErrorInvalidValue;
-  mds_continue_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xyz, temp0, orig, t, n, steps, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int lanes = (n + kThreads - 1) / kThreads;
+  if (lanes <= 10) return launch_continue<10>(xyz, temp0, orig, t, batch, n, steps, out, st);
+  if (lanes <= 20) return launch_continue<20>(xyz, temp0, orig, t, batch, n, steps, out, st);
+  return launch_continue<kContMaxLanes>(xyz, temp0, orig, t, batch, n, steps, out, st);
 }

@@ -63,12 +63,17 @@ _SIGNATURES = {
     "spn_knn": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
     "spn_gather_rows_per_block": ((), _I),
     "spn_gather_max": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
+    "spn_expansion_max_points": ((), _I),
     "spn_expansion": ((_P, _I, _I, _P, _P, _P, _P), _I),
     "spn_mds_max_points": ((), _I),
-    "spn_mds": ((_P, _P, _I, _I, _I, _P, _P), _I),
+    "spn_mds": ((_P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
+    "spn_mds_shape": ((_I, _I, _P), None),
+    "spn_mds_floor": ((_P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
     "spn_nn_idx": ((_P, _P, _I, _I, _I, _P, _P), _I),
-    "spn_emd_bids": ((_P, _P, _P, _I, _I, _I, _P, _P, _P), _I),
-    "spn_edge_stats_max_k": ((), _I),
+    "spn_emd_bids_scratch": ((_I, _I), ctypes.c_longlong),
+    "spn_emd_bids_plan": ((_I, _I, _I, _I, _P), None),
+    "spn_emd_bids": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P), _I),
+    "spn_edge_stats_route_bytes": ((_I,), _I),
     "spn_edge_stats_fwd": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), _I),
     "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
     "spn_p2i_max": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P), _I),

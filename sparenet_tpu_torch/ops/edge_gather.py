@@ -36,13 +36,6 @@ def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
                          "or device")
 
 
-def _check_kernel(table: torch.Tensor, idx: torch.Tensor) -> None:
-    c, k = table.shape[2], idx.shape[2]
-    if c % 4 or k > _lib.lib().spn_edge_stats_max_k() or table.data_ptr() % 16:
-        raise ValueError(f"edge_gather_stats: the CUDA kernels take C % 4 == 0, "
-                         f"k <= 15 and 16-byte aligned rows, got C={c}, k={k}")
-
-
 def edge_stats_fwd_plain(table: torch.Tensor, idx: torch.Tensor):
     """Plain PyTorch version of the forward kernel."""
     _lib.PLAIN_CALLS["edge_stats_fwd"] += 1
@@ -61,7 +54,6 @@ def edge_stats_fwd(table: torch.Tensor, idx: torch.Tensor):
     _check(table, idx)
     if is_cpu(table):
         return edge_stats_fwd_plain(table, idx)
-    _check_kernel(table, idx)
     b, n, c = table.shape
     m, k = idx.shape[1], idx.shape[2]
     outs = [torch.empty((b, m, c), dtype=torch.float32, device=table.device)
@@ -126,9 +118,10 @@ def edge_stats_bwd(table, idx, mx, mn, gmx, gmn, gs1, gs2):
                              f"the table's device")
     if is_cpu(table):
         return edge_stats_bwd_plain(table, idx, mx, mn, gmx, gmn, gs1, gs2)
-    _check_kernel(table, idx)
     dev = table.device
-    route = torch.empty((b, m, c), dtype=torch.uint8, device=dev)
+    lib = _lib.lib()
+    route = torch.empty((b, m, c * lib.spn_edge_stats_route_bytes(k)),
+                        dtype=torch.uint8, device=dev)
     cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
     cursor = torch.empty((b, n), dtype=torch.int32, device=dev)
     offs = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
@@ -136,7 +129,7 @@ def edge_stats_bwd(table, idx, mx, mn, gmx, gmn, gs1, gs2):
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (table, idx, mx, mn, gmx, gmn, gs1, gs2)]
     with torch.cuda.device(dev):
-        code = _lib.lib().spn_edge_stats_bwd(
+        code = lib.spn_edge_stats_bwd(
             *ptrs, b, n, m, c, k, route.data_ptr(), cnt.data_ptr(),
             cursor.data_ptr(), offs.data_ptr(), lst.data_ptr(), out.data_ptr(),
             _lib.stream_of(table))

@@ -101,13 +101,15 @@ def mst_charges(xyz: torch.Tensor):
         raise ValueError(f"mst_charges: primitive size must be >= 2, got {s}")
     if is_cpu(xyz):
         return mst_charges_plain(xyz)
-    if s > 1024:
-        raise ValueError(f"mst_charges: the CUDA kernel takes S <= 1024, got {s}")
+    lib = _lib.lib()
+    if s > lib.spn_expansion_max_points():
+        raise ValueError(f"mst_charges: the CUDA kernel takes S <= "
+                         f"{lib.spn_expansion_max_points()}, got {s}")
     parent = torch.empty((bp, s), dtype=torch.int32, device=xyz.device)
     cost = torch.empty((bp, s), dtype=torch.float32, device=xyz.device)
     charged = torch.empty((bp, s), dtype=torch.int32, device=xyz.device)
     with torch.cuda.device(xyz.device):
-        code = _lib.lib().spn_expansion(
+        code = lib.spn_expansion(
             xyz.data_ptr(), bp, s, parent.data_ptr(), cost.data_ptr(),
             charged.data_ptr(), _lib.stream_of(xyz))
     _lib.check(code, "expansion")

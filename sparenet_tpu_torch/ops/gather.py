@@ -47,9 +47,6 @@ def gather_max(table: torch.Tensor, idx: torch.Tensor, need_sum: bool = False):
         raise ValueError("gather_max: table and idx differ in batch or device")
     if is_cpu(table):
         return gather_max_plain(table, idx, need_sum)
-    if c % 4 or k > 16 or table.data_ptr() % 16:
-        raise ValueError(f"gather_max: the CUDA kernel takes C % 4 == 0, k <= 16 "
-                         f"and 16-byte aligned rows, got C={c}, k={k}")
     lib = _lib.lib()
     out = torch.empty((b, m, c), dtype=torch.float32, device=table.device)
     partial = s = None

@@ -2,8 +2,8 @@
 
 ``knn_idx(x, k, packed=False)``: x [B, N, C] f32 -> [B, N, k] int32, self
 included, ascending by distance, lowest index on ties. On a CUDA tensor it
-launches ``csrc/knn.cu`` (any k <= ``MAX_K``); on a CPU tensor it runs
-``knn_plain`` (any k).
+launches ``csrc/knn.cu``; on a CPU tensor it runs ``knn_plain``. Any
+k <= N on either.
 
 ``packed=True`` is serving mode's arm (the reference's
 ``knn_self_pallas(..., packed=True)``, knn_pallas.py:_knn_onechunk_kernel):
@@ -26,7 +26,10 @@ rows. ``rerank_plain`` is that rule in plain PyTorch. The queries that fail
 the test take an exact-scan kernel and are counted on the card
 (``_lib.device_count("knn_flagged")``, ``"knn_packed_flagged"``).
 ``tensor_core_dots`` returns the main kernel's dots, held to
-``dot_bound`` on the card (the margin's premise).
+``dot_bound`` on the card (the margin's premise). Above k = 32 (the largest
+shortlist the kernels are built for) every query takes an exact scan of all
+N candidates, keeping its k smallest keys in device memory; those queries
+are not counted as flagged.
 """
 
 from __future__ import annotations
@@ -41,13 +44,10 @@ from .common import (check_input, graph_dot_seq, is_cpu,
 __all__ = ["knn_idx", "knn_plain", "knn_packed_plain", "smallest_k",
            "packed_bits", "packed_applies", "margin", "rerank_plain",
            "duplicate_reps", "shortlist_len", "tensor_core_dots", "dot_bound",
-           "tensor_core_error",
-           "MAX_K"]
+           "tensor_core_error"]
 
 # the reference's one-chunk ceiling: its [C, N] operand must fit VMEM
 _ONECHUNK_MAX_ELEMS = 1024 * 8192
-# the CUDA kernels are built for K = 8, 16 and 32 and write the first k
-MAX_K = 32
 
 
 def _round_up(a: int, b: int) -> int:
@@ -209,9 +209,6 @@ def knn_idx(x: torch.Tensor, k: int = 8, packed: bool = False) -> torch.Tensor:
     packed = packed and packed_applies(n, c)
     if is_cpu(x):
         return knn_packed_plain(x, k) if packed else knn_plain(x, k)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_idx: the CUDA kernels take 1 <= k <= {MAX_K}, "
-                         f"got {k}")
     name = "knn_packed" if packed else "knn"
     out = torch.empty((b, n, k), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):

@@ -7,6 +7,12 @@ point 0, pinned to 1e9; each step adds w * exp(-d2 / t) to every density
 (t = 5 * mml^2, d2 the squared distance to the previous pick, w = 2 for
 index >= 8192), picks the lowest-index argmin and pins it to 1e9. On a CUDA
 tensor it launches ``csrc/mds.cu``; on a CPU tensor it runs ``mds_plain``.
+The kernel spreads each cloud over a thread-block cluster of C CTAs, C
+chosen from the batch (``cluster_size``: among the shapes at which every
+cloud's cluster is resident at once, one or two CTAs an SM, the one with
+the fewest points an SM), and compacts its picked lanes every
+``STAGE`` steps; ``mds_partitioned`` is that decomposition in plain
+PyTorch (for the tests; no path runs it). Any C gives the same picks.
 
 The density term exp(-d2 / t) is flushed to 0 below the smallest normal
 f32, as the reference computes it: its XLA CPU and TPU programs have no
@@ -34,12 +40,15 @@ coordinates under fast math are not carried either.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _lib
 from .common import check_input, is_cpu, sqdist3
 
-__all__ = ["minimum_density_sample", "mds_plain", "gather_points",
+__all__ = ["minimum_density_sample", "mds_plain", "mds_partitioned",
+           "cluster_size", "mds_floor", "STAGE", "gather_points",
            "resolve_impl", "select_smallest", "mds_batched", "mds_hybrid",
            "mds_continue", "mds_continue_plain", "minimum_density_sample_xyz",
            "compact_live", "batched_terms", "batched_update", "MDS_IMPLS", "BATCH_G", "SCHEDULE", "TAIL"]
@@ -51,6 +60,11 @@ _L2E = 1.4426950408889634
 MDS_IMPLS = ("exact", "batched", "hybrid")
 # the reference's serving defaults (SPARENET_MDS_BATCH_G, _SCHEDULE, _TAIL)
 BATCH_G, SCHEDULE, TAIL = 8192, (2048,), 2048
+# steps between the greedy kernel's lane compactions
+STAGE = 1024
+# the greedy kernel's decomposition (csrc/mds.cu): threads a CTA, points a
+# chunk (chunk i goes to CTA i mod C), threads a warp
+_THREADS, _CHUNK, _WARP = 512, 32, 32
 # picks a batched update reduces at once: [B, N, 512] f32 is 1.3 GB at
 # B = 32, N = 19384 (the whole [B, N, 8192] round would be 20 GB)
 _UPDATE_CHUNK = 512
@@ -86,9 +100,117 @@ def mds_plain(xyz: torch.Tensor, npoint: int,
     return idx
 
 
+def _cloud_ids(n: int, cluster: int, device) -> tuple:
+    """(CTA, thread, lane) of every point of an N-point cloud in the
+    kernel's decomposition: point i is in chunk i // 32, which goes to CTA
+    chunk mod C; in a CTA, local point p is lane p // 512 of thread
+    p % 512."""
+    i = torch.arange(n, device=device)
+    chunk = i // _CHUNK
+    p = (chunk // cluster) * _CHUNK + i % _CHUNK
+    return chunk % cluster, p % _THREADS, p // _THREADS
+
+
+def _lex_argmin(key: torch.Tensor, idx: torch.Tensor, dim: int):
+    """Lexicographic (key, index) argmin along dim -> (key, index)."""
+    low = key.amin(dim, keepdim=True)
+    cand = torch.where(key == low, idx, torch.iinfo(torch.int64).max)
+    return low.squeeze(dim), cand.amin(dim)
+
+
+def mds_partitioned(xyz: torch.Tensor, npoint: int,
+                    mean_mst_length: torch.Tensor, cluster: int,
+                    stage: int = STAGE) -> torch.Tensor:
+    """The greedy kernel's decomposition in plain PyTorch (for the tests):
+    the points spread over ``cluster`` CTAs as csrc/mds.cu spreads them;
+    each step every thread takes the lowest-index argmin of its lanes, then
+    warps, CTAs and the cluster reduce (density, index) lexicographically
+    in that order (NaN first); the previous pick is pinned lazily; every
+    ``stage`` steps the picked lanes leave, where no density can turn NaN
+    (t finite and > 0, every coordinate finite). Equals ``mds_plain``."""
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    t = _temperature(mean_mst_length).reshape(b, 1)
+    weight = torch.where(torch.arange(n, device=dev) >= _HEAVY_FROM, 2.0, 1.0)
+    cta, thread, lane = _cloud_ids(n, cluster, dev)
+    lanes = int(lane.max()) + 1
+    # slot of every point in a [B, C, warps, 32, lanes] layout
+    slot = (((cta * (_THREADS // _WARP) + thread // _WARP) * _WARP
+             + thread % _WARP) * lanes + lane)
+    shape = (b, cluster, _THREADS // _WARP, _WARP, lanes)
+    big = torch.iinfo(torch.int64).max
+    compact = (stage > 0) & torch.isfinite(t[:, 0]) & (t[:, 0] > 0) & \
+        torch.isfinite(xyz).flatten(1).all(1)
+    present = torch.ones((b, n), dtype=torch.bool, device=dev)
+    picked = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    temp = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    idx = torch.zeros((b, npoint), dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+    last = torch.zeros(b, dtype=torch.long, device=dev)
+    picked[:, 0] = True
+    for j in range(1, npoint):
+        if stage > 0 and j % stage == 0:
+            present &= ~(picked & compact[:, None])
+        temp[rows, last] = _BIG                                # the lazy pin
+        e = torch.exp(-sqdist3(xyz - xyz[rows, last][:, None, :]) / t)
+        temp = temp + weight * torch.where(e < _TINY, 0.0, e)
+        key = torch.where(temp.isnan(), float("-inf"), temp)
+        key = torch.where(present, key, float("inf"))
+        ids = torch.where(present, torch.arange(n, device=dev), big)
+        kk = torch.full((b, shape[1] * shape[2] * shape[3] * lanes),
+                        float("inf"), device=dev)
+        ii = torch.full(kk.shape, big, dtype=torch.long, device=dev)
+        kk[:, slot], ii[:, slot] = key, ids
+        kk, ii = kk.view(shape), ii.view(shape)
+        # thread: its lanes ascend in index, strict < keeps the first
+        li = kk.argmin(-1, keepdim=True)
+        kk, ii = kk.gather(-1, li)[..., 0], ii.gather(-1, li)[..., 0]
+        for dim in (3, 2, 1):                          # warp, CTA, cluster
+            kk, ii = _lex_argmin(kk, ii, dim)
+        nxt = ii
+        picked[rows, nxt] = True
+        idx[:, j] = nxt.to(torch.int32)
+        last = nxt
+    return idx
+
+
+def cluster_size(batch: int, n: int) -> tuple[int, int]:
+    """(C, CTAs an SM): the launch shape the greedy kernel takes for
+    ``batch`` clouds of ``n`` points on the current card."""
+    out = (ctypes.c_int * 2)()
+    _lib.lib().spn_mds_shape(batch, n, out)
+    return out[0], out[1]
+
+
+def _mds_launch(fn, xyz, npoint, mean_mst_length, *extra):
+    b, n, _ = xyz.shape
+    t = _temperature(mean_mst_length.to(torch.float32)).contiguous()
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        code = fn(xyz.data_ptr(), t.data_ptr(), b, n, npoint, *extra,
+                  out.data_ptr(), _lib.stream_of(xyz))
+    _lib.check(code, "mds")
+    return out
+
+
+def mds_floor(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
+              cluster: int, cta_only: bool = False) -> torch.Tensor:
+    """The greedy kernel's chain of npoint - 1 steps at cluster size
+    ``cluster`` with no lane pass (its barriers and exchanges only; with
+    ``cta_only`` the CTA's argmin and barrier alone, no record exchange),
+    for timing the latency floor; its output is not
+    MDS picks. CUDA only."""
+    return _mds_launch(_lib.lib().spn_mds_floor, xyz.detach(), npoint,
+                       mean_mst_length.detach(), cluster, int(cta_only))
+
+
 def minimum_density_sample(xyz: torch.Tensor, npoint: int,
-                           mean_mst_length: torch.Tensor) -> torch.Tensor:
-    """Greedy MDS indices; see the module docstring (no gradient)."""
+                           mean_mst_length: torch.Tensor, *, _cluster: int = 0,
+                           _stage: int = STAGE) -> torch.Tensor:
+    """Greedy MDS indices; see the module docstring (no gradient).
+    ``_cluster`` forces the kernel's cluster size (1 is one block a cloud)
+    and ``_stage`` its compaction period (0: none), for the tests; the
+    picks do not depend on either."""
     xyz, mean_mst_length = xyz.detach(), mean_mst_length.detach()
     check_input("minimum_density_sample xyz", xyz, torch.float32, 3, last=3)
     b, n, _ = xyz.shape
@@ -103,12 +225,8 @@ def minimum_density_sample(xyz: torch.Tensor, npoint: int,
     if n > lib.spn_mds_max_points():
         raise ValueError(f"minimum_density_sample: the CUDA kernel takes "
                          f"N <= {lib.spn_mds_max_points()}, got {n}")
-    t = _temperature(mean_mst_length.to(torch.float32)).contiguous()
-    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        code = lib.spn_mds(xyz.data_ptr(), t.data_ptr(), b, n, npoint,
-                           out.data_ptr(), _lib.stream_of(xyz))
-    _lib.check(code, "mds")
+    out = _mds_launch(lib.spn_mds, xyz, npoint, mean_mst_length, _cluster,
+                      _stage)
     _lib.LAUNCHES["mds"] += 1
     return out
 

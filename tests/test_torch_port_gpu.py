@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from sparenet_tpu_torch import models
-from sparenet_tpu_torch.ops import (_lib, chamfer, edge_gather, emd,
+from sparenet_tpu_torch.ops import (_lib, chamfer, common, edge_gather, emd,
                                     expansion_penalty, gather, knn, mds, p2i)
 from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
                                            pairwise_sqdist_graph_seq)
 from sparenet_tpu_torch.runners import base, sparenet, sparenet_gan
+from test_torch_bids_split import _assign_one_read_a_round
 
 pytestmark = pytest.mark.gpu
 
@@ -72,11 +73,18 @@ def test_knn_kernels_take_any_k(cuda, k, n):
     assert torch.equal(knn.knn_idx(x, k, packed=True), knn.knn_packed_plain(x, k))
 
 
-def test_knn_kernels_refuse_k_above_32(cuda):
-    x = torch.randn(1, 64, 8, generator=_gen()).to(cuda)
-    for packed in (False, True):
-        with pytest.raises(ValueError, match="k <= 32"):
-            knn.knn_idx(x, 33, packed=packed)
+@pytest.mark.parametrize("k,n", [(33, 129), (64, 3000), (100, 300)])
+def test_knn_kernels_take_k_above_32(cuda, k, n):
+    """Past the filtered kernels' k = 32 every query takes the exact scan of
+    all candidates: the exact arm equals its fixed order bit for bit
+    (lowest index on ties, duplicated rows included), the packed arm its
+    plain version."""
+    x = torch.randn(2, n, 40, generator=_gen())
+    x[:, n // 2:n // 2 + 20] = x[:, :20]
+    x = x.to(cuda)
+    want = knn.smallest_k(pairwise_sqdist_graph_seq(x), k)
+    assert torch.equal(knn.knn_idx(x, k), want)
+    assert torch.equal(knn.knn_idx(x, k, packed=True), knn.knn_packed_plain(x, k))
 
 
 @pytest.mark.parametrize("c,n", [(3, 3000), (256, 3000), (40, 129)])
@@ -161,12 +169,28 @@ def test_knn_tensor_core_error_within_margin(cuda, c, packed):
     assert d_ratio < 1.0
 
 
-@pytest.mark.parametrize("c", [4, 256, 1024])
-def test_gather_max_kernel_matches_plain(cuda, c):
-    """max exact; sum to rtol 1e-5 (+1e-6 of sum |rows| for cancellation)."""
+def _unaligned(t):
+    """t's values in a tensor whose data starts 4 bytes past 16-byte
+    alignment (contiguous)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("c,k,shift", [(4, 8, False), (256, 8, False),
+                                       (1024, 8, False), (3, 8, False),
+                                       (130, 20, False), (64, 40, True),
+                                       (7, 17, True)])
+def test_gather_max_kernel_matches_plain(cuda, c, k, shift):
+    """max exact; sum to rtol 1e-5 (+1e-6 of sum |rows| for cancellation).
+    Also at C % 4 != 0, k > 16 and a table not 16-byte aligned (the
+    one-channel path)."""
     g = _gen()
     table = torch.randn(2, 700, c, generator=g).to(cuda)
-    idx = torch.randint(0, 700, (2, 650, 8), generator=g, dtype=torch.int32).to(cuda)
+    if shift:
+        table = _unaligned(table)
+    idx = torch.randint(0, 700, (2, 650, k), generator=g, dtype=torch.int32).to(cuda)
     out, s = gather.gather_max(table, idx, need_sum=True)
     pout, ps = gather.gather_max_plain(table, idx, need_sum=True)
     assert torch.equal(out, pout)
@@ -175,7 +199,8 @@ def test_gather_max_kernel_matches_plain(cuda, c):
     assert torch.equal(gather.gather_max(table, idx), pout)
 
 
-@pytest.mark.parametrize("bp,s", [(8, 64), (16, 512), (3, 1000)])
+@pytest.mark.parametrize("bp,s", [(8, 64), (16, 512), (3, 1000), (2, 1500),
+                                  (1, 5000), (1, 14336)])
 def test_expansion_kernel_matches_plain(cuda, bp, s):
     """parent and charged exact, cost to atol 1e-6."""
     xyz = (torch.rand(bp, s, 3, generator=_gen()) * 2 - 1).to(cuda)
@@ -192,6 +217,89 @@ def test_mds_kernel_matches_plain(cuda, n, npoint):
     mml = torch.tensor([0.02, 0.05], device=cuda)
     assert torch.equal(mds.minimum_density_sample(xyz, npoint, mml),
                        mds.mds_plain(xyz, npoint, mml))
+
+
+def _mds_near_ties_only(xyz, mml, got, want):
+    """Picks equal, or the first step at which a cloud's differ a near-tie
+    of the plain densities (1e-6 relative; the kernel's expf and the plain
+    version's exp may differ by an ulp)."""
+    for bi in range(got.shape[0]):
+        bad = torch.nonzero(got[bi] != want[bi])
+        if len(bad) == 0:
+            continue
+        j = int(bad[0])
+        n = xyz.shape[1]
+        t = 5.0 * mml[bi] * mml[bi]
+        weight = torch.where(torch.arange(n, device=xyz.device) >= 8192, 2.0, 1.0)
+        temp = torch.zeros(n, device=xyz.device)
+        temp[0] = 1e9
+        for s in range(1, j + 1):
+            e = torch.exp(-common.sqdist3(xyz[bi] - xyz[bi, want[bi, s - 1]]) / t)
+            temp = temp + weight * torch.where(
+                e < torch.finfo(torch.float32).tiny, 0.0, e)
+            if s < j:
+                temp[want[bi, s]] = 1e9
+        a, b = float(temp[got[bi, j]]), float(temp[want[bi, j]])
+        assert abs(a - b) <= 1e-6 * max(abs(a), abs(b)), (bi, j, a, b)
+
+
+def _mds_cloud(b, n, g):
+    """Seeded clouds: half uniform in a box, half on an ellipsoid shell
+    with every 16th point duplicated (exact density ties)."""
+    xyz = torch.rand(b, n, 3, generator=g) - 0.5
+    h = n // 2
+    d = torch.randn(b, n - h, 3, generator=g)
+    xyz[:, h:] = d / d.norm(dim=-1, keepdim=True) * torch.tensor([0.4, 0.3, 0.2])
+    xyz[:, h + 1::16] = xyz[:, h::16][:, :xyz[:, h + 1::16].shape[1]]
+    return xyz.contiguous()
+
+
+@pytest.mark.parametrize("b", [1, 4, 32])
+@pytest.mark.parametrize("n,npoint", [(320, 256), (19384, 2048), (25000, 1500)])
+def test_mds_every_cluster_size_gives_the_same_picks(cuda, b, n, npoint):
+    """Each cluster size C = 1..16 the card launches (forced, one CTA an
+    SM), with two compaction periods, picks bit for bit what the smallest C
+    that holds N picks (C = 1 up to 20480 points), and that matches the
+    plain version (near-ties aside); so does the shape the wrapper chooses
+    (one or two CTAs an SM)."""
+    g = _gen()
+    xyz = _mds_cloud(b, n, g).to(cuda)
+    mml = (0.004 + 0.02 * torch.rand(b, generator=g)).to(cuda)
+    first = 1 if n <= 20480 else 2
+    want = mds.minimum_density_sample(xyz, npoint, mml, _cluster=first)
+    _mds_near_ties_only(xyz, mml, want, mds.mds_plain(xyz, npoint, mml))
+    for c in range(first, 17):
+        for stage in (1024, 96):
+            got = mds.minimum_density_sample(xyz, npoint, mml, _cluster=c,
+                                             _stage=stage)
+            assert torch.equal(got, want), (c, stage)
+    c, per_sm = mds.cluster_size(b, n)
+    assert first <= c <= 16 and per_sm in (1, 2)
+    assert torch.equal(mds.minimum_density_sample(xyz, npoint, mml), want)
+
+
+def test_mds_picks_with_nan_and_zero_temperature(cuda):
+    """t NaN (every density NaN: the first NaN wins, point 0 again and
+    again) and t = 0 (densities NaN only where a point coincides with a
+    pick): compaction stays off, and every C equals the plain version."""
+    g = _gen()
+    xyz = (torch.rand(2, 3000, 3, generator=g) - 0.5)
+    xyz[1, 1000:1100] = xyz[1, :100]
+    xyz = xyz.to(cuda)
+    mml = torch.tensor([float("nan"), 0.0], device=cuda)
+    want = mds.mds_plain(xyz, 200, mml)
+    for c in (1, 3, 16):
+        got = mds.minimum_density_sample(xyz, 200, mml, _cluster=c, _stage=16)
+        assert torch.equal(got, want), c
+
+
+def test_mds_refuses_a_cluster_too_small(cuda):
+    """One CTA holds at most 20480 points: C = 1 at 25000 raises; there is
+    no fallback to another size or to the plain version."""
+    xyz = torch.rand(1, 25000, 3, generator=_gen()).to(cuda)
+    with pytest.raises(RuntimeError, match="mds"):
+        mds.minimum_density_sample(xyz, 10, torch.tensor([0.01], device=cuda),
+                                   _cluster=1)
 
 
 def test_forward_launches_every_kernel(cuda):
@@ -233,6 +341,88 @@ def test_nn_idx_kernel_matches_plain(cuda, n1, n2, dup):
         assert torch.equal(got[:, :8].cpu(), torch.arange(8).expand(2, 8).int())
 
 
+@pytest.mark.parametrize("u", [1, 37, 8908, 16384])
+def test_bids_kernel_scores_the_counted_bidders(cuda, u):
+    """Full-width bidder lists with the counts on the card (the auction's
+    rounds): the first count[b] bidders bit for bit against the plain
+    version, the rest target 0 and inc 0; duplicated objects at equal
+    price tie (lower index, increment 0)."""
+    g = _gen()
+    n = 16384
+    x2 = _dup_cloud(2, n, g)
+    x1 = torch.rand(2, n, 3, generator=g) - 0.5
+    x1[:, :64] = x2[:, :64]
+    price = torch.rand(2, n, generator=g) * 0.02
+    price[:, n // 2:] = price[:, :n // 2].flip(1)
+    count = torch.tensor([u, max(1, u // 3)], dtype=torch.int32)
+    x1, x2, price, count = (t.to(cuda) for t in (x1, x2, price, count))
+    t, i = emd.emd_bids(x1, x2, price, count)
+    pt, pi = emd.emd_bids_plain(x1, x2, price, count)
+    assert torch.equal(t, pt) and torch.equal(i, pi)
+    assert bool((t[0, u:] == 0).all()) and bool((i[0, u:] == 0).all())
+
+
+def test_auction_without_host_reads_matches_the_plain_loop(cuda):
+    """The whole auction on the card (full width, counts on the card, no
+    host read a round) gives the assignment of the round loop that cuts
+    each round's list to a host-read count, on the card and on the CPU
+    (plain bids)."""
+    g = _gen()
+    x1 = torch.rand(2, 2048, 3, generator=g) - 0.5
+    x2 = torch.rand(2, 2048, 3, generator=g) - 0.5
+    want = _assign_one_read_a_round(x1, x2, 0.005, 50)
+    assert torch.equal(emd.auction_assign(x1, x2, 0.005, 50), want)
+    a, b = x1.to(cuda), x2.to(cuda)
+    assert torch.equal(emd.auction_assign(a, b, 0.005, 50).cpu(), want)
+    assert torch.equal(_assign_one_read_a_round(a, b, 0.005, 50).cpu(), want)
+    dist, assign = emd.emd_auction(a, b, 0.005, 50)
+    assert torch.equal(assign.cpu(), want)
+    # a second cloud, the first one's points shuffled: every bidder is
+    # assigned early, and the loop stops on the copy of a count of 0
+    perm = torch.randperm(2048, generator=g)
+    x3 = x1[:, perm] + 1e-4 * (torch.rand(2, 2048, 3, generator=g) - 0.5)
+    want = emd.auction_assign(x1, x3, 0.005, 50)
+    assert torch.equal(emd.auction_assign(a, x3.to(cuda), 0.005, 50).cpu(), want)
+
+
+def test_auction_stop_waits_for_the_count_to_arrive(cuda):
+    """The stop reads a round's count only once the copy has landed: a
+    slot no copy has reached holds -1, and while the card is busy ahead of
+    the copy the stop does not fire, even though the count it will bring
+    is 0."""
+    arrivals = emd._Arrivals(3, cuda)
+    assert bool((arrivals.host == -1).all())
+    done = torch.zeros((2, 64), dtype=torch.long, device=cuda)  # none left
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of the card's clock
+    arrivals.record(done)
+    assert not arrivals.zero()
+    torch.cuda.synchronize()
+    assert arrivals.zero()
+
+
+def test_auction_on_a_card_that_is_not_the_current_one(cuda):
+    """The copies and their events on the inputs' card, not the current
+    one: an auction on the second card gives the first card's assignment,
+    and the stop waits for a copy held back on the second card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    other = torch.device("cuda", 1)
+    g = _gen()
+    x1 = torch.rand(2, 1024, 3, generator=g) - 0.5
+    x2 = torch.rand(2, 1024, 3, generator=g) - 0.5
+    with torch.cuda.device(0):
+        want = emd.auction_assign(x1.to(cuda), x2.to(cuda), 0.005, 50).cpu()
+        got = emd.auction_assign(x1.to(other), x2.to(other), 0.005, 50).cpu()
+        assert torch.equal(got, want)
+        arrivals = emd._Arrivals(2, other)
+        with torch.cuda.device(other):
+            torch.cuda._sleep(200_000_000)
+        arrivals.record(torch.zeros((2, 64), dtype=torch.long, device=other))
+        assert not arrivals.zero()
+        torch.cuda.synchronize(other)
+        assert arrivals.zero()
+
+
 @pytest.mark.parametrize("m,n,dup", [(16384, 16384, False), (1000, 4096, True),
                                      (257, 300, False)])
 def test_bids_kernel_matches_plain(cuda, m, n, dup):
@@ -252,18 +442,25 @@ def test_bids_kernel_matches_plain(cuda, m, n, dup):
         assert bool((i == 0).all()) and bool((t < n // 2).all())
 
 
-@pytest.mark.parametrize("n,c", [(3000, 256), (3000, 1024), (77, 8)])
-def test_edge_stats_kernels_match_plain(cuda, n, c):
+@pytest.mark.parametrize("n,c,k,shift", [(3000, 256, 8, False),
+                                         (3000, 1024, 8, False), (77, 8, 8, False),
+                                         (300, 3, 8, False), (500, 130, 16, False),
+                                         (400, 64, 33, True), (200, 7, 20, True)])
+def test_edge_stats_kernels_match_plain(cuda, n, c, k, shift):
     """Forward outputs and the table gradient bit for bit, with duplicated
-    slots and rows (max and min ties take the first slot)."""
+    slots and rows (max and min ties take the first slot); also at
+    C % 4 != 0, k > 15 (wide route codes) and a table not 16-byte
+    aligned."""
     g = _gen()
     table = torch.randn(2, n, c, generator=g)
     table[:, 1] = table[:, 0]
-    idx = torch.randint(0, n, (2, n, 8), generator=g, dtype=torch.int32)
-    idx[:, :, 7] = idx[:, :, 0]
-    idx[:, :4] = torch.arange(8, dtype=torch.int32) % 2
+    idx = torch.randint(0, n, (2, n, k), generator=g, dtype=torch.int32)
+    idx[:, :, k - 1] = idx[:, :, 0]
+    idx[:, :4] = torch.arange(k, dtype=torch.int32) % 2
     grads = [torch.randn(2, n, c, generator=g).to(cuda) for _ in range(4)]
     table, idx = table.to(cuda), idx.to(cuda)
+    if shift:
+        table = _unaligned(table)
     outs = edge_gather.edge_stats_fwd(table, idx)
     for o, w in zip(outs, edge_gather.edge_stats_fwd_plain(table, idx)):
         assert torch.equal(o, w)
@@ -390,6 +587,19 @@ def test_mds_continue_kernel_matches_plain(cuda, n, npick, steps, g):
     got = mds.mds_continue(xc, tc, orig, mml, steps)
     assert torch.equal(got, mds.mds_continue_plain(xc, tc, orig, mml, steps))
     assert _lib.LAUNCHES["mds_continue"] > 0
+
+
+@pytest.mark.parametrize("n,steps", [(8000, 600), (20000, 300)])
+def test_mds_continue_kernel_past_5120_lanes(cuda, n, steps):
+    """Live-lane counts past the first design's 5120 (20 and 40 lanes a
+    thread) against the plain version, bit for bit."""
+    gen = _gen()
+    xyz = (torch.rand(2, n, 3, generator=gen) - 0.5).to(cuda)
+    temp = (torch.rand(2, n, generator=gen) * 0.01).to(cuda)
+    orig = torch.arange(2 * n, dtype=torch.int32).reshape(2, n).to(cuda)
+    mml = torch.tensor([0.006, 0.012], device=cuda)
+    got = mds.mds_continue(xyz, temp, orig, mml, steps)
+    assert torch.equal(got, mds.mds_continue_plain(xyz, temp, orig, mml, steps))
 
 
 def test_mds_continue_kernel_lowest_lane_on_ties(cuda):

@@ -1,0 +1,118 @@
+"""The port's kernel wrappers at shapes past the first designs' limits, on
+the CPU: each wrapper is made to take its CUDA branch (``is_cpu`` patched)
+with a stand-in for the kernel library that records the C call, so the
+test shows that the wrapper raises nothing and hands the kernel the shape.
+The capacities the stand-in reports are the ones the kernel sources
+declare. The kernels themselves run at these shapes in
+tests/test_torch_port_gpu.py.
+"""
+
+import contextlib
+import re
+
+import pytest
+import torch
+
+from sparenet_tpu_torch.ops import (_lib, edge_gather, expansion_penalty,
+                                    gather, knn, mds)
+
+
+def _constants(source: str) -> dict:
+    text = (_lib.CSRC_DIR / source).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def _capacities() -> dict:
+    m, e = _constants("mds.cu"), _constants("expansion.cu")
+    return {"spn_gather_rows_per_block": _constants("gather_max.cu")["kRows"],
+            "spn_mds_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
+            "spn_mds_continue_max_points": m["kContMaxLanes"] * m["kThreads"],
+            "spn_mds_continue_max_steps": 1 << 14,
+            "spn_expansion_max_points": e["kMaxV"] * e["kMaxS"]}
+
+
+class _Library:
+    """Records each entry point's arguments; returns 0 (success), the
+    constants the sources declare, and small scratch sizes."""
+
+    def __init__(self):
+        self.calls = []
+        self.caps = _capacities()
+
+    def __getattr__(self, name):
+        if name in self.caps:
+            return lambda *a: self.caps[name]
+
+        def call(*args):
+            self.calls.append((name, args))
+            return 1 if name == "spn_edge_stats_route_bytes" else (
+                16 if "scratch" in name else 0)
+        return call
+
+
+@pytest.fixture
+def kernels(monkeypatch):
+    fake = _Library()
+    monkeypatch.setattr(_lib, "lib", lambda: fake)
+    monkeypatch.setattr(_lib, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_lib, "device_counter",
+                        lambda name, dev: torch.zeros(1, dtype=torch.int64))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    for mod in (mds, expansion_penalty, gather, edge_gather, knn):
+        monkeypatch.setattr(mod, "is_cpu", lambda t: False)
+    return fake
+
+
+def _launched(fake, name):
+    return [args for n, args in fake.calls if n == name]
+
+
+def test_mds_takes_n_past_20480(kernels):
+    xyz = torch.zeros(2, 25000, 3)
+    mds.minimum_density_sample(xyz, 100, torch.ones(2))
+    (args,) = _launched(kernels, "spn_mds")
+    assert args[2:5] == (2, 25000, 100)
+    assert kernels.caps["spn_mds_max_points"] >= 16 * 20480
+
+
+def test_mds_continue_takes_past_5120_lanes(kernels):
+    xyz, temp = torch.zeros(1, 20000, 3), torch.zeros(1, 20000)
+    orig = torch.zeros(1, 20000, dtype=torch.int32)
+    mds.mds_continue(xyz, temp, orig, torch.ones(1), 300)
+    (args,) = _launched(kernels, "spn_mds_continue")
+    assert args[4:7] == (1, 20000, 300)
+
+
+def test_expansion_takes_s_past_1024(kernels):
+    expansion_penalty.mst_charges(torch.zeros(2, 5000, 3))
+    (args,) = _launched(kernels, "spn_expansion")
+    assert args[1:3] == (2, 5000)
+    assert kernels.caps["spn_expansion_max_points"] >= 14336
+
+
+@pytest.mark.parametrize("c,k,offset", [(3, 8, 0), (130, 20, 0), (64, 40, 1)])
+def test_gather_max_takes_any_width_k_and_alignment(kernels, c, k, offset):
+    table = torch.zeros(2 * 50 * c + offset)[offset:].view(2, 50, c)
+    idx = torch.zeros(2, 40, k, dtype=torch.int32)
+    gather.gather_max(table, idx, need_sum=True)
+    (args,) = _launched(kernels, "spn_gather_max")
+    assert args[2:7] == (2, 50, 40, c, k)
+
+
+@pytest.mark.parametrize("c,k,offset", [(3, 8, 0), (130, 16, 0), (64, 33, 1)])
+def test_edge_stats_take_any_width_k_and_alignment(kernels, c, k, offset):
+    table = torch.zeros(2 * 50 * c + offset)[offset:].view(2, 50, c)
+    idx = torch.zeros(2, 40, k, dtype=torch.int32)
+    edge_gather.edge_stats_fwd(table, idx)
+    g = [torch.zeros(2, 40, c) for _ in range(6)]
+    edge_gather.edge_stats_bwd(table, idx, *g)
+    assert _launched(kernels, "spn_edge_stats_fwd")[0][2:7] == (2, 50, 40, c, k)
+    assert _launched(kernels, "spn_edge_stats_bwd")[0][8:13] == (2, 50, 40, c, k)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_knn_takes_k_past_32(kernels, packed):
+    knn.knn_idx(torch.zeros(2, 300, 8), 64, packed=packed)
+    (args,) = _launched(kernels, "spn_knn_packed" if packed else "spn_knn")
+    assert args[2:6] == (2, 300, 8, 64)
