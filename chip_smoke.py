@@ -16,7 +16,10 @@ Phases, each printing a flushed line with its elapsed seconds:
      the fixed order's on operands of mixed exponents and with
      cancellation, as a share of the margin E; greedy MDS at the cluster
      size it chooses against plain, and at every cluster size C = 1..16
-     bit for bit against C = 1, with its time at C = 1, 2, 4, 8, 16;
+     bit for bit against C = 1, with its time at C = 1, 2, 4, 8, 16; the
+     MDS continuation (the same kernel started from a density state) on a
+     random state of the hybrid tail's 5048 live lanes at every C = 1..16,
+     with and without compaction, bit for bit against its plain version;
   3. the main path: the flagship SpareNet eval forward (3000 -> 16384 points,
      full widths, seeded random weights with jittered BatchNorm statistics)
      at B=4, with every launch count set to 0 just before and read just
@@ -60,8 +63,11 @@ Phases, each printing a flushed line with its elapsed seconds:
      partial clouds with the flagged kNN queries, one profiled step, and
      the same steps again in deterministic mode;
  12. the p2i splat kernel against its plain version on random inputs in the
-     renderer's layout at 256 x 256, every radius of sparenet_gan.yaml, with
-     duplicated points and exact ties: values and ids bit for bit;
+     renderer's layout at 256 x 256, R = 4.5 and every radius of
+     sparenet_gan.yaml, with duplicated points and exact ties, the same
+     points scrambled and with a crowded tile added, at the kernel's tiles
+     and at small tiles and work items (split bins): values and ids bit
+     for bit;
  13. the third main path: one SpareNet-GAN step (the flagship generator and
      loss, 8-view depth maps at 256 x 256, the ProjectionD discriminator's
      step, the generator's step through it) at B=4 through
@@ -83,7 +89,8 @@ Phases, each printing a flushed line with its elapsed seconds:
      time), bit for bit; the MDS continuation on the prefix states the
      plain batched prefix gives at the production shape (19384 points,
      14336 batched picks, 2048 continued; duplicated points give exact
-     ties), bit for bit; the p2i backward at R 5/7/10 within 1e-6 of the
+     ties), bit for bit, at the chosen cluster size and at every C =
+     1..16 with and without compaction; the p2i backward at R 5/7/10 within 1e-6 of the
      largest entry, two launches bit for bit equal;
  18. the fourth main path: the serving-mode forward (``build_generator(
      serving=True, mds=arm)``, the same parameters as phase 3) at B=4 in
@@ -92,7 +99,9 @@ Phases, each printing a flushed line with its elapsed seconds:
      continuation 2 (hybrid), no expansion, no plain version; the packed
      kNN queries flagged for the exact scan;
  19. each serving kernel on the hybrid forward's own inputs (times and
-     flagged kNN queries, as phase 4), and the kernel serving forward of each arm against a plain
+     flagged kNN queries, as phase 4; the continuation at every C =
+     1..16 and its latency floor: an empty step in us at the chosen C and
+     at C = 1, 4, 16), and the kernel serving forward of each arm against a plain
      serving forward replaying its kNN graphs and MDS picks; two controls
      (a continuation skipping its first bump; a kNN off by one); the
      free-running Chamfer of each arm against parity as readings;
@@ -235,6 +244,12 @@ KERNEL["knn_packed"] = knn.knn_idx
 # csrc/knn.cu (both arms): pre-pass, grouping of equal rows, tensor-core
 # main kernel, the merge and re-rank, the exact scan of flagged queries
 KNN_KERNELS = ("knn_prepass", "knn_dedup", "knn_mma", "knn_rerank", "knn_scan")
+# csrc/p2i.cu: the binning (histogram and scatter, scan), the tile splat,
+# the split tiles' prepare and finish passes, the backward
+P2I_KERNELS = ("bin_kernel", "bin_scan_kernel", "tile_splat_kernel",
+               "split_prepare_kernel", "split_finish_kernel", "p2i_bwd_kernel")
+# csrc/mds.cu's cluster kernel in its continuation mode (kPicks, kCont)
+CONTINUE_KERNEL = ", 0, true>("
 # each path's end-to-end time, printed on one line ("paths {...}") so that
 # two runs compare line against line
 PATHS: dict = {}
@@ -460,6 +475,15 @@ def check_random(gen, dev) -> dict:
             f"SM)", compare_mds(
                 xyz, mml, picks, mds.mds_plain(xyz, N_OUT, mml)))
     check_mds_clusters(xyz, N_OUT, mml, picks, errs, "random input")
+    # the continuation (#5, the same kernel started from a density state)
+    # on a random state of the hybrid tail's live lanes
+    n_live = N_MDS - HYBRID_PREFIX
+    cargs = ((torch.rand(B_CHECK, n_live, 3, generator=gen) - 0.5).to(dev),
+             (torch.rand(B_CHECK, n_live, generator=gen) * 0.01).to(dev),
+             torch.arange(8000, 8000 + n_live, dtype=torch.int32).repeat(
+                 B_CHECK, 1).to(dev), mml, mds.TAIL)
+    check_continue_clusters(cargs, mds.mds_continue_plain(*cargs), errs,
+                            "random state")
     return errs
 
 
@@ -1012,11 +1036,11 @@ _TRAIN_GROUPS = (("mds", ("mds_cluster_kernel",)),
                  ("emd_bids", ("bids_kernel", "bids_merge_kernel")),
                  ("knn", KNN_KERNELS),
                  ("nn_idx", ("::nn_kernel",)),
+                 ("p2i", P2I_KERNELS),
                  ("edge_stats", ("stats_fwd_kernel", "route_kernel", "count_kernel",
                                  "scan_kernel", "fill_kernel", "sort_kernel",
                                  "accum_kernel")),
                  ("expansion", ("expansion_kernel",)),
-                 ("p2i", ("splat_kernel", "unpack_kernel", "p2i_bwd_kernel")),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
                  ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
 
@@ -1176,19 +1200,39 @@ def splat_inputs(gen, dev, b: int):
 
 
 def check_random_p2i(gen, dev) -> float:
-    """Phase 12; returns the largest error."""
+    """Phase 12; returns the largest error. The renderer's layout, the same
+    points in a scrambled order (image indices not grouped), and a crowded
+    tile (100000 more points within 8 pixels of one spot of image 0), at
+    R = 4.5 and every radius of sparenet_gan.yaml, with and without ids;
+    at the kernel's tiles and work items and at small ones (16 x 32 tiles,
+    512 window pixels an item: most bins split and merge)."""
     worst = 0.0
     pts, feat, binds, n_img = splat_inputs(gen, dev, B_CHECK)
-    for radius in RADII:
-        for with_ids in (True, False):
-            args = (pts, feat, binds, n_img, IMG, IMG, radius, with_ids)
-            ok, err, msg = compare_p2i(p2i_op.p2i_max(*args),
-                                       p2i_op.p2i_max_plain(*args))
-            worst = max(worst, err)
-            log(f"  p2i R={radius} {'with' if with_ids else 'without'} ids, "
-                f"{pts.shape[0]} points into {n_img} images: {msg}")
-            if not ok:
-                fail(f"p2i R={radius}: kernel differs from the plain version")
+    perm = torch.randperm(len(binds), generator=gen).to(dev)
+    crowd = (torch.rand(100000, 2, generator=gen) * 8 + (IMG / 2 - 4)).to(dev)
+    cases = {
+        "image-major": (pts, feat, binds),
+        "scrambled": (pts[perm].contiguous(), feat[perm].contiguous(),
+                      binds[perm].contiguous()),
+        "crowded tile": (torch.cat([pts, crowd]),
+                         torch.cat([feat, torch.rand(100000, 1, generator=gen).to(dev)]),
+                         torch.cat([binds, torch.zeros(100000, dtype=torch.int32,
+                                                       device=dev)]))}
+    for radius in (4.5,) + tuple(RADII):
+        for case, (p, f, b) in cases.items():
+            for with_ids in (True, False):
+                args = (p, f, b, n_img, IMG, IMG, radius, with_ids)
+                want = p2i_op.p2i_max_plain(*args)
+                for tile, item in ((p2i_op.TILE, p2i_op.ITEM_PIXELS), ((16, 32), 512)):
+                    ok, err, msg = compare_p2i(p2i_op.p2i_max(
+                        *args, _tile=tile, _item_pixels=item), want)
+                    worst = max(worst, err)
+                    log(f"  p2i R={radius} {case} {'with' if with_ids else 'without'} "
+                        f"ids, {p.shape[0]} points into {n_img} images, tiles "
+                        f"{tile}, {item} pixels an item: {msg}")
+                    if not ok:
+                        fail(f"p2i R={radius} {case}: kernel differs from the "
+                             f"plain version")
     return worst
 
 
@@ -1614,6 +1658,50 @@ def continue_skipping_first_bump(xyz, temp0, orig, mml, steps):
     return torch.cat([first, rest], 1)
 
 
+def check_continue_clusters(args, want, errs, what: str) -> None:
+    """The continuation at every cluster size C = 1..16 that holds its
+    lanes, forced, with compaction every mds.STAGE steps and none, against
+    ``want`` (the plain version's picks): bit for bit, with the kernel's
+    time at C = 1, 2, 4, 8, 16 and the shape the wrapper chooses."""
+    xyz = args[0]
+    first = 1 if xyz.shape[1] <= 20480 else 2
+    same = []
+    for c in range(first, 17):
+        for stage in (mds.STAGE, 0):
+            ok, err, _ = compare_exact(
+                mds.mds_continue(*args, _cluster=c, _stage=stage), want)
+            errs["mds_continue"] = max(errs["mds_continue"], err)
+            same.append(ok)
+            if not ok:
+                fail(f"mds_continue {what}: C={c}, stage {stage} picks differ "
+                     f"from the plain version's")
+    times = {c: cuda_ms(lambda: mds.mds_continue(*args, _cluster=c), reps=2)
+             for c in (1, 2, 4, 8, 16) if c >= first}
+    shape = mds.continue_cluster_size(xyz.shape[0], xyz.shape[1])
+    log(f"  mds_continue {what} {list(xyz.shape)}, {args[4]} steps: C = "
+        f"{first}..16 (stage {mds.STAGE} and none) bit for bit equal to the "
+        f"plain version: {all(same)}; (C, CTAs an SM) chosen {shape}; ms a "
+        f"call at C " + ", ".join(f"{c}: {ms:.3f}" for c, ms in times.items()))
+
+
+def continue_latency_floor(args) -> float:
+    """The continuation's latency floor on ``args``: its chain of steps
+    with no lane pass at the chosen C and at C = 1, 4, 16, in us a step;
+    returns ms a call at the chosen C."""
+    xyz, temp0, orig, mml, steps = args
+    chosen = mds.continue_cluster_size(xyz.shape[0], xyz.shape[1])[0]
+    us = {}
+    for c in dict.fromkeys((chosen, 1, 4, 16)):
+        ms = cuda_ms(lambda: mds.mds_continue_floor(xyz, temp0, orig, mml,
+                                                    steps, c), reps=3)
+        us[c] = 1e3 * ms / steps
+    log(f"  mds_continue latency floor on {list(xyz.shape)}, {steps} steps "
+        f"(an empty step: CTA argmin, record exchange, its wait), us a step "
+        f"at C " + ", ".join(f"{c}: {v:.3f}" for c, v in us.items())
+        + f" (C={chosen} chosen) on {nvidia_smi()}")
+    return us[chosen] * steps / 1e3
+
+
 def check_random_serving(gen, dev) -> dict:
     """Phase 17; returns each new kernel's largest error."""
     errs = {"knn_packed": 0.0, "mds_continue": 0.0, "p2i_bwd": 0.0}
@@ -1656,9 +1744,11 @@ def check_random_serving(gen, dev) -> dict:
                               schedule=(), return_state=True)
     xc, tc, orig = mds.compact_live(xyz, temp, N_MDS - HYBRID_PREFIX)
     got = mds.mds_continue(xc, tc, orig, mml, mds.TAIL)
+    want = mds.mds_continue_plain(xc, tc, orig, mml, mds.TAIL)
     verdict("mds_continue", f"{list(xc.shape)} from a {HYBRID_PREFIX}-pick "
-            f"prefix of {N_MDS}, {mds.TAIL} steps",
-            compare_exact(got, mds.mds_continue_plain(xc, tc, orig, mml, mds.TAIL)))
+            f"prefix of {N_MDS}, {mds.TAIL} steps", compare_exact(got, want))
+    check_continue_clusters((xc, tc, orig, mml, mds.TAIL), want, errs,
+                            "random prefix state")
     pts, feat, binds, n_img = splat_inputs(gen, dev, B_CHECK)
     for radius in RADII:
         _, ids = p2i_op.p2i_max(pts, feat, binds, n_img, IMG, IMG, radius, True)
@@ -1769,6 +1859,11 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
                                errs, ("knn_packed", "mds_continue"),
                                "serving forward")
     report_flagged(calls["knn"], "the hybrid serving forward's inputs")
+    for i, (args, kw, out) in enumerate(calls["mds_continue"]):
+        check_continue_clusters(args, out, errs, f"forward call {i}'s input")
+    rows["mds_continue"]["max_abs_err"] = errs["mds_continue"]
+    rows["mds_continue"]["latency_floor_ms"] = sum(
+        continue_latency_floor(args) for args, _, _ in calls["mds_continue"])
     for arm, (model, outs, calls, _) in runs.items():
         compare_serving(model, partial, calls, outs, arm)
     serving_controls(*runs["hybrid"][:1], partial, runs["hybrid"][2])
@@ -1782,8 +1877,8 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
 
 _SERVE_GROUPS = (("knn (packed)", KNN_KERNELS),
                  ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
+                 ("mds continuation", (CONTINUE_KERNEL,)),
                  ("mds (exact)", ("mds_cluster_kernel",)),
-                 ("mds continuation", ("mds_continue_kernel",)),
                  ("sort", ("radix", "sort")),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
 
@@ -1901,6 +1996,9 @@ def main() -> int:
                            f"forward call {i}'s input")
     results["mds"]["max_abs_err"] = max(results["mds"]["max_abs_err"], errs["mds"])
     mds_latency_floor(calls["mds"][0][0], dev)
+    c4 = FLOOR["chosen"][B_CHECK][0]
+    results["mds"]["latency_floor_ms"] = sum(
+        FLOOR["per_step_us"][c4] * (a[1] - 1) for a, _, _ in calls["mds"]) / 1e3
 
     log("phase 5: the kernel forward against plain forwards")
     compare_forwards(model, partial, calls, outs)
@@ -1946,6 +2044,7 @@ def main() -> int:
     s_errs = check_random_serving(torch.Generator().manual_seed(7), dev)
     results["p2i_bwd"]["max_abs_err"] = max(results["p2i_bwd"]["max_abs_err"],
                                             s_errs["p2i_bwd"])
+    s_errs["mds_continue"] = max(s_errs["mds_continue"], errs["mds_continue"])
     s_launches, s_rows = main_serving(train_state, partial, parity_outs,
                                       s_errs, dev)
     results.update(s_rows)
@@ -1997,6 +2096,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "state": "ported"})
+        if "latency_floor_ms" in r:
+            kernels[-1]["latency_floor_ms"] = r["latency_floor_ms"]
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

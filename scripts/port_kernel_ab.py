@@ -1,5 +1,6 @@
-"""Time the greedy-MDS, auction-bid, expansion and edge-stats kernels of one
-copy of the PyTorch/CUDA port, for an A/B of two commits on one card:
+"""Time the greedy-MDS, auction-bid, expansion, edge-stats, continuation and
+p2i kernels of one copy of the PyTorch/CUDA port, for an A/B of two commits
+on one card:
 
     git archive PARENT | tar -x -C _archive/a     # and the change in _archive/c
     for d in a c c a; do python scripts/port_kernel_ab.py _archive/$d $d; done
@@ -13,7 +14,12 @@ ellipsoid shell (mml 0.01), and, where the copy has them, the cluster size
 chosen and the latency floor in us a step at C = 1, 3, 16; then the
 kernels at the main paths' shapes: expansion on [128, 512, 3], gather-max
 with sums on [4, 3000, 256] and [4, 3000, 1024] and the edge-stats
-forward and backward on [4, 3000, 256] at k = 8, the MDS continuation on [4, 5048] live lanes for 2048 steps.
+forward and backward on [4, 3000, 256] at k = 8, the MDS continuation on [4, 5048]
+and [32, 5048] live lanes for 2048 steps (and, where the copy has it, its
+latency floor at the chosen cluster size); and the p2i splat at the B=4
+GAN step's three shapes (4 clouds x 8 views of 16384, 16384 and 3000
+points, uniform in a cube, projected by the renderer into 32 images of
+256 x 256) at R = 5, 7 and 10, with and without ids.
 Inputs come from seed 0.
 """
 import inspect
@@ -25,7 +31,8 @@ import torch  # noqa: E402
 
 from sparenet_tpu_torch.models import set_parity_mode  # noqa: E402
 from sparenet_tpu_torch.ops import (_lib, edge_gather, emd,  # noqa: E402
-                                    expansion_penalty, gather, mds)
+                                    expansion_penalty, gather, mds, p2i)
+from sparenet_tpu_torch.renderer import ComputeDepthMaps  # noqa: E402
 
 set_parity_mode()
 _lib.lib()
@@ -92,5 +99,25 @@ tc = (torch.rand(4, 5048, generator=g) * 0.01).to(dev)
 oc = torch.arange(4 * 5048, dtype=torch.int32).reshape(4, 5048).to(dev) + 8000
 mc = torch.full((4,), 0.006, device=dev)
 out["mds_continue"] = ms(lambda: mds.mds_continue(xc, tc, oc, mc, 2048), reps=5)
+if hasattr(mds, "mds_continue_floor"):
+    c = mds.continue_cluster_size(4, 5048)[0]
+    out["mds_continue_floor"] = ms(lambda: mds.mds_continue_floor(xc, tc, oc, mc, 2048, c), reps=5)
+xc = (torch.rand(32, 5048, 3, generator=g) - 0.5).to(dev)
+tc = (torch.rand(32, 5048, generator=g) * 0.01).to(dev)
+oc = torch.arange(32 * 5048, dtype=torch.int32).reshape(32, 5048).to(dev) + 8000
+mc = torch.full((32,), 0.006, device=dev)
+out["mds_continue_b32"] = ms(lambda: mds.mds_continue(xc, tc, oc, mc, 2048), reps=5)
+render = ComputeDepthMaps(image_size=256)
+for n in (16384, 3000):
+    cloud = torch.rand(4, n, 3, generator=g) - 0.5
+    pix, feat = render._project(cloud, render.matrices[:, None])
+    pix = pix.transpose(0, 1).reshape(-1, 2).contiguous().to(dev)
+    feat = feat.transpose(0, 1).reshape(-1, 1).contiguous().to(dev)
+    binds = torch.arange(32, dtype=torch.int32).repeat_interleave(n).to(dev)
+    for radius in (5.0, 7.0, 10.0):
+        for ids in (True, False):
+            out[f"p2i_{n}_r{radius:g}_{'ids' if ids else 'values'}"] = ms(
+                lambda: p2i.p2i_max(pix, feat, binds, 32, 256, 256, radius, ids),
+                reps=10)
 print(sys.argv[2], json.dumps({k: round(v, 4) if isinstance(v, float) else v
                                for k, v in out.items()}), flush=True)

@@ -1,4 +1,4 @@
-// Exact greedy minimum-density sampling.
+// Exact greedy minimum-density sampling, and its continuation.
 //   xyz [B, N, 3] f32, t [B] f32 (t = 5 * mean_mst_length^2)
 //   -> idx [B, npoint] int32
 // Pick 0 is point 0, pinned to 1e9. Each step adds w * exp(-d2 / t) to every
@@ -10,6 +10,23 @@
 // _run_stage). Semantics: sparenet_tpu/ops/mds.py:_mds_one. The TPU kernel's
 // 2^40 pin encoding and exp2 bias form are workarounds for that chip and
 // are not carried over; its staged lane compaction is (below).
+//
+// The continuation (kernel #5, spn_mds_continue) is the same kernel in its
+// kCont mode:
+//   xyz [B, N, 3] live-lane coordinates, temp0 [B, N] densities with every
+//   earlier bump applied, orig [B, N] int32 original index (>= 8192: weight
+//   2), t [B] -> lane indices [B, steps] int32.
+// Replaces: sparenet_tpu/ops/pallas/mds_pallas.py:mds_pallas_continue (via
+// _run_stage), the exact tail of the hybrid schedule (ops/mds.py:
+// _mds_hybrid). Semantics: that function's XLA tail. The state starts at
+// temp0 (no pick 0, no pending bump before the first argmin), the weights
+// come from orig, and each step takes the lowest-lane argmin (a NaN density
+// first, before -inf), pins it to 1e9 and adds w * exp(-d2 / t) to every
+// density. The lanes are the points of the greedy kernel: lane i is "point"
+// i, and every C gives the picks of C = 1 as there. The caller compacts the
+// lanes with a stable sort, so the lowest lane is the lowest original index
+// and the picks are those of the full-width tail. Coordinates stay f32 (the
+// TPU kernel's bf16 coordinates under fast math are not carried).
 //
 // Bound on an H100: latency of a chain of npoint-1 dependent steps, each an
 // N-wide update (an exp per point) and an argmin over the cloud. No work
@@ -58,7 +75,12 @@
 // warp's largest live count. A picked lane's density is >= 1e9 and it is
 // never the argmin again unless a density is NaN, so compaction is on only
 // where no NaN can arise: t finite and > 0, and every coordinate of the
-// cloud finite (agreed over the cluster before the first step).
+// cloud finite (agreed over the cluster before the first step). The
+// continuation also needs every density of temp0 below 5e8 (so no NaN
+// there either): a live lane then stays below 5.003e8 over its at most 2^14
+// steps of bumps of at most 2 (each add rounds by at most 16), below any
+// picked lane; a temp0 of 1e9 or inf could lose to a picked lane, and a
+// picked lane be picked again.
 //
 // The density arithmetic is IEEE and unfused where the reference is: d2 is
 // the fma chain of sqdist3, then (-d2) / t, expf (no fast math) flushed to
@@ -83,6 +105,8 @@ constexpr int kMaxCluster = 16;
 constexpr int kMaxLanes = 40;      // lanes a thread: 20480 points a CTA
 constexpr int kHeavyFrom = 8192;
 constexpr float kBig = 1e9f;
+// the continuation compacts only when every density of temp0 is below this
+constexpr float kLiveBelow = 5e8f;
 constexpr float kTiny = 1.17549435e-38f;  // smallest normal float
 // dynamic shared memory of a CTA at least: more than half an SM's, so one
 // CTA an SM and a cloud spreads over C SMs; or more than a third, so at
@@ -93,7 +117,8 @@ constexpr int kMinSmem2 = 77 * 1024;
 // The argmin's comparison value: a NaN density is the minimum (the first
 // NaN wins, as argmin in the reference and in PyTorch). Densities turn NaN
 // when t = 0, i.e. a cloud whose mml estimate is 0 (every primitive
-// collapsed onto one point); real densities are >= 0, never -inf.
+// collapsed onto one point); the greedy kernel's densities are >= 0, never
+// -inf (the continuation's temp0 may hold -inf: cont_key).
 __device__ __forceinline__ float nan_first(float v) {
   return isnan(v) ? -__int_as_float(0x7f800000) : v;
 }
@@ -104,6 +129,13 @@ __device__ __forceinline__ float nan_first(float v) {
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The continuation's argmin key: a NaN density below every other, -inf
+// included (0 is the ordered key of no float that is not NaN), and -0 equal
+// to +0 (adding +0 turns -0 into +0), as argmin compares them.
+__device__ __forceinline__ unsigned cont_key(float v) {
+  return isnan(v) ? 0u : order_key(__fadd_rn(v, 0.f));
 }
 
 // Warp-wide lexicographic (key, index) minimum; every lane ends with it.
@@ -179,11 +211,13 @@ __device__ __forceinline__ void wait_phase(unsigned mbar, unsigned parity) {
 // (each thread offers its first lane): the latency floor; kCtaFloor, as
 // kFloor without the record exchange and its wait (each CTA
 // takes its own winner after its __syncthreads): the CTA's share of it.
+// kCont: the continuation (temp0, orig; npoint is its step count).
 enum { kPicks = 0, kFloor = 1, kCtaFloor = 2 };
 
-template <int L, int kMode>
+template <int L, int kMode, bool kCont>
 __global__ void __launch_bounds__(kThreads, 1)
-mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tparam,
+mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ temp0,
+                   const int* __restrict__ orig, const float* __restrict__ tparam,
                    int n, int npoint, int stage, int* __restrict__ out) {
   extern __shared__ float2 sxy[];  // [L * 512] (x, y) of each slot
   unsigned char* sorig = reinterpret_cast<unsigned char*>(sxy + L * kThreads);
@@ -206,7 +240,7 @@ mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tpar
   float z[L], temp[L];
   u64 heavy = 0;  // bit l: lane l weighs 2
   int mylive = 0;  // lanes 0..mylive-1 hold points (they ascend in index)
-  bool finite = true;
+  bool finite = true;  // and, continuing, every density below kLiveBelow
 #pragma unroll
   for (int l = 0; l < L; ++l) {
     const int i = orig_index(l, tid, rank, nc);
@@ -216,10 +250,15 @@ mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tpar
     finite = finite && isfinite(x) && isfinite(y) && isfinite(z[l]);
     sxy[l * kThreads + tid] = make_float2(x, y);
     sorig[l * kThreads + tid] = (unsigned char)l;
-    temp[l] = (i == 0) ? kBig : 0.f;
+    if (kCont) {
+      temp[l] = valid ? temp0[(size_t)b * n + i] : 0.f;
+      finite = finite && temp[l] < kLiveBelow;
+    } else {
+      temp[l] = (i == 0) ? kBig : 0.f;
+    }
     if (valid) {
       mylive = l + 1;
-      if (i >= kHeavyFrom) heavy |= 1ull << l;
+      if ((kCont ? orig[(size_t)b * n + i] : i) >= kHeavyFrom) heavy |= 1ull << l;
     }
   }
   const float t = tparam[b];
@@ -237,14 +276,18 @@ mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tpar
 
   int until = stage;                         // steps to the next compaction
   u64 dead = 0;                              // picked lanes, until compacted
-  int pin = (rank == 0 && tid == 0) ? 0 : -1;  // lane to pin this step
+  // lane to pin this step: the greedy kernel's point 0
+  int pin = (!kCont && rank == 0 && tid == 0) ? 0 : -1;
   if (pin == 0) dead = 1;
   int wlive = __reduce_max_sync(spn::kFullMask, mylive);
-  float lx = p[0], ly = p[1], lz = p[2];
+  float lx = kCont ? 0.f : p[0], ly = kCont ? 0.f : p[1], lz = kCont ? 0.f : p[2];
   int prev = 0;  // the floor modes' last winner
-  if (rank == 0 && tid == 0) ob[0] = 0;
+  if (!kCont && rank == 0 && tid == 0) ob[0] = 0;
 
-  for (int j = 1; j < npoint; ++j) {
+  // step j picks output j (the continuation's output j - 1, with no bump
+  // at j = 1)
+  const int end = kCont ? npoint + 1 : npoint;
+  for (int j = 1; j < end; ++j) {
     const int par = j & 1;
     const unsigned my_mbar = smem_addr(&mbar[par]);
     if (kMode != kCtaFloor && tid == 0) expect_bytes(my_mbar, 32u * nc);
@@ -282,36 +325,51 @@ mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tpar
     }
 
     float bv = inf, bz = 0.f;
+    unsigned bk = ~0u;  // the continuation's key of bv
     int bl = -1;
     if (kMode != kPicks) {
       if (mylive > 0) {  // a key that depends on the last step's winner
         bv = (float)((prev + tid) & 7);
+        bk = order_key(bv);
         bl = 0;
       }
     } else {
+      const bool bump = !kCont || j > 1;
 #pragma unroll
       for (int l = 0; l < L; ++l) {
         if (l >= wlive) break;
         if (l < mylive) {
-          const float2 q = sxy[l * kThreads + tid];
-          const float d2 = spn::sqdist3(q.x - lx, q.y - ly, z[l] - lz);
-          float e = expf(__fdiv_rn(-d2, t));
-          if (e < kTiny) e = 0.f;
-          const float w = ((heavy >> l) & 1ull) ? 2.f : 1.f;
-          const float tv = __fadd_rn(l == pin ? kBig : temp[l], __fmul_rn(w, e));
-          temp[l] = tv;
-          const float key = nan_first(tv);
-          if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
-            bv = key;
-            bl = l;
-            bz = z[l];
+          float tv = temp[l];
+          if (bump) {
+            const float2 q = sxy[l * kThreads + tid];
+            const float d2 = spn::sqdist3(q.x - lx, q.y - ly, z[l] - lz);
+            float e = expf(__fdiv_rn(-d2, t));
+            if (e < kTiny) e = 0.f;
+            const float w = ((heavy >> l) & 1ull) ? 2.f : 1.f;
+            tv = __fadd_rn(l == pin ? kBig : tv, __fmul_rn(w, e));
+            temp[l] = tv;
+          }
+          if (kCont) {
+            const unsigned key = cont_key(tv);
+            if (key < bk) {  // lanes ascend in index: strict < keeps the lowest
+              bk = key;
+              bl = l;
+              bz = z[l];
+            }
+          } else {
+            const float key = nan_first(tv);
+            if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
+              bv = key;
+              bl = l;
+              bz = z[l];
+            }
           }
         }
       }
     }
     const int bi = bl >= 0 ? orig_index(sorig[bl * kThreads + tid], tid, rank, nc)
                            : INT_MAX;
-    unsigned v = order_key(bv);
+    unsigned v = kCont ? bk : order_key(bv);
     int vi = bi;
     warp_lexmin(v, vi);
     if (lane == 0) {
@@ -362,134 +420,10 @@ mds_cluster_kernel(const float* __restrict__ xyz, const float* __restrict__ tpar
     lz = rec[par][src][1].x;
     pin = (bl >= 0 && bi == pick) ? bl : -1;
     if (pin >= 0) dead |= 1ull << pin;
-    if (rank == 0 && tid == 0) ob[j] = pick;
+    if (rank == 0 && tid == 0) ob[kCont ? j - 1 : j] = pick;
     prev = pick;
   }
   cluster.sync();  // no CTA leaves while a peer may still write to it
-}
-
-// Greedy continuation (kernel #5): steps more picks from a density state.
-//   xyz [B, N, 3] live-lane coordinates, temp0 [B, N] densities with every
-//   earlier bump applied, orig [B, N] int32 original index (>= 8192: weight
-//   2), t [B] -> lane indices [B, steps] int32.
-// Replaces: sparenet_tpu/ops/pallas/mds_pallas.py:mds_pallas_continue (via
-// _run_stage), the exact tail of the hybrid schedule (ops/mds.py:
-// _mds_hybrid). Semantics: that function's XLA tail: each step takes the
-// lowest-lane argmin, pins it to 1e9, then adds w * exp(-d2 / t) to every
-// density (d2 the sqdist3 fma chain, exp flushed to 0 below the smallest
-// normal). The lanes are compacted by the caller with a stable sort, so the
-// lowest lane is the lowest original index and the picks are those of the
-// full-width tail. Coordinates stay f32 (the TPU kernel's bf16 coordinates
-// under fast math are not carried).
-//
-// Bound on an H100: latency of steps dependent steps, each an N-wide update
-// and a block argmin; one block a cloud keeps B of the 132 SMs busy. Design:
-// one block of 512 threads a cloud, thread t owning lanes t, t + 512, ...:
-// their densities, z and weights in registers (the weights as a bit mask at
-// 40 lanes), x and y in shared memory (static at 10 lanes, dynamic above);
-// L lanes a thread (10, 20 or 40: N <= 20480; the hybrid's tail has 5048
-// live lanes); a (value, index) warp-shuffle argmin carrying the winner's
-// z and one shared-memory stage, two barriers per step; no
-// pending bump before the first argmin: the state starts at temp0.
-constexpr int kContMaxLanes = 40;
-
-template <int L>
-__global__ void __launch_bounds__(kThreads, 1)
-mds_continue_kernel(const float* __restrict__ xyz,
-                    const float* __restrict__ temp0,
-                    const int* __restrict__ orig,
-                    const float* __restrict__ tparam, int n, int steps,
-                    int* __restrict__ out) {
-  float* sx;  // sx, sy [L * 512]
-  if constexpr (L == 10) {
-    __shared__ float sbuf[2 * 10 * kThreads];
-    sx = sbuf;
-  } else {
-    extern __shared__ float smem[];
-    sx = smem;
-  }
-  float* sy = sx + L * kThreads;
-  __shared__ float wv[kWarps], wz[kWarps];
-  __shared__ int wi[kWarps];
-  __shared__ int s_pick;
-  __shared__ float s_z;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const float inf = __int_as_float(0x7f800000);
-  const float* p = xyz + (size_t)b * n * 3;
-  int* ob = out + (size_t)b * steps;
-
-  // the weights: in registers up to 20 lanes (as floats), else as a mask
-  constexpr bool kMask = L > 20;
-  float z[L], temp[L], w[kMask ? 1 : L];
-  u64 heavy = 0;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const int i = tid + l * kThreads;
-    const bool live = i < n;
-    sx[i] = live ? p[3 * i + 0] : 0.f;
-    sy[i] = live ? p[3 * i + 1] : 0.f;
-    z[l] = live ? p[3 * i + 2] : 0.f;
-    temp[l] = live ? temp0[(size_t)b * n + i] : inf;
-    const bool h = live && orig[(size_t)b * n + i] >= kHeavyFrom;
-    if constexpr (kMask) heavy |= (u64)h << l;
-    else w[l] = h ? 2.f : 1.f;
-  }
-  const float t = tparam[b];
-  int last = -1;
-  float lz = 0.f;
-  __syncthreads();
-
-  for (int j = 0; j < steps; ++j) {
-    const bool bump = j > 0;
-    const float lx = bump ? sx[last] : 0.f, ly = bump ? sy[last] : 0.f;
-    float bv = inf, bz = 0.f;
-    int bi = INT_MAX;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const int i = tid + l * kThreads;
-      if (i < n) {
-        float tv = temp[l];
-        if (bump) {
-          const float d2 = spn::sqdist3(sx[i] - lx, sy[i] - ly, z[l] - lz);
-          float e = expf(__fdiv_rn(-d2, t));
-          if (e < kTiny) e = 0.f;
-          const float wl = kMask ? (((heavy >> l) & 1ull) ? 2.f : 1.f) : w[kMask ? 0 : l];
-          tv = __fadd_rn(i == last ? kBig : tv, __fmul_rn(wl, e));
-          temp[l] = tv;
-        }
-        const float key = nan_first(tv);
-        if (key < bv) {  // lanes ascend in index: strict < keeps the lowest
-          bv = key;
-          bi = i;
-          bz = z[l];
-        }
-      }
-    }
-    spn::warp_argmin_payload(bv, bi, bz);
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-      wz[warp] = bz;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? wv[lane] : inf;
-      bi = lane < kWarps ? wi[lane] : INT_MAX;
-      bz = lane < kWarps ? wz[lane] : 0.f;
-      spn::warp_argmin_payload(bv, bi, bz);
-      if (lane == 0) {
-        s_pick = bi;
-        s_z = bz;
-        ob[j] = bi;
-      }
-    }
-    __syncthreads();
-    last = s_pick;
-    lz = s_z;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -516,20 +450,29 @@ struct Shape {
   int c, per_sm;
 };
 
-template <int L, int kMode>
+// The kernel's inputs: temp0 and orig are null but in the continuation;
+// npoint is the continuation's step count.
+struct Args {
+  const float *xyz, *temp0;
+  const int* orig;
+  const float* t;
+  int batch, n, npoint, stage;
+  int* out;
+};
+
+template <int L, int kMode, bool kCont>
 struct Cluster {
+  static auto kernel() { return mds_cluster_kernel<L, kMode, kCont>; }
   static int smem(int per_sm) {
     const int need = L * kThreads * (int)(sizeof(float2) + 1);
     const int pad = per_sm == 1 ? kMinSmem : kMinSmem2;
     return need > pad ? need : pad;
   }
   static cudaError_t prepare() {
-    cudaError_t err = cudaFuncSetAttribute(mds_cluster_kernel<L, kMode>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem(1));
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem(1));
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mds_cluster_kernel<L, kMode>,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      err = cudaFuncSetAttribute(kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return err;
   }
   static void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
@@ -551,9 +494,9 @@ struct Cluster {
   static int resident(Shape sh, int batch) {
     if (prepare() != cudaSuccess) return 0;
     int blocks = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, mds_cluster_kernel<L, kMode>, kThreads, smem(sh.per_sm)) !=
-            cudaSuccess || blocks < sh.per_sm) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel(), kThreads,
+                                                      smem(sh.per_sm)) != cudaSuccess ||
+        blocks < sh.per_sm) {
       cudaGetLastError();
       return 0;
     }
@@ -561,60 +504,57 @@ struct Cluster {
     cudaLaunchAttribute attr;
     config(cfg, attr, sh, batch, nullptr);
     int num = 0;
-    if (cudaOccupancyMaxActiveClusters(&num, mds_cluster_kernel<L, kMode>, &cfg) !=
-        cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&num, kernel(), &cfg) != cudaSuccess) {
       cudaGetLastError();  // a size the card refuses: clear its error
       return 0;
     }
     return num;
   }
-  static int launch(const float* xyz, const float* t, int batch, int n,
-                    int npoint, Shape sh, int stage, int* out, cudaStream_t st) {
+  static int launch(const Args& a, Shape sh, cudaStream_t st) {
     cudaError_t err = prepare();
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    config(cfg, attr, sh, batch, st);
-    err = cudaLaunchKernelEx(&cfg, mds_cluster_kernel<L, kMode>, xyz, t, n,
-                             npoint, stage, out);
+    config(cfg, attr, sh, a.batch, st);
+    err = cudaLaunchKernelEx(&cfg, kernel(), a.xyz, a.temp0, a.orig, a.t, a.n,
+                             a.npoint, a.stage, a.out);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
 };
 
-template <int kMode>
+template <int kMode, bool kCont>
 int resident_clusters(int lanes, Shape sh, int batch) {
   switch (lanes) {
-    case 2: return Cluster<2, kMode>::resident(sh, batch);
-    case 4: return Cluster<4, kMode>::resident(sh, batch);
-    case 8: return Cluster<8, kMode>::resident(sh, batch);
-    case 16: return Cluster<16, kMode>::resident(sh, batch);
-    case 24: return Cluster<24, kMode>::resident(sh, batch);
-    default: return Cluster<kMaxLanes, kMode>::resident(sh, batch);
+    case 2: return Cluster<2, kMode, kCont>::resident(sh, batch);
+    case 4: return Cluster<4, kMode, kCont>::resident(sh, batch);
+    case 8: return Cluster<8, kMode, kCont>::resident(sh, batch);
+    case 16: return Cluster<16, kMode, kCont>::resident(sh, batch);
+    case 24: return Cluster<24, kMode, kCont>::resident(sh, batch);
+    default: return Cluster<kMaxLanes, kMode, kCont>::resident(sh, batch);
   }
 }
 
-template <int kMode>
-int launch_cluster(const float* xyz, const float* t, int batch, int n,
-                   int npoint, Shape sh, int stage, int* out, cudaStream_t st) {
-  switch (lanes_built(lanes_needed(n, sh.c))) {
-    case 2: return Cluster<2, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
-    case 4: return Cluster<4, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
-    case 8: return Cluster<8, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
-    case 16: return Cluster<16, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
-    case 24: return Cluster<24, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
-    case kMaxLanes:
-      return Cluster<kMaxLanes, kMode>::launch(xyz, t, batch, n, npoint, sh, stage, out, st);
+template <int kMode, bool kCont>
+int launch_cluster(const Args& a, Shape sh, cudaStream_t st) {
+  switch (lanes_built(lanes_needed(a.n, sh.c))) {
+    case 2: return Cluster<2, kMode, kCont>::launch(a, sh, st);
+    case 4: return Cluster<4, kMode, kCont>::launch(a, sh, st);
+    case 8: return Cluster<8, kMode, kCont>::launch(a, sh, st);
+    case 16: return Cluster<16, kMode, kCont>::launch(a, sh, st);
+    case 24: return Cluster<24, kMode, kCont>::launch(a, sh, st);
+    case kMaxLanes: return Cluster<kMaxLanes, kMode, kCont>::launch(a, sh, st);
     default: return (int)cudaErrorInvalidValue;  // c CTAs cannot hold n points
   }
 }
 
-// The launch shape for B clouds of N points: among the shapes (C <= 16 and
-// at most one CTA a chunk; 1 or 2 CTAs an SM) at which all B clusters are
-// resident at once, the one with the fewest points an SM, per_sm x (points
-// a CTA), then the fewer CTAs an SM, then the larger C; where none is, the
-// smallest C that holds N at one CTA an SM (the clusters then run in
-// waves). Cached per (device, B, N).
+// The launch shape for B clouds of N points (N lanes, continuing): among
+// the shapes (C <= 16 and at most one CTA a chunk; 1 or 2 CTAs an SM) at
+// which all B clusters are resident at once, the one with the fewest points
+// an SM, per_sm x (points a CTA), then the fewer CTAs an SM, then the
+// larger C; where none is, the smallest C that holds N at one CTA an SM
+// (the clusters then run in waves). Cached per (device, B, N, mode).
+template <bool kCont>
 Shape choose_shape(int batch, int n) {
   static std::map<std::tuple<int, int, int>, Shape> cache;
   int dev = 0;
@@ -636,8 +576,8 @@ Shape choose_shape(int batch, int n) {
     for (int c = std::min(kMaxCluster, std::max(chunks, smallest)); c >= smallest; --c) {
       const long cost = (long)per_sm * ((chunks + c - 1) / c);
       if ((best >= 0 && cost >= best) ||
-          resident_clusters<kPicks>(lanes_built(lanes_needed(n, c)), {c, per_sm},
-                                    batch) < batch)
+          resident_clusters<kPicks, kCont>(lanes_built(lanes_needed(n, c)),
+                                           {c, per_sm}, batch) < batch)
         continue;
       best = cost;
       chosen = {c, per_sm};
@@ -647,19 +587,8 @@ Shape choose_shape(int batch, int n) {
   return chosen;
 }
 
-template <int L>
-int launch_continue(const float* xyz, const float* temp0, const int* orig,
-                    const float* t, int batch, int n, int steps, int* out,
-                    cudaStream_t st) {
-  const int smem = L == 10 ? 0 : 2 * L * kThreads * (int)sizeof(float);
-  if (L != 10) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mds_continue_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  mds_continue_kernel<L><<<batch, kThreads, smem, st>>>(xyz, temp0, orig, t, n,
-                                                      steps, out);
-  return (int)cudaGetLastError();
+bool shape_ok(int batch, int n) {
+  return batch >= 1 && n >= 1 && n <= kMaxCluster * kMaxLanes * kThreads;
 }
 
 }  // namespace
@@ -670,9 +599,7 @@ extern "C" int spn_mds_max_points(void) { return kMaxCluster * kMaxLanes * kThre
 // The launch shape spn_mds takes for B clouds of N points: out[0] the
 // cluster size, out[1] the CTAs an SM (0 and 0: N too large).
 extern "C" void spn_mds_shape(int batch, int n, int* out) {
-  Shape sh{0, 0};
-  if (batch >= 1 && n >= 1 && n <= kMaxCluster * kMaxLanes * kThreads)
-    sh = choose_shape(batch, n);
+  const Shape sh = shape_ok(batch, n) ? choose_shape<false>(batch, n) : Shape{0, 0};
   out[0] = sh.c;
   out[1] = sh.per_sm;
 }
@@ -683,12 +610,12 @@ extern "C" void spn_mds_shape(int batch, int n, int* out) {
 extern "C" int spn_mds(const float* xyz, const float* t, int batch, int n,
                        int npoint, int cluster, int stage, int* out,
                        void* stream) {
-  if (batch < 1 || n < 1 || n > kMaxCluster * kMaxLanes * kThreads ||
-      npoint < 1 || npoint > n || cluster < 0 || cluster > kMaxCluster || stage < 0)
+  if (!shape_ok(batch, n) || npoint < 1 || npoint > n || cluster < 0 ||
+      cluster > kMaxCluster || stage < 0)
     return (int)cudaErrorInvalidValue;
-  const Shape sh = cluster ? Shape{cluster, 1} : choose_shape(batch, n);
-  return launch_cluster<kPicks>(xyz, t, batch, n, npoint, sh, stage, out,
-                               static_cast<cudaStream_t>(stream));
+  const Shape sh = cluster ? Shape{cluster, 1} : choose_shape<false>(batch, n);
+  return launch_cluster<kPicks, false>({xyz, nullptr, nullptr, t, batch, n, npoint, stage, out},
+                                       sh, static_cast<cudaStream_t>(stream));
 }
 
 // The latency floor: spn_mds's chain of npoint - 1 steps at cluster size c
@@ -698,29 +625,53 @@ extern "C" int spn_mds(const float* xyz, const float* t, int batch, int n,
 extern "C" int spn_mds_floor(const float* xyz, const float* t, int batch, int n,
                              int npoint, int cluster, int cta_only, int* out,
                              void* stream) {
-  if (batch < 1 || n < 1 || npoint < 1 || npoint > n || cluster < 1 ||
+  if (!shape_ok(batch, n) || npoint < 1 || npoint > n || cluster < 1 ||
       cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Shape sh{cluster, 1};
-  return cta_only ? launch_cluster<kCtaFloor>(xyz, t, batch, n, npoint, sh, 0, out, st)
-                  : launch_cluster<kFloor>(xyz, t, batch, n, npoint, sh, 0, out, st);
+  const Args a{xyz, nullptr, nullptr, t, batch, n, npoint, 0, out};
+  return cta_only ? launch_cluster<kCtaFloor, false>(a, sh, st)
+                  : launch_cluster<kFloor, false>(a, sh, st);
 }
 
 // Largest live-lane count and step count the continuation takes (the TPU
-// kernel's pin encoding holds step < 2^14; kept as the same contract).
-extern "C" int spn_mds_continue_max_points(void) { return kContMaxLanes * kThreads; }
+// kernel's pin encoding holds step < 2^14; kept as the same contract, on
+// which the compaction's bound also rests).
+extern "C" int spn_mds_continue_max_points(void) {
+  return kMaxCluster * kMaxLanes * kThreads;
+}
 extern "C" int spn_mds_continue_max_steps(void) { return 1 << 14; }
 
+// The launch shape spn_mds_continue takes for B clouds of N live lanes.
+extern "C" void spn_mds_continue_shape(int batch, int n, int* out) {
+  const Shape sh = shape_ok(batch, n) ? choose_shape<true>(batch, n) : Shape{0, 0};
+  out[0] = sh.c;
+  out[1] = sh.per_sm;
+}
+
+// cluster and stage as spn_mds's.
 extern "C" int spn_mds_continue(const float* xyz, const float* temp0,
                                 const int* orig, const float* t, int batch,
-                                int n, int steps, int* out, void* stream) {
-  if (batch < 1 || n < 1 || n > kContMaxLanes * kThreads || steps < 1 ||
-      steps > n || steps > (1 << 14))
+                                int n, int steps, int cluster, int stage,
+                                int* out, void* stream) {
+  if (!shape_ok(batch, n) || steps < 1 || steps > n || steps > (1 << 14) ||
+      cluster < 0 || cluster > kMaxCluster || stage < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lanes = (n + kThreads - 1) / kThreads;
-  if (lanes <= 10) return launch_continue<10>(xyz, temp0, orig, t, batch, n, steps, out, st);
-  if (lanes <= 20) return launch_continue<20>(xyz, temp0, orig, t, batch, n, steps, out, st);
-  return launch_continue<kContMaxLanes>(xyz, temp0, orig, t, batch, n, steps, out, st);
+  const Shape sh = cluster ? Shape{cluster, 1} : choose_shape<true>(batch, n);
+  return launch_cluster<kPicks, true>({xyz, temp0, orig, t, batch, n, steps, stage, out},
+                                      sh, static_cast<cudaStream_t>(stream));
+}
+
+// The continuation's latency floor: its chain of steps at cluster size c
+// with no lane pass, for timing; what it writes is not picks.
+extern "C" int spn_mds_continue_floor(const float* xyz, const float* temp0,
+                                      const int* orig, const float* t, int batch,
+                                      int n, int steps, int cluster, int* out,
+                                      void* stream) {
+  if (!shape_ok(batch, n) || steps < 1 || steps > n || steps > (1 << 14) ||
+      cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster<kFloor, true>({xyz, temp0, orig, t, batch, n, steps, 0, out},
+                                      {cluster, 1}, static_cast<cudaStream_t>(stream));
 }

@@ -30,7 +30,11 @@ Serving mode's arms (the reference's ``SPARENET_FAST_MATH=1`` dispatch,
   prefix with G = 8192 and every bump applied, its picked lanes compacted
   out (stable), then an exact greedy tail of ``tail`` picks on the live
   lanes (``mds_continue``: kernel ``spn_mds_continue``, counted as
-  ``"mds_continue"``; plain version ``mds_continue_plain``);
+  ``"mds_continue"``; plain version ``mds_continue_plain``). The kernel is
+  the greedy kernel's cluster decomposition started from the prefix's
+  densities (``continue_cluster_size`` gives its launch shape,
+  ``mds_continue_floor`` its latency floor, ``mds_continue_partitioned``
+  models it on the CPU for the tests);
 - ``"exact"``: the greedy kernel above, then a gather.
 Their densities and distances stay f32 (the reference's TPU program runs
 these products at its default one-pass bf16, which moves the exp2
@@ -41,6 +45,7 @@ coordinates under fast math are not carried either.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -50,10 +55,15 @@ from .common import check_input, is_cpu, sqdist3
 __all__ = ["minimum_density_sample", "mds_plain", "mds_partitioned",
            "cluster_size", "mds_floor", "STAGE", "gather_points",
            "resolve_impl", "select_smallest", "mds_batched", "mds_hybrid",
-           "mds_continue", "mds_continue_plain", "minimum_density_sample_xyz",
+           "mds_continue", "mds_continue_plain", "mds_continue_partitioned",
+           "continue_cluster_size", "mds_continue_floor",
+           "minimum_density_sample_xyz",
            "compact_live", "batched_terms", "batched_update", "MDS_IMPLS", "BATCH_G", "SCHEDULE", "TAIL"]
 
 _BIG = 1e9
+# the continuation compacts its picked lanes only where every density of
+# temp0 is below this (csrc/mds.cu: a live lane then stays below any pick)
+_LIVE_BELOW = 5e8
 _HEAVY_FROM = 8192  # points at index >= this get 2x density weight
 _TINY = torch.finfo(torch.float32).tiny  # smallest normal f32
 _L2E = 1.4426950408889634
@@ -118,6 +128,38 @@ def _lex_argmin(key: torch.Tensor, idx: torch.Tensor, dim: int):
     return low.squeeze(dim), cand.amin(dim)
 
 
+def _cluster_slots(b: int, n: int, cluster: int, device):
+    """(slot of every point in a [B, C, warps, 32, lanes] layout, that
+    shape)."""
+    cta, thread, lane = _cloud_ids(n, cluster, device)
+    lanes = int(lane.max()) + 1
+    slot = (((cta * (_THREADS // _WARP) + thread // _WARP) * _WARP
+             + thread % _WARP) * lanes + lane)
+    return slot, (b, cluster, _THREADS // _WARP, _WARP, lanes)
+
+
+def _cluster_argmin(key: torch.Tensor, present: torch.Tensor,
+                    slot: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The kernel's argmin of key [B, N] (no NaN) over the present points:
+    each thread the lowest-index minimum of its lanes, then warps, CTAs and
+    the cluster lexicographically on (key, index) -> [B] int64."""
+    b, n = key.shape
+    big = torch.iinfo(torch.int64).max
+    key = torch.where(present, key, float("inf"))
+    ids = torch.where(present, torch.arange(n, device=key.device), big)
+    kk = torch.full((b, math.prod(shape[1:])), float("inf"), dtype=key.dtype,
+                    device=key.device)
+    ii = torch.full(kk.shape, big, dtype=torch.long, device=key.device)
+    kk[:, slot], ii[:, slot] = key, ids
+    kk, ii = kk.view(shape), ii.view(shape)
+    # thread: its lanes ascend in index, strict < keeps the first
+    li = kk.argmin(-1, keepdim=True)
+    kk, ii = kk.gather(-1, li)[..., 0], ii.gather(-1, li)[..., 0]
+    for dim in (3, 2, 1):                          # warp, CTA, cluster
+        kk, ii = _lex_argmin(kk, ii, dim)
+    return ii
+
+
 def mds_partitioned(xyz: torch.Tensor, npoint: int,
                     mean_mst_length: torch.Tensor, cluster: int,
                     stage: int = STAGE) -> torch.Tensor:
@@ -132,13 +174,7 @@ def mds_partitioned(xyz: torch.Tensor, npoint: int,
     dev = xyz.device
     t = _temperature(mean_mst_length).reshape(b, 1)
     weight = torch.where(torch.arange(n, device=dev) >= _HEAVY_FROM, 2.0, 1.0)
-    cta, thread, lane = _cloud_ids(n, cluster, dev)
-    lanes = int(lane.max()) + 1
-    # slot of every point in a [B, C, warps, 32, lanes] layout
-    slot = (((cta * (_THREADS // _WARP) + thread // _WARP) * _WARP
-             + thread % _WARP) * lanes + lane)
-    shape = (b, cluster, _THREADS // _WARP, _WARP, lanes)
-    big = torch.iinfo(torch.int64).max
+    slot, shape = _cluster_slots(b, n, cluster, dev)
     compact = (stage > 0) & torch.isfinite(t[:, 0]) & (t[:, 0] > 0) & \
         torch.isfinite(xyz).flatten(1).all(1)
     present = torch.ones((b, n), dtype=torch.bool, device=dev)
@@ -155,19 +191,7 @@ def mds_partitioned(xyz: torch.Tensor, npoint: int,
         e = torch.exp(-sqdist3(xyz - xyz[rows, last][:, None, :]) / t)
         temp = temp + weight * torch.where(e < _TINY, 0.0, e)
         key = torch.where(temp.isnan(), float("-inf"), temp)
-        key = torch.where(present, key, float("inf"))
-        ids = torch.where(present, torch.arange(n, device=dev), big)
-        kk = torch.full((b, shape[1] * shape[2] * shape[3] * lanes),
-                        float("inf"), device=dev)
-        ii = torch.full(kk.shape, big, dtype=torch.long, device=dev)
-        kk[:, slot], ii[:, slot] = key, ids
-        kk, ii = kk.view(shape), ii.view(shape)
-        # thread: its lanes ascend in index, strict < keeps the first
-        li = kk.argmin(-1, keepdim=True)
-        kk, ii = kk.gather(-1, li)[..., 0], ii.gather(-1, li)[..., 0]
-        for dim in (3, 2, 1):                          # warp, CTA, cluster
-            kk, ii = _lex_argmin(kk, ii, dim)
-        nxt = ii
+        nxt = _cluster_argmin(key, present, slot, shape)
         picked[rows, nxt] = True
         idx[:, j] = nxt.to(torch.int32)
         last = nxt
@@ -377,13 +401,95 @@ def mds_continue_plain(xyz: torch.Tensor, temp0: torch.Tensor,
     return idx
 
 
+def _continue_key(temp: torch.Tensor) -> torch.Tensor:
+    """The continuation's argmin key in float64: NaN below -inf (argmin
+    takes the first NaN before any -inf), -inf below every float."""
+    key = torch.where(temp == float("-inf"), -1e308, temp.double())
+    return torch.where(temp.isnan(), float("-inf"), key)
+
+
+def mds_continue_partitioned(xyz: torch.Tensor, temp0: torch.Tensor,
+                             orig: torch.Tensor, mean_mst_length: torch.Tensor,
+                             steps: int, cluster: int,
+                             stage: int = STAGE) -> torch.Tensor:
+    """The continuation kernel's decomposition in plain PyTorch (for the
+    tests): the lanes spread over ``cluster`` CTAs as the greedy kernel's
+    points (``mds_partitioned``), the state starts at temp0 with no pending
+    bump, the weights come from orig, the argmin is reduced by thread, warp,
+    CTA and cluster on (density, lane) with NaN first, then -inf; the
+    previous pick is pinned lazily; before kernel step s (s = 1 .. steps:
+    output s - 1) with s a multiple of ``stage`` the picked lanes leave,
+    where no density can turn NaN and none of temp0 reaches 5e8 (t finite
+    and > 0, every coordinate finite). Equals ``mds_continue_plain``."""
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    t = _temperature(mean_mst_length).reshape(b, 1)
+    weight = torch.where(orig >= _HEAVY_FROM, 2.0, 1.0)
+    slot, shape = _cluster_slots(b, n, cluster, dev)
+    compact = ((stage > 0) & torch.isfinite(t[:, 0]) & (t[:, 0] > 0)
+               & torch.isfinite(xyz).flatten(1).all(1)
+               & (temp0 < _LIVE_BELOW).all(1))
+    present = torch.ones((b, n), dtype=torch.bool, device=dev)
+    picked = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    temp = temp0.clone()
+    idx = torch.zeros((b, steps), dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+    last = None
+    for j in range(steps):
+        if stage > 0 and (j + 1) % stage == 0:
+            present &= ~(picked & compact[:, None])
+        if last is not None:
+            temp[rows, last] = _BIG                            # the lazy pin
+            e = torch.exp(-sqdist3(xyz - xyz[rows, last][:, None, :]) / t)
+            temp = temp + weight * torch.where(e < _TINY, 0.0, e)
+        nxt = _cluster_argmin(_continue_key(temp), present, slot, shape)
+        picked[rows, nxt] = True
+        idx[:, j] = nxt.to(torch.int32)
+        last = nxt
+    return idx
+
+
+def continue_cluster_size(batch: int, n: int) -> tuple[int, int]:
+    """(C, CTAs an SM): the launch shape the continuation kernel takes for
+    ``batch`` clouds of ``n`` live lanes on the current card."""
+    out = (ctypes.c_int * 2)()
+    _lib.lib().spn_mds_continue_shape(batch, n, out)
+    return out[0], out[1]
+
+
+def _continue_launch(fn, xyz, temp0, orig, mean_mst_length, steps, *extra):
+    b, n, _ = xyz.shape
+    t = _temperature(mean_mst_length.to(torch.float32)).contiguous()
+    out = torch.empty((b, steps), dtype=torch.int32, device=xyz.device)
+    with torch.cuda.device(xyz.device):
+        code = fn(xyz.data_ptr(), temp0.data_ptr(), orig.data_ptr(),
+                  t.data_ptr(), b, n, steps, *extra, out.data_ptr(),
+                  _lib.stream_of(xyz))
+    _lib.check(code, "mds_continue")
+    return out
+
+
+def mds_continue_floor(xyz: torch.Tensor, temp0: torch.Tensor,
+                       orig: torch.Tensor, mean_mst_length: torch.Tensor,
+                       steps: int, cluster: int) -> torch.Tensor:
+    """The continuation kernel's chain of ``steps`` steps at cluster size
+    ``cluster`` with no lane pass (its barriers and record exchanges only),
+    for timing its latency floor; its output is not picks. CUDA only."""
+    return _continue_launch(_lib.lib().spn_mds_continue_floor, xyz.detach(),
+                            temp0.detach(), orig, mean_mst_length.detach(),
+                            steps, cluster)
+
+
 def mds_continue(xyz: torch.Tensor, temp0: torch.Tensor, orig: torch.Tensor,
-                 mean_mst_length: torch.Tensor, steps: int) -> torch.Tensor:
+                 mean_mst_length: torch.Tensor, steps: int, *,
+                 _cluster: int = 0, _stage: int = STAGE) -> torch.Tensor:
     """Greedy MDS continued for ``steps`` picks on live lanes: xyz [B, N, 3],
     temp0 [B, N] f32 densities with every earlier bump applied, orig [B, N]
     int32 original indices (>= 8192: weight 2), mean_mst_length [B] -> lane
     indices [B, steps] int32 (no gradient). Raises at N or steps beyond the
-    kernel's limits; there is no fallback."""
+    kernel's limits; there is no fallback. ``_cluster`` forces the kernel's
+    cluster size and ``_stage`` its compaction period (0: none), for the
+    tests; the picks do not depend on either."""
     xyz, temp0 = xyz.detach(), temp0.detach()
     mean_mst_length = mean_mst_length.detach()
     check_input("mds_continue xyz", xyz, torch.float32, 3, last=3)
@@ -407,13 +513,8 @@ def mds_continue(xyz: torch.Tensor, temp0: torch.Tensor, orig: torch.Tensor,
                          f"{lib.spn_mds_continue_max_points()} and steps <= "
                          f"{lib.spn_mds_continue_max_steps()}, got N={n}, "
                          f"steps={steps}")
-    t = _temperature(mean_mst_length.to(torch.float32)).contiguous()
-    out = torch.empty((b, steps), dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        code = lib.spn_mds_continue(xyz.data_ptr(), temp0.data_ptr(),
-                                    orig.data_ptr(), t.data_ptr(), b, n, steps,
-                                    out.data_ptr(), _lib.stream_of(xyz))
-    _lib.check(code, "mds_continue")
+    out = _continue_launch(lib.spn_mds_continue, xyz, temp0, orig,
+                           mean_mst_length, steps, _cluster, _stage)
     _lib.LAUNCHES["mds_continue"] += 1
     return out
 

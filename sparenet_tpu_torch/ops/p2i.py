@@ -10,7 +10,12 @@ kernel cos(pi r / R) / 2 + 1/2 as the Taylor series ``cos_weight_sq`` in
 background, and on an exact tie the lowest point id wins; ids is -1 where
 nothing won. Points whose image index is outside [0, B) are dropped. On a
 CUDA tensor it launches ``csrc/p2i.cu``; on a CPU tensor it runs
-``p2i_max_plain``.
+``p2i_max_plain``. The kernel bins the points by image tile (``TILE``
+pixels, a counting sort on the card), splats each tile in shared memory
+from work items of about ``ITEM_PIXELS`` window pixels, and merges a tile
+through global memory only where its bin fills more than one item;
+``p2i_tiles_plain`` is that decomposition in plain PyTorch (for the tests;
+no path runs it).
 
 ``p2i_max_zbg(points, feats, binds, b, h, w, radius)`` -> out, differentiable
 in points and feats: a render that is differentiated launches the variant
@@ -40,7 +45,8 @@ from . import _lib
 from .common import check_input, fma, is_cpu, sqrt_ieee
 
 __all__ = ["COS_COEFFS", "cos_weight_sq", "window_size", "p2i_max",
-           "p2i_max_plain", "p2i_max_backward", "p2i_max_backward_plain",
+           "p2i_max_plain", "p2i_tiles_plain", "TILE", "ITEM_PIXELS",
+           "item_entries", "p2i_max_backward", "p2i_max_backward_plain",
            "p2i_max_zbg"]
 
 # cos(pi sqrt(s)) / 2 + 1/2 = 1 + sum_k c_k s^k, c_k = (-1)^k pi^2k / (2 (2k)!),
@@ -50,12 +56,23 @@ COS_COEFFS = tuple(float(np.float32(0.5 * (-1.0) ** k * math.pi ** (2 * k)
                    for k in range(1, 11))
 # plain versions expand at most this many window pixels at once
 _CHUNK_BUDGET = 1 << 23
+# the splat kernel's tiles (rows, columns; columns a multiple of 32) and the
+# window pixels of its work items
+TILE = (32, 128)
+ITEM_PIXELS = 1 << 16
 
 
 def window_size(radius: float) -> int:
     """Side K of the square pixel window a point visits: floor(p - R) ..
     floor(p - R) + K - 1 covers every pixel within R."""
     return 2 * int(math.ceil(radius)) + 2
+
+
+def item_entries(radius: float, tile=TILE, item_pixels: int = ITEM_PIXELS) -> int:
+    """(point, tile) entries a work item of the splat kernel holds: about
+    ``item_pixels`` pixels of windows clipped to a tile."""
+    k = window_size(radius)
+    return max(1, item_pixels // (min(k, tile[0]) * min(k, tile[1])))
 
 
 def cos_weight_sq(s: torch.Tensor) -> torch.Tensor:
@@ -128,9 +145,98 @@ def p2i_max_plain(points, feats, binds, b: int, h: int, w: int, radius: float,
     return out[:n_pix].reshape(b, h, w, 1), ids.reshape(b, h, w, 1)
 
 
+def p2i_tiles_plain(points, feats, binds, b: int, h: int, w: int,
+                    radius: float, with_ids: bool = True, tile=TILE,
+                    per_item: int | None = None, seed: int = 0):
+    """The splat kernel's decomposition in plain PyTorch (for the tests):
+    every (point, tile) pair whose window, clipped to the image, overlaps
+    the tile goes to the tile's bin, in an order drawn from ``seed`` (the
+    kernel's order within a bin is whatever its atomics give); each bin's
+    entries split into work items of ``per_item`` (at least one item a
+    bin, so an empty tile is written too); each item takes the max of the
+    packed keys (value bits << 32 | 0xFFFFFFFF - id, for values > 0) of its
+    entries' windows clipped to its tile; a bin of one item writes its tile,
+    the items of a split bin merge by max first. Pixels start as NaN and -2,
+    so a pixel no tile wrote shows. Equals ``p2i_max_plain``."""
+    th, tw = tile
+    k = window_size(radius)
+    per_item = per_item or item_entries(radius, tile)
+    nty, ntx = -(-h // th), -(-w // tw)
+    nbins = b * nty * ntx
+    # 1. bin: the window's origin floor(p - R), clamped as the kernel does
+    o = torch.floor(points - torch.tensor(radius, dtype=torch.float32))
+    o = torch.where(o.isnan(), float(-k), o)
+    o = torch.minimum(torch.maximum(o, torch.tensor(float(-k))),
+                      torch.tensor([float(h), float(w)])).long()
+    y0, y1 = o[:, 0].clamp_min(0), (o[:, 0] + k).clamp_max(h)
+    x0, x1 = o[:, 1].clamp_min(0), (o[:, 1] + k).clamp_max(w)
+    bi = binds.long()
+    ok = (bi >= 0) & (bi < b) & (y0 < y1) & (x0 < x1)
+    ty0, ty1 = y0 // th, (y1 - 1) // th
+    tx0, tx1 = x0 // tw, (x1 - 1) // tw
+    pid, bins = [], []
+    for dy in range((k - 1) // th + 2):
+        for dx in range((k - 1) // tw + 2):
+            sel = ok & (ty0 + dy <= ty1) & (tx0 + dx <= tx1)
+            pid.append(torch.nonzero(sel)[:, 0])
+            bins.append((bi * nty * ntx + (ty0 + dy) * ntx + tx0 + dx)[sel])
+    pid, bins = torch.cat(pid), torch.cat(bins)
+    # a counting sort: the order within a bin drawn from the seed
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(len(bins), generator=g)
+    pid, bins = pid[perm], bins[perm]
+    order = torch.sort(bins, stable=True).indices
+    pid, bins = pid[order], bins[order]
+    counts = torch.bincount(bins, minlength=nbins)
+    off = torch.cumsum(counts, 0) - counts
+    items = torch.clamp_min(-(-counts // per_item), 1)
+    item_off = torch.cumsum(items, 0) - items
+    rank = torch.arange(len(bins)) - off[bins]
+    item = item_off[bins] + rank // per_item
+    # 2. each item's tile: its entries' windows clipped to the tile
+    keys = torch.zeros((int(items.sum()), th * tw), dtype=torch.int64)
+    tile_y = (bins % (nty * ntx)) // ntx * th
+    tile_x = (bins % ntx) * tw
+    if len(pid):
+        pix, weight, valid = _window(points[pid], radius, h, w)
+        py, px = pix // w, pix % w
+        valid = (valid & (py >= tile_y[:, None, None])
+                 & (py < tile_y[:, None, None] + th)
+                 & (px >= tile_x[:, None, None])
+                 & (px < tile_x[:, None, None] + tw))
+        wv = weight * feats[pid, 0, None, None]
+        valid = valid & (wv > 0)
+        bits = wv.contiguous().view(torch.int32).long()
+        key = (bits << 32) | (0xFFFFFFFF - pid[:, None, None])
+        local = ((py - tile_y[:, None, None]) * tw
+                 + px - tile_x[:, None, None])
+        slot = item[:, None, None] * (th * tw) + local
+        keys.view(-1).scatter_reduce_(0, slot[valid], key[valid], reduce="amax",
+                                      include_self=True)
+    # 3. a bin of one item writes its tile; a split bin's items merge first
+    merged = torch.zeros((nbins, th * tw), dtype=torch.int64)
+    item_bin = torch.repeat_interleave(torch.arange(nbins), items)
+    merged.scatter_reduce_(0, item_bin[:, None].expand_as(keys), keys, "amax",
+                           include_self=True)
+    out = torch.full((b, h, w), float("nan"))
+    ids = torch.full((b, h, w), -2, dtype=torch.int32)
+    for t in range(nbins):
+        img, r = divmod(t, nty * ntx)
+        ys, xs = (r // ntx) * th, (r % ntx) * tw
+        ye, xe = min(ys + th, h), min(xs + tw, w)
+        kt = merged[t].view(th, tw)[:ye - ys, :xe - xs]
+        out[img, ys:ye, xs:xe] = (kt >> 32).to(torch.int32).view(torch.float32)
+        ids[img, ys:ye, xs:xe] = torch.where(
+            kt != 0, 0xFFFFFFFF - (kt & 0xFFFFFFFF), -1).to(torch.int32)
+    return out[..., None], (ids[..., None] if with_ids else None)
+
+
 def p2i_max(points, feats, binds, b: int, h: int, w: int, radius: float,
-            with_ids: bool = True):
-    """(out, ids or None); see the module docstring."""
+            with_ids: bool = True, *, _tile=TILE,
+            _item_pixels: int = ITEM_PIXELS):
+    """(out, ids or None); see the module docstring. ``_tile`` and
+    ``_item_pixels`` set the kernel's tile and work-item size, for the tests
+    and for tuning; the result does not depend on them."""
     points, feats = points.detach(), feats.detach()
     check_input("p2i points", points, torch.float32, 2, last=2)
     check_input("p2i feats", feats, torch.float32, 2, last=1)
@@ -146,17 +252,27 @@ def p2i_max(points, feats, binds, b: int, h: int, w: int, radius: float,
     if points.shape[0] >= 2**31 or b * h * w >= 2**31:
         raise ValueError("p2i: more than 2^31 points or pixels")
     dev = points.device
+    lib = _lib.lib()
+    k = window_size(radius)
+    th, tw = _tile
+    n_scratch = lib.spn_p2i_scratch_ints(points.shape[0], b, h, w, k, th, tw)
+    if n_scratch < 0:
+        raise ValueError(f"p2i: the kernel refuses tiles {_tile} for "
+                         f"{points.shape[0]} points, images {b} x {h} x {w}, "
+                         f"radius {radius}")
     out = torch.empty((b, h, w, 1), dtype=torch.float32, device=dev)
-    ids = packed = None
+    scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+    ids = merge = None
     if with_ids:
         ids = torch.empty((b, h, w, 1), dtype=torch.int32, device=dev)
-        packed = torch.empty((b * h * w,), dtype=torch.int64, device=dev)
+        merge = torch.empty((b * h * w,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        code = _lib.lib().spn_p2i_max(
+        code = lib.spn_p2i_max(
             points.data_ptr(), feats.data_ptr(), binds.data_ptr(),
-            points.shape[0], b, h, w, float(radius), window_size(radius),
-            out.data_ptr(), ids.data_ptr() if with_ids else None,
-            packed.data_ptr() if with_ids else None, _lib.stream_of(points))
+            points.shape[0], b, h, w, float(radius), k, th, tw,
+            item_entries(radius, _tile, _item_pixels), out.data_ptr(),
+            ids.data_ptr() if with_ids else None, scratch.data_ptr(),
+            merge.data_ptr() if with_ids else None, _lib.stream_of(points))
     _lib.check(code, "p2i_max")
     _lib.LAUNCHES["p2i"] += 1
     return out, ids

@@ -519,6 +519,54 @@ def test_p2i_kernel_matches_plain(cuda, radius, h, w):
             assert got[1] is None
 
 
+def _crowded(g, b, h, w):
+    """A crowded tile: 4000 points within 6 pixels of one spot of image 0
+    (its bin splits over many work items), among 500 an image elsewhere."""
+    pts, f, binds = _splat_case(g, b, 500, h, w)
+    crowd = torch.rand(4000, 2, generator=g) * 6 + torch.tensor([h / 3, w / 2])
+    crowd[:500] = crowd[500:1000]
+    return (torch.cat([pts, crowd]),
+            torch.cat([f, torch.rand(4000, 1, generator=g)]),
+            torch.cat([binds, torch.zeros(4000, dtype=torch.int32)]))
+
+
+@pytest.mark.parametrize("radius", [4.5, 5.0, 7.0, 10.0])
+@pytest.mark.parametrize("case", ["grouped", "scrambled", "crowded", "64 points"])
+def test_p2i_tiles_match_plain(cuda, radius, case):
+    """Values and winner ids bit for bit, with and without ids, at the
+    kernel's tiles and work items and at small ones (16 x 32 tiles,
+    windows wider than a tile at R = 10, 512 window pixels an item: most
+    bins split): image-major binds, scrambled binds (invalid ones
+    included), a crowded tile, and 64 points."""
+    g = _gen()
+    b, h, w = 4, 256, 256
+    if case == "crowded":
+        pts, f, binds = _crowded(g, b, h, w)
+    else:
+        pts, f, binds = _splat_case(g, b, 16 if case == "64 points" else 3000, h, w)
+    if case == "scrambled":
+        binds = binds[torch.randperm(len(binds), generator=g)].contiguous()
+        binds[::17] = torch.tensor([-1, b], dtype=torch.int32).repeat(
+            (len(binds[::17]) + 1) // 2)[:len(binds[::17])]
+    pts, f, binds = (t.to(cuda) for t in (pts, f, binds))
+    for with_ids in (True, False):
+        want = p2i.p2i_max_plain(pts, f, binds, b, h, w, radius, with_ids)
+        for tile, item in ((p2i.TILE, p2i.ITEM_PIXELS), ((16, 32), 512)):
+            got = p2i.p2i_max(pts, f, binds, b, h, w, radius, with_ids,
+                              _tile=tile, _item_pixels=item)
+            assert torch.equal(got[0], want[0]), (tile, with_ids)
+            if with_ids:
+                assert torch.equal(got[1], want[1]), tile
+
+
+def test_p2i_no_points(cuda):
+    """No points: a zero image and ids -1 (every tile is written)."""
+    z = torch.zeros(0, 2, device=cuda)
+    out, ids = p2i.p2i_max(z, z[:, :1], torch.zeros(0, dtype=torch.int32,
+                                                     device=cuda), 2, 40, 70, 5.0)
+    assert not bool(out.any()) and bool((ids == -1).all())
+
+
 def test_gan_step_launches_every_kernel(cuda, monkeypatch):
     """A small GAN step on the card (B=2, img 64) launches each kernel of the
     step, p2i three times and its backward once, and runs no plain version;
@@ -613,6 +661,68 @@ def test_mds_continue_kernel_lowest_lane_on_ties(cuda):
     got = mds.mds_continue(xyz, temp, orig, mml, 64)
     assert torch.equal(got, mds.mds_continue_plain(xyz, temp, orig, mml, 64))
     assert got[0].tolist() == list(range(64))
+
+
+@pytest.mark.parametrize("n,npick,steps,b", [(19384, 14336, 2048, 4),
+                                             (3000, 1000, 700, 2),
+                                             (30000, 2000, 1000, 1)])
+def test_mds_continue_every_cluster_size_and_stage(cuda, n, npick, steps, b):
+    """Every cluster size C = 1..16 that holds the lanes, with compaction
+    every 1024 and 96 steps and none, picks bit for bit what the plain
+    version picks, on prefix states with duplicated points (exact ties;
+    28000 lanes need C >= 2); so does the shape the wrapper chooses."""
+    gen = _gen()
+    half = torch.rand(b, n // 2, 3, generator=gen) - 0.5
+    xyz = torch.cat([half, half[:, :n - n // 2]], 1).contiguous().to(cuda)
+    mml = (0.004 + 0.01 * torch.rand(b, generator=gen)).to(cuda)
+    xc, tc, orig = _prefix_state(xyz, mml, npick, 8192)
+    want = mds.mds_continue_plain(xc, tc, orig, mml, steps)
+    first = 1 if xc.shape[1] <= 20480 else 2
+    for c in range(first, 17):
+        for stage in (1024, 96, 0):
+            got = mds.mds_continue(xc, tc, orig, mml, steps, _cluster=c,
+                                   _stage=stage)
+            assert torch.equal(got, want), (c, stage)
+    c, per_sm = mds.continue_cluster_size(b, xc.shape[1])
+    assert first <= c <= 16 and per_sm in (1, 2)
+    assert torch.equal(mds.mds_continue(xc, tc, orig, mml, steps), want)
+
+
+def test_mds_continue_nan_inf_and_zero_temperature(cuda):
+    """t = 0, a NaN, -inf, -0, 1e9 and inf in temp0: compaction stays off
+    where it must, and every C equals the plain version (picks repeat
+    where a picked lane wins again)."""
+    g = _gen()
+    xyz = torch.rand(4, 3000, 3, generator=g) - 0.5
+    xyz[0, 1000:1100] = xyz[0, :100]
+    temp = torch.rand(4, 3000, generator=g) * 0.01 + 1e-3
+    temp[1, 77], temp[1, 5] = float("nan"), float("-inf")
+    temp[2, 300:] = float("inf")
+    temp[2, 200:300] = 1e9
+    temp[3, 60], temp[3, 40] = -0.0, 0.0
+    orig = torch.arange(7000, 10000, dtype=torch.int32).repeat(4, 1)
+    xyz, temp, orig = (t.contiguous().to(cuda) for t in (xyz, temp, orig))
+    mml = torch.tensor([0.0, 0.01, 0.01, 0.01], device=cuda)
+    want = mds.mds_continue_plain(xyz, temp, orig, mml, 400)
+    assert want[1, :2].tolist() == [77, 5] and int(want[3, 0]) == 40
+    for c in (1, 3, 16):
+        got = mds.mds_continue(xyz, temp, orig, mml, 400, _cluster=c, _stage=16)
+        assert torch.equal(got, want), c
+
+
+@pytest.mark.parametrize("c", [1, 4, 16])
+def test_mds_continue_floor_runs(cuda, c):
+    """The continuation's latency floor launches at each cluster size and
+    writes a lane index for every step."""
+    g = _gen()
+    xyz = (torch.rand(4, 5048, 3, generator=g) - 0.5).to(cuda)
+    temp = torch.zeros(4, 5048, device=cuda)
+    orig = torch.arange(5048, dtype=torch.int32, device=cuda).repeat(4, 1)
+    out = mds.mds_continue_floor(xyz, temp, orig, torch.full((4,), 0.01,
+                                                             device=cuda), 512, c)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 512)
+    assert bool(((out >= 0) & (out < 5048)).all())
 
 
 @pytest.mark.parametrize("radius", [5.0, 7.0, 10.0, 2.5])

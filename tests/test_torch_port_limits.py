@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from sparenet_tpu_torch.ops import (_lib, edge_gather, expansion_penalty,
-                                    gather, knn, mds)
+                                    gather, knn, mds, p2i)
 
 
 def _constants(source: str) -> dict:
@@ -27,7 +27,7 @@ def _capacities() -> dict:
     m, e = _constants("mds.cu"), _constants("expansion.cu")
     return {"spn_gather_rows_per_block": _constants("gather_max.cu")["kRows"],
             "spn_mds_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
-            "spn_mds_continue_max_points": m["kContMaxLanes"] * m["kThreads"],
+            "spn_mds_continue_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
             "spn_mds_continue_max_steps": 1 << 14,
             "spn_expansion_max_points": e["kMaxV"] * e["kMaxS"]}
 
@@ -59,7 +59,7 @@ def kernels(monkeypatch):
     monkeypatch.setattr(_lib, "device_counter",
                         lambda name, dev: torch.zeros(1, dtype=torch.int64))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    for mod in (mds, expansion_penalty, gather, edge_gather, knn):
+    for mod in (mds, expansion_penalty, gather, edge_gather, knn, p2i):
         monkeypatch.setattr(mod, "is_cpu", lambda t: False)
     return fake
 
@@ -82,6 +82,32 @@ def test_mds_continue_takes_past_5120_lanes(kernels):
     mds.mds_continue(xyz, temp, orig, torch.ones(1), 300)
     (args,) = _launched(kernels, "spn_mds_continue")
     assert args[4:7] == (1, 20000, 300)
+
+
+def test_mds_continue_takes_past_20480_lanes(kernels):
+    """On a cluster the continuation takes what the greedy kernel takes:
+    C x 20480 lanes, and the cluster size and compaction period are passed
+    on."""
+    xyz, temp = torch.zeros(2, 100000, 3), torch.zeros(2, 100000)
+    orig = torch.zeros(2, 100000, dtype=torch.int32)
+    mds.mds_continue(xyz, temp, orig, torch.ones(2), 2048, _cluster=8, _stage=0)
+    (args,) = _launched(kernels, "spn_mds_continue")
+    assert args[4:9] == (2, 100000, 2048, 8, 0)
+    assert kernels.caps["spn_mds_continue_max_points"] >= 16 * 20480
+
+
+@pytest.mark.parametrize("tile,radius", [((32, 128), 10.0), ((8, 32), 40.0)])
+def test_p2i_takes_any_radius_and_tile(kernels, tile, radius):
+    """Windows wider than a tile (a point in up to 36 tiles) and any image
+    size: the wrapper hands the kernel the tile, the window and the
+    entries an item."""
+    pts, f = torch.zeros(1000, 2), torch.zeros(1000, 1)
+    binds = torch.zeros(1000, dtype=torch.int32)
+    p2i.p2i_max(pts, f, binds, 3, 300, 77, radius, True, _tile=tile)
+    (args,) = _launched(kernels, "spn_p2i_max")
+    assert args[3:7] == (1000, 3, 300, 77)
+    assert args[8:12] == (p2i.window_size(radius), *tile,
+                          p2i.item_entries(radius, tile))
 
 
 def test_expansion_takes_s_past_1024(kernels):
