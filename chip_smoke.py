@@ -45,16 +45,23 @@ Phases, each printing a flushed line with its elapsed seconds:
      backward) against its plain version on random inputs at the shapes the
      flagship training step gives it, ties included; the bids also at full
      width with the counts on the card (u = 1, 37, 8908, 16384 bidders),
-     with the kernel's plan (bidder tiles, object chunks) at each u;
+     with the kernel's plan (bidder tiles, object chunks) at each u; the NN
+     also at N2 = 1, 2047, 2049 and 16384 with duplicated points, a NaN
+     query and a NaN candidate, with its candidate split count; the
+     edge-stats kernels at C = 256, 512, 1024 and 3, at k = 16 and 20 (wide
+     route codes) and at N = 4000, with where the backward built its
+     inverse lists (shared or device memory);
   8. the second main path: one flagship training step (the same model and
      widths, EMD + consistency-Chamfer loss, Adam) at B=4 through
      ``runners.sparenet.train_step``, counts set to 0 just before and read
      just after: every kernel of the step launched, no plain version ran;
   9. each training kernel on the very inputs the step gave it: outputs
      against the plain version's, kernel, plain and library times summed
-     over the step's calls; the bids' plan at the smallest and largest u of
-     the step's rounds (the rounds run at full width, no host read a
-     round);
+     over the step's calls; the edge-stats backward by part (route codes,
+     inverse lists, accumulation; device time by torch.profiler) and the
+     NN's candidate splits, both also in the kernels line; the bids' plan
+     at the smallest and largest u of the step's rounds (the rounds run at
+     full width, no host read a round);
  10. the kernel step against a plain step on the card that replays its kNN
      graphs and MDS picks, both in deterministic mode: loss and every
      gradient leaf, and two perturbed-op controls the check must catch;
@@ -97,7 +104,10 @@ Phases, each printing a flushed line with its elapsed seconds:
      each MDS arm, batched, hybrid and exact, counts set to 0 just before
      and read just after: packed kNN 4, gather-max 4, MDS 2 (exact) or the
      continuation 2 (hybrid), no expansion, no plain version; the packed
-     kNN queries flagged for the exact scan;
+     kNN queries flagged for the exact scan; then the forward as
+     ``build_generator(serving=True)`` builds it, its MDS arm left at the
+     default "auto": it must run the exact arm (MDS #4 twice, no
+     continuation, no batched round), as the JAX package off the TPU;
  19. each serving kernel on the hybrid forward's own inputs (times and
      flagged kNN queries, as phase 4; the continuation at every C =
      1..16 and its latency floor: an empty step in us at the chosen C and
@@ -109,7 +119,7 @@ Phases, each printing a flushed line with its elapsed seconds:
      time on its own inputs, one profiled forward for batched and hybrid,
      each kNN call of the batched forward timed beside its library call,
      and the batched forward on zero-padded clouds with its flagged kNN
-     queries.
+     queries; the arm the default serving forward took (phase 18).
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -248,6 +258,10 @@ KNN_KERNELS = ("knn_prepass", "knn_dedup", "knn_mma", "knn_rerank", "knn_scan")
 # the split tiles' prepare and finish passes, the backward
 P2I_KERNELS = ("bin_kernel", "bin_scan_kernel", "tile_splat_kernel",
                "split_prepare_kernel", "split_finish_kernel", "p2i_bwd_kernel")
+# csrc/edge_stats.cu's backward by part: the route codes, the inverse lists,
+# the ordered accumulation
+EDGE_BWD_PARTS = {"route": ("route_kernel",), "lists": ("lists_kernel",),
+                  "accum": ("accum_kernel",)}
 # csrc/mds.cu's cluster kernel in its continuation mode (kPicks, kCont)
 CONTINUE_KERNEL = ", 0, true>("
 # each path's end-to-end time, printed on one line ("paths {...}") so that
@@ -835,6 +849,19 @@ def _dup_cloud(gen, b, n):
     return torch.cat([half, half.flip(1)], 1)
 
 
+def nn_edge_inputs(gen, b, n1, n2):
+    """x1 [b, n1] and x2 [b, n2]: half of x2 repeated (exact ties), the
+    first queries on candidates, a NaN query and a NaN candidate."""
+    x2 = torch.rand(b, n2, 3, generator=gen) - 0.5
+    h = n2 // 2
+    x2[:, h:2 * h] = x2[:, :h].flip(1)
+    x1 = torch.rand(b, n1, 3, generator=gen) - 0.5
+    x1[:, :8] = x2[:, :8].flip(1)
+    x1[0, 9] = float("nan")
+    x2[-1, n2 // 3] = float("nan")
+    return x1, x2
+
+
 def check_random_train(gen, dev) -> dict:
     """Returns each training kernel's largest error over its checks."""
     errs = dict.fromkeys(TRAIN_OPS, 0.0)
@@ -866,21 +893,34 @@ def check_random_train(gen, dev) -> dict:
                     f"{count.tolist()}, grid {emd.bids_plan(b, N_OUT, N_OUT, u)}",
                     compare_exact(emd.emd_bids(x1, x2, price, count),
                                   emd.emd_bids_plain(x1, x2, price, count)))
+    for n2 in (1, 2047, 2049, N_OUT):     # around a tile, one point, the step's
+        x1, x2 = (t.to(dev) for t in nn_edge_inputs(gen, b, N_OUT, n2))
+        verdict("nn_idx", f"[{b}, {N_OUT}] x [{b}, {n2}], duplicated points, a "
+                f"NaN query and a NaN candidate, "
+                f"{chamfer_op.nn_splits(b, N_OUT, n2)} candidate splits",
+                compare_exact(chamfer_op.nn_idx(x1, x2),
+                              chamfer_op.nn_idx_plain(x1, x2)))
     n = N_INPUT_POINTS
-    for c in (256, 1024):
-        table = torch.randn(b, n, c, generator=gen)
+    for c, k, rows in ((256, K, n), (512, K, n), (1024, K, n), (3, K, n),
+                       (256, 16, n), (256, 20, n), (256, K, 4000)):
+        table = torch.randn(b, rows, c, generator=gen)
         table[:, 1] = table[:, 0]                   # equal rows
-        idx = torch.randint(0, n, (b, n, K), generator=gen, dtype=torch.int32)
-        idx[:, :, K - 1] = idx[:, :, 0]             # equal slots
-        idx[:, :4] = torch.arange(K, dtype=torch.int32) % 2
+        idx = torch.randint(0, rows, (b, rows, k), generator=gen, dtype=torch.int32)
+        idx[:, :, k - 1] = idx[:, :, 0]             # equal slots
+        idx[:, :4] = torch.arange(k, dtype=torch.int32) % 2
         table, idx = table.to(dev), idx.to(dev)
         outs = edge_gather.edge_stats_fwd(table, idx)
-        verdict("edge_stats_fwd", f"C={c}", compare_exact(
+        what = f"[{b}, {rows}, {c}], k={k}"
+        verdict("edge_stats_fwd", what, compare_exact(
             outs, edge_gather.edge_stats_fwd_plain(table, idx)))
-        grads = [torch.randn(b, n, c, generator=gen).to(dev) for _ in range(4)]
-        verdict("edge_stats_bwd", f"C={c}", compare_exact(
-            edge_gather.edge_stats_bwd(table, idx, outs[0], outs[1], *grads),
-            edge_gather.edge_stats_bwd_plain(table, idx, outs[0], outs[1], *grads)))
+        grads = [torch.randn(b, rows, c, generator=gen).to(dev) for _ in range(4)]
+        lists = ("shared" if edge_gather.lists_scratch_ints(b, rows, rows, k) == 0
+                 else "device")
+        verdict("edge_stats_bwd", f"{what}, inverse lists in {lists} memory",
+                compare_exact(
+                    edge_gather.edge_stats_bwd(table, idx, outs[0], outs[1], *grads),
+                    edge_gather.edge_stats_bwd_plain(table, idx, outs[0], outs[1],
+                                                     *grads)))
     return errs
 
 
@@ -1035,11 +1075,9 @@ def compare_steps(state, partial, gt, calls, dev) -> None:
 _TRAIN_GROUPS = (("mds", ("mds_cluster_kernel",)),
                  ("emd_bids", ("bids_kernel", "bids_merge_kernel")),
                  ("knn", KNN_KERNELS),
-                 ("nn_idx", ("::nn_kernel",)),
+                 ("nn_idx", ("nn_split_kernel", "nn_merge_kernel")),
                  ("p2i", P2I_KERNELS),
-                 ("edge_stats", ("stats_fwd_kernel", "route_kernel", "count_kernel",
-                                 "scan_kernel", "fill_kernel", "sort_kernel",
-                                 "accum_kernel")),
+                 ("edge_stats", ("stats_fwd_kernel",) + sum(EDGE_BWD_PARTS.values(), ())),
                  ("expansion", ("expansion_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
                  ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
@@ -1072,6 +1110,29 @@ def profile_step(run, b: int) -> None:
         log(f"    {g:12s} {ms:9.2f} ms  {100 * ms / busy:5.1f}% of busy")
     for key, ms, n in sorted(kernels, key=lambda k: -k[1])[:15]:
         log(f"    {ms:9.2f} ms  x{n:<5d} {key[:110]}")
+
+
+def kernel_parts(calls, name: str, groups: dict, reps: int = 5) -> dict:
+    """Device ms of each group of a wrapper's kernels (by kernel name),
+    summed over the recorded calls, by torch.profiler over ``reps`` launches
+    a call after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    tot = dict.fromkeys(groups, 0.0)
+    for args, kw, _ in calls:
+        KERNEL[name](*args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                KERNEL[name](*args, **kw)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            g = next((g for g, pats in groups.items()
+                      if any(p in e.key for p in pats)), None)
+            if g:
+                tot[g] += e.self_device_time_total / 1e3 / reps
+    if not sum(tot.values()):
+        fail(f"the profiler saw no device time in {name}'s kernels")
+    return tot
 
 
 def timed_steps(run, n: int = 3) -> float:
@@ -1158,6 +1219,18 @@ def main_train(model_state, dev) -> tuple[dict, dict, dict]:
 
     log("phase 9: each training kernel on the inputs the step gave it")
     rows = check_forward_calls(calls, errs, TRAIN_OPS, "step")
+    parts = kernel_parts(calls["edge_stats_bwd"], "edge_stats_bwd", EDGE_BWD_PARTS)
+    rows["edge_stats_bwd"]["parts_ms"] = parts
+    log(f"  edge_stats_bwd by part over the step's "
+        f"{len(calls['edge_stats_bwd'])} calls (device ms, torch.profiler): "
+        + ", ".join(f"{p} {v:.4f}" for p, v in parts.items()) + "; inverse "
+        "lists in " + ", ".join(
+            "shared" if edge_gather.lists_scratch_ints(
+                a[0].shape[0], a[0].shape[1], a[1].shape[1], a[1].shape[2]) == 0
+            else "device" for a, _, _ in calls["edge_stats_bwd"]) + " memory")
+    rows["nn_idx"]["splits"] = [chamfer_op.nn_splits(
+        a[0].shape[0], a[0].shape[1], a[1].shape[1]) for a, _, _ in calls["nn_idx"]]
+    log(f"  nn_idx candidate splits a call: {rows['nn_idx']['splits']}")
     us = [int(a[3].max()) for a, _, _ in calls["emd_bids"]]
     b, m = calls["emd_bids"][0][0][0].shape[:2]
     log(f"  emd_bids grid: {len(us)} calls, u from {min(us)} to {max(us)} "
@@ -1796,6 +1869,36 @@ def serving_forward(state, arm, partial, dev):
     return model, outs, calls, launches
 
 
+def serving_default(state: dict, partial, dev) -> str:
+    """Phase 18: the serving forward as ``build_generator(serving=True)``
+    builds it, its MDS arm left at the default; the arm it ran, read from
+    what it launched: greedy MDS #4 twice, no continuation #5 and no batched
+    round is the exact arm."""
+    model = build_generator(seed=0, device="cpu", serving=True)
+    model.load_state_dict(state)
+    model = model.to(dev).eval()
+    rounds = [0]
+    batched = mds.mds_batched
+
+    def counted(*args, **kw):
+        rounds[0] += 1
+        return batched(*args, **kw)
+    with patched((mds, "mds_batched", counted)):
+        _lib.reset_counts()
+        complete(model, partial)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+    took = ("hybrid" if launches["mds_continue"] else "batched" if rounds[0]
+            else "exact" if launches["mds"] == 2 else "none of the three")
+    log(f"  default arm (build_generator(serving=True), mds not given): MDS "
+        f"#4 {launches['mds']} launches, continuation #5 "
+        f"{launches['mds_continue']}, batched MDS calls {rounds[0]}: the "
+        f"{took} arm, as the JAX package resolves \"auto\" off the TPU")
+    if took != "exact":
+        fail(f"the default serving forward took the {took} MDS arm, not exact")
+    return took
+
+
 def compare_serving(model, partial, calls, outs, arm) -> None:
     """Phase 19, one arm: the plain serving forward replaying the kernel
     forward's kNN graphs and MDS picks."""
@@ -1851,6 +1954,7 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
     log(f"phase 18: the serving forward, {N_INPUT_POINTS} -> {N_OUT} at "
         f"B={B_CHECK}, in each MDS arm {SERVING_ARMS}")
     runs = {arm: serving_forward(state, arm, partial, dev) for arm in SERVING_ARMS}
+    PATHS["serving_default_arm"] = serving_default(state, partial, dev)
 
     log("phase 19: the kernel serving forward against the plain one")
     model, outs, calls, _ = runs["hybrid"]
@@ -1923,7 +2027,9 @@ def serving_throughput(state: dict, parity_state: dict, gen, dev) -> None:
     log(f"  B={B_BENCH} on {nvidia_smi()}: parity {ms['parity']:.1f} ms "
         f"({B_BENCH / (ms['parity'] / 1e3):.2f} clouds/s), "
         + ", ".join(f"{a} {ms[a]:.1f} ms ({ms['parity'] / ms[a]:.3f}x)"
-                    for a in SERVING_ARMS))
+                    for a in SERVING_ARMS)
+        + f"; the default serving forward runs the "
+        f"{PATHS.get('serving_default_arm')} arm (phase 18)")
 
 
 def main() -> int:
@@ -2096,8 +2202,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "state": "ported"})
-        if "latency_floor_ms" in r:
-            kernels[-1]["latency_floor_ms"] = r["latency_floor_ms"]
+        for key in ("latency_floor_ms", "parts_ms", "splits"):
+            if key in r:
+                kernels[-1][key] = r[key]
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

@@ -1,5 +1,5 @@
-"""Time the greedy-MDS, auction-bid, expansion, edge-stats, continuation and
-p2i kernels of one copy of the PyTorch/CUDA port, for an A/B of two commits
+"""Time the greedy-MDS, auction-bid, expansion, edge-stats, chamfer-NN,
+continuation and p2i kernels of one copy of the PyTorch/CUDA port, for an A/B of two commits
 on one card:
 
     git archive PARENT | tar -x -C _archive/a     # and the change in _archive/c
@@ -14,7 +14,11 @@ ellipsoid shell (mml 0.01), and, where the copy has them, the cluster size
 chosen and the latency floor in us a step at C = 1, 3, 16; then the
 kernels at the main paths' shapes: expansion on [128, 512, 3], gather-max
 with sums on [4, 3000, 256] and [4, 3000, 1024] and the edge-stats
-forward and backward on [4, 3000, 256] at k = 8, the MDS continuation on [4, 5048]
+forward on [4, 3000, 256] and the backward on [4, 3000, 256], [4, 3000,
+1024], [24, 3000, 256] and [24, 3000, 1024] at k = 8, each with its parts
+(route codes, inverse lists, accumulation: device ms by torch.profiler),
+the chamfer NN on [4, 16384] x [4, 16384] and [24, 16384] x [24, 16384],
+the MDS continuation on [4, 5048]
 and [32, 5048] live lanes for 2048 steps (and, where the copy has it, its
 latency floor at the chosen cluster size); and the p2i splat at the B=4
 GAN step's three shapes (4 clouds x 8 views of 16384, 16384 and 3000
@@ -30,14 +34,40 @@ sys.path.insert(0, sys.argv[1])
 import torch  # noqa: E402
 
 from sparenet_tpu_torch.models import set_parity_mode  # noqa: E402
-from sparenet_tpu_torch.ops import (_lib, edge_gather, emd,  # noqa: E402
-                                    expansion_penalty, gather, mds, p2i)
+from sparenet_tpu_torch.ops import (_lib, chamfer, edge_gather,  # noqa: E402
+                                    emd, expansion_penalty, gather, mds, p2i)
 from sparenet_tpu_torch.renderer import ComputeDepthMaps  # noqa: E402
 
 set_parity_mode()
 _lib.lib()
 dev = torch.device("cuda")
 g = torch.Generator().manual_seed(0)
+
+
+# the edge-stats backward's parts, by kernel name: the route codes, the
+# inverse lists (with their memsets) and the ordered accumulation
+EDGE_BWD_PARTS = {"route": ("route_kernel",),
+                  "lists": ("lists_kernel", "count_kernel", "scan_kernel",
+                            "fill_kernel", "sort_kernel", "memset"),
+                  "accum": ("accum_kernel",)}
+
+
+def parts_ms(fn, groups, reps=5):
+    """Device ms a call of each group of kernels (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    got = dict.fromkeys(groups, 0.0)
+    for e in prof.key_averages():
+        name = next((k for k, pats in groups.items()
+                     if any(p in e.key.lower() for p in pats)), None)
+        if name:
+            got[name] += e.self_device_time_total / 1e3 / reps
+    return got
 
 
 def ms(fn, reps=5):
@@ -91,9 +121,23 @@ out["gather_max"] = ms(lambda: gather.gather_max(t, idx, need_sum=True), reps=20
 t4 = torch.randn(4, 3000, 1024, generator=g).to(dev)
 out["gather_max_1024"] = ms(lambda: gather.gather_max(t4, idx, need_sum=True), reps=100)
 out["edge_fwd"] = ms(lambda: edge_gather.edge_stats_fwd(t, idx), reps=200)
-mx, mn, _, _ = edge_gather.edge_stats_fwd(t, idx)
-gs = [torch.randn(4, 3000, 256, generator=g).to(dev) for _ in range(4)]
-out["edge_bwd"] = ms(lambda: edge_gather.edge_stats_bwd(t, idx, mx, mn, *gs), reps=50)
+for b in (4, 24):
+    idx = torch.randint(0, 3000, (b, 3000, 8), generator=g,
+                        dtype=torch.int32).to(dev)
+    for c in (256, 1024):
+        tb = torch.randn(b, 3000, c, generator=g).to(dev)
+        mx, mn, _, _ = edge_gather.edge_stats_fwd(tb, idx)
+        gs = [torch.randn(b, 3000, c, generator=g).to(dev) for _ in range(4)]
+        key = "edge_bwd" + ("" if (b, c) == (4, 256) else f"_b{b}_c{c}")
+        call = lambda: edge_gather.edge_stats_bwd(tb, idx, mx, mn, *gs)  # noqa: E731
+        out[key] = ms(call, reps=20)
+        for part, v in parts_ms(call, EDGE_BWD_PARTS).items():
+            out[f"{key}_{part}"] = v
+        del tb, mx, mn, gs
+for b in (4, 24):
+    x1 = (torch.rand(b, 16384, 3, generator=g) - 0.5).to(dev)
+    x2 = (torch.rand(b, 16384, 3, generator=g) - 0.5).to(dev)
+    out[f"nn_b{b}"] = ms(lambda: chamfer.nn_idx(x1, x2), reps=10)
 xc = (torch.rand(4, 5048, 3, generator=g) - 0.5).to(dev)
 tc = (torch.rand(4, 5048, generator=g) * 0.01).to(dev)
 oc = torch.arange(4 * 5048, dtype=torch.int32).reshape(4, 5048).to(dev) + 8000

@@ -61,8 +61,9 @@ def build_generator(*, seed: int = 0, device=None, serving: bool = False,
 
     ``serving=True`` builds the reference's serving mode (``bench.py``'s
     default: ``SPARENET_FAST_MATH=1`` with bf16 matmuls) with the MDS arm
-    ``mds`` ("auto" = "batched", "hybrid" or "exact") and the mml estimate's
-    ``mml_calibration``; the batched arms' G, schedule and tail default to
+    ``mds`` ("auto" = "exact", as the reference resolves it off the TPU;
+    "batched" or "hybrid") and the mml estimate's ``mml_calibration``; the
+    batched arms' G, schedule and tail default to
     the reference's (``mds_g``, ``mds_schedule``, ``mds_tail`` override
     them). The same parameters serve both modes."""
     dev = resolve_device(device)

@@ -5,8 +5,8 @@ Parity mode by default; ``serving=True`` is the reference's serving mode
 (``SPARENET_FAST_MATH=1`` in eval, as ``bench.py`` runs it): packed-key kNN
 graphs, bf16 activation chains (models/layers.py), the NN-mean mml estimate
 in place of the expansion penalty (``loss_mst`` = 0), and the MDS arm
-``mds`` ("auto" = "batched", "hybrid" or "exact"; ops/mds.py) returning
-its selected rows, the flag channel being index math. Serving applies in
+``mds`` ("auto" = "exact" as off the TPU, "batched" or "hybrid"; ops/mds.py)
+returning its selected rows, the flag channel being index math. Serving applies in
 eval mode only; a serving model in train mode runs the parity training
 path, as in the reference. ``use_adain="share"`` and
 ``encode="Residualnet"`` only; the other decoder and encoder arms wait for a

@@ -5,8 +5,12 @@ of sparenet_tpu/ops/chamfer.py and ops/pallas/chamfer_pallas.py).
 nearest row of x2 for each row of x1 by squared distance from coordinate
 differences, lowest index on ties (the TPU kernel's semantics; the JAX
 package's CPU path uses the |x|^2 + |y|^2 - 2xy expansion instead and may
-pick another index at a near-tie). On a CUDA tensor it launches
-``csrc/chamfer_nn.cu``; on a CPU tensor it runs ``nn_idx_plain``.
+pick another index at a near-tie). A NaN distance counts as +inf: it is
+never picked, and a row whose distances are all NaN or +inf gets 0. On a
+CUDA tensor it launches ``csrc/chamfer_nn.cu``; on a CPU tensor it runs
+``nn_idx_plain``. ``nn_idx_split_plain`` is the kernel's schedule in plain
+PyTorch (chunk minima, candidate splits merged in order, a scan of the
+winning chunk), for the tests; no path runs it.
 
 ``chamfer_raw(xyz1, xyz2)`` -> (dist1 [B, N], dist2 [B, M], idx1, idx2):
 distances recomputed from the match as sum((x - y[idx]) ** 2); its backward
@@ -22,8 +26,11 @@ import torch
 from . import _lib
 from .common import check_input, is_cpu, sqnorm3, sqdist_pairs
 
-__all__ = ["nn_idx", "nn_idx_plain", "chamfer_raw", "chamfer_distance",
-           "gather_rows3"]
+__all__ = ["nn_idx", "nn_idx_plain", "nn_idx_split_plain", "nn_splits",
+           "CHUNK", "chamfer_raw", "chamfer_distance", "gather_rows3"]
+
+# candidates a selection chunk of the kernel (csrc/chamfer_nn.cu: kChunk)
+CHUNK = 32
 
 # plain versions work in query chunks of at most this many distances
 _PLAIN_ELEMS = 1 << 24
@@ -35,18 +42,70 @@ def query_chunks(b: int, n: int, m: int):
     return [slice(i, min(n, i + step)) for i in range(0, n, step)]
 
 
+def _distances(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """sqdist_pairs with NaN read as +inf."""
+    d = sqdist_pairs(x1, x2)
+    return d.masked_fill(d.isnan(), float("inf"))
+
+
 def nn_idx_plain(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the chamfer NN kernel (argmin returns the
     first minimal index)."""
     _lib.PLAIN_CALLS["nn_idx"] += 1
     b, n, _ = x1.shape
-    out = [sqdist_pairs(x1[:, sl], x2).argmin(-1)
+    out = [_distances(x1[:, sl], x2).argmin(-1)
            for sl in query_chunks(b, n, x2.shape[1])]
     return torch.cat(out, 1).to(torch.int32)
 
 
-def nn_idx(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Nearest row of x2 for each row of x1; see the module docstring."""
+def nn_idx_split_plain(x1: torch.Tensor, x2: torch.Tensor, splits: int,
+                       chunk: int = CHUNK) -> torch.Tensor:
+    """The kernel's schedule: the candidates in chunks of ``chunk``, the
+    chunks cut into ``splits`` ranges of ceil(chunks / splits) (a range past
+    the end is empty); in each range a query keeps the first chunk whose
+    minimum (NaN dropped, as the kernel's minimum of the distances' bits
+    drops it) is strictly below the best so far; the ranges' (minimum, chunk) pairs merged in
+    order with strict <; then the first index in the winning chunk at that
+    distance, 0 where no chunk won. Equal to nn_idx_plain for any
+    splits >= 1 and chunk >= 1."""
+    b, n, _ = x1.shape
+    m = x2.shape[1]
+    n_chunks = -(-m // chunk)
+    per = -(-n_chunks // splits)
+    d = sqdist_pairs(x1, x2)                                # NaN kept
+    padded = torch.cat([d, d.new_full((b, n, n_chunks * chunk - m),
+                                      float("nan"))], 2)
+    padded = padded.reshape(b, n, n_chunks, chunk)
+    nan = padded.isnan()
+    cmin = padded.masked_fill(nan, float("inf")).amin(3)
+    cmin = cmin.masked_fill(nan.all(3), float("nan"))
+    best = d.new_full((b, n), float("inf"))
+    win = torch.full((b, n), -1, dtype=torch.long)
+    for s in range(splits):
+        s_best = d.new_full((b, n), float("inf"))
+        s_win = torch.full((b, n), -1, dtype=torch.long)
+        for c in range(s * per, min(n_chunks, (s + 1) * per)):
+            better = cmin[:, :, c] < s_best
+            s_best = torch.where(better, cmin[:, :, c], s_best)
+            s_win = torch.where(better, c, s_win)
+        better = s_best < best
+        best = torch.where(better, s_best, best)
+        win = torch.where(better, s_win, win)
+    in_win = torch.arange(m)[None, None, :] // chunk == win[:, :, None]
+    hit = in_win & (d == best[:, :, None])
+    return torch.where(win >= 0, hit.to(torch.uint8).argmax(2), 0).to(torch.int32)
+
+
+def nn_splits(b: int, n1: int, n2: int) -> int:
+    """The number of candidate ranges the kernel splits a query tile's scan
+    into on the current card (csrc/chamfer_nn.cu: spn_nn_idx_splits)."""
+    return _lib.lib().spn_nn_idx_splits(b, n1, n2)
+
+
+def nn_idx(x1: torch.Tensor, x2: torch.Tensor, _splits: int | None = None
+           ) -> torch.Tensor:
+    """Nearest row of x2 for each row of x1; see the module docstring.
+    ``_splits`` forces the kernel's number of candidate ranges (tests)."""
     x1, x2 = x1.detach(), x2.detach()
     check_input("nn_idx x1", x1, torch.float32, 3, last=3)
     check_input("nn_idx x2", x2, torch.float32, 3, last=3)
@@ -57,10 +116,16 @@ def nn_idx(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     if is_cpu(x1):
         return nn_idx_plain(x1, x2)
     b, n, _ = x1.shape
-    out = torch.empty((b, n), dtype=torch.int32, device=x1.device)
-    with torch.cuda.device(x1.device):
-        code = _lib.lib().spn_nn_idx(x1.data_ptr(), x2.data_ptr(), b, n,
-                                     x2.shape[1], out.data_ptr(),
+    m = x2.shape[1]
+    dev = x1.device
+    with torch.cuda.device(dev):
+        splits = _splits or nn_splits(b, n, m)
+        part_min = torch.empty((splits, b, n), dtype=torch.float32, device=dev)
+        part_chunk = torch.empty((splits, b, n), dtype=torch.int32, device=dev)
+        out = torch.empty((b, n), dtype=torch.int32, device=dev)
+        code = _lib.lib().spn_nn_idx(x1.data_ptr(), x2.data_ptr(), b, n, m,
+                                     splits, part_min.data_ptr(),
+                                     part_chunk.data_ptr(), out.data_ptr(),
                                      _lib.stream_of(x1))
     _lib.check(code, "nn_idx")
     _lib.LAUNCHES["nn_idx"] += 1

@@ -18,6 +18,8 @@ from 0 (the TPU kernel's grid order).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _lib
@@ -25,7 +27,19 @@ from .common import check_input, fma, is_cpu
 from .gather import gather_rows
 
 __all__ = ["edge_gather_stats", "edge_stats_fwd", "edge_stats_fwd_plain",
-           "edge_stats_bwd", "edge_stats_bwd_plain", "first_slots"]
+           "edge_stats_bwd", "edge_stats_bwd_plain", "first_slots",
+           "inverse_lists_plain", "radix_lists_plain",
+           "edge_stats_bwd_lists_plain", "lists_scratch_ints", "LIST_WARPS",
+           "SORT_THREADS", "SORT_ITEMS", "DIGIT_BITS", "SLICE"]
+
+# the kernel's list builds (csrc/edge_stats.cu): warps of the device-memory
+# counting sort (kListWarps); threads, keys a thread and digit bits of the
+# shared-memory radix sort (kSortThreads, kSortItems, kDigitBits)
+LIST_WARPS = 8
+SORT_THREADS, SORT_ITEMS, DIGIT_BITS = 1024, 24, 4
+# channels a warp of the kernel's route and accumulation passes (32 lanes of
+# 4 channels; 32 where C % 4 != 0)
+SLICE = 128
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -105,6 +119,129 @@ def edge_stats_bwd_plain(table, idx, mx, mn, gmx, gmn, gs1, gs2):
     return out.reshape(b, n, c)
 
 
+def lists_scratch_ints(b: int, n: int, m: int, k: int) -> int:
+    """Device-memory scratch (ints) of the kernel's inverse lists: 0 where
+    they are built in shared memory (csrc/edge_stats.cu:
+    spn_edge_stats_lists)."""
+    out = (ctypes.c_longlong * 1)()
+    _lib.lib().spn_edge_stats_lists(b, n, m, k, out)
+    return int(out[0])
+
+
+def radix_lists_plain(idx: torch.Tensor, n: int, threads: int = SORT_THREADS,
+                      items: int = SORT_ITEMS, digit_bits: int = DIGIT_BITS):
+    """The kernel's inverse lists as its shared-memory path builds them (at
+    most ``threads * items`` slots a cloud): keys (target, flat slot), a
+    slot naming no row in [0, n) keyed past every target; passes over the
+    target's digits, least significant first, ceil(bit length of n /
+    digit_bits) of them; in each, thread i holds keys [i * items, (i + 1) *
+    items) and a key goes to the count of lower digits, plus the keys of
+    its digit in earlier threads, plus those earlier in its own thread.
+    -> (offs [B, n + 1], lists [B, M * k]) int32, as inverse_lists_plain."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).long()
+    mk, size = flat.shape[1], threads * items
+    if mk > size:
+        raise ValueError(f"{mk} slots a cloud: more than {size}")
+    passes = -(-n.bit_length() // digit_bits)
+    none = (1 << (digit_bits * passes)) - 1
+    radix = 1 << digit_bits
+    thread = torch.arange(size) // items
+    offs = torch.zeros((b, n + 1), dtype=torch.long)
+    lists = torch.zeros((b, mk), dtype=torch.long)
+    for bi in range(b):
+        tf = torch.full((size,), none, dtype=torch.long)
+        tf[:mk] = flat[bi].where((flat[bi] >= 0) & (flat[bi] < n), none)
+        slot = torch.arange(size)
+        for p in range(passes):
+            d = (tf >> (p * digit_bits)) & (radix - 1)
+            cnt = torch.zeros((radix, threads), dtype=torch.long)
+            cnt.index_put_((d, thread), torch.ones(size, dtype=torch.long),
+                           accumulate=True)
+            excl = (cnt.reshape(-1).cumsum(0) - cnt.reshape(-1)).reshape(radix, threads)
+            onehot = torch.nn.functional.one_hot(d, radix).reshape(threads, items, radix)
+            before = (onehot.cumsum(1) - onehot).reshape(size, radix)
+            pos = excl[d, thread] + before.gather(1, d[:, None])[:, 0]
+            new_tf, new_slot = torch.empty_like(tf), torch.empty_like(slot)
+            new_tf[pos], new_slot[pos] = tf, slot
+            tf, slot = new_tf, new_slot
+        valid = tf < none
+        offs[bi] = torch.searchsorted(tf[valid], torch.arange(n + 1))
+        lists[bi, :int(valid.sum())] = slot[valid]
+    return offs.to(torch.int32), lists.to(torch.int32)
+
+
+def inverse_lists_plain(idx: torch.Tensor, n: int, warps: int = LIST_WARPS):
+    """The kernel's inverse lists as its device-memory path builds them
+    (any size): the flat slots e = m * k + j of each cloud cut into
+    ``warps`` contiguous segments; each segment's target counts; the counts
+    scanned over (target, segment); each segment's slots placed in order,
+    32 at a time, equal targets within the 32 ranked by slot. -> (offs
+    [B, n + 1], lists [B, M * k]) int32: the slots naming target t are
+    lists[b, offs[b, t]:offs[b, t + 1]], ascending (torch.sort's stable
+    order); a slot naming no row in [0, n) is in no list."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).long()
+    mk = flat.shape[1]
+    seg = -(-mk // warps)
+    offs = torch.zeros((b, n + 1), dtype=torch.long)
+    lists = torch.zeros((b, mk), dtype=torch.long)
+    for bi in range(b):
+        t = flat[bi].where((flat[bi] >= 0) & (flat[bi] < n), -1)
+        segs = [torch.arange(min(mk, w * seg), min(mk, (w + 1) * seg))
+                for w in range(warps)]
+        cnt = torch.stack([torch.bincount(t[e][t[e] >= 0], minlength=n)
+                           for e in segs])                      # [warps, n]
+        tot = cnt.sum(0)
+        offs[bi, 1:] = tot.cumsum(0)
+        cursor = offs[bi, :n][None] + cnt.cumsum(0) - cnt
+        for w, e in enumerate(segs):
+            for s0 in range(0, e.numel(), 32):
+                step = e[s0:s0 + 32]
+                ts = t[step]
+                for lane in range(step.numel()):
+                    if ts[lane] >= 0:
+                        rank = int((ts[:lane] == ts[lane]).sum())
+                        lists[bi, cursor[w, ts[lane]] + rank] = step[lane]
+                for v in ts[ts >= 0].unique():
+                    cursor[w, v] += int((ts == v).sum())
+    return offs.to(torch.int32), lists.to(torch.int32)
+
+
+def edge_stats_bwd_lists_plain(table, idx, mx, mn, gmx, gmn, gs1, gs2,
+                               width: int = SLICE):
+    """The kernel's backward in plain PyTorch: route codes (the first slot
+    equal to mx and to mn), the inverse lists of ``inverse_lists_plain``,
+    and per channel slice of ``width`` each row's contributions summed in
+    list order from +0. Equal to edge_stats_bwd_plain for any width."""
+    b, n, c = table.shape
+    k = idx.shape[2]
+    g = gather_rows(table, idx)                                # [B, M, k, C]
+    slots = torch.arange(k)[None, None, :, None]
+    none = torch.full((), k)
+    jmax = torch.where(first_slots(g, mx), slots, none).amin(2)  # [B, M, C]
+    jmin = torch.where(first_slots(g, mn), slots, none).amin(2)
+    offs, lists = inverse_lists_plain(idx, n)
+    offs, lists = offs.long(), lists.long()
+    deg = offs[:, 1:] - offs[:, :-1]                           # [B, n]
+    out = torch.zeros_like(table)
+    zero = torch.zeros(())
+    for s0 in range(0, c, width):
+        sl = slice(s0, min(c, s0 + width))
+        row2 = 2.0 * table[:, :, sl]
+        acc = torch.zeros_like(row2)
+        for r in range(int(deg.max()) if deg.numel() else 0):
+            bi, t = torch.nonzero(deg > r, as_tuple=True)
+            f = lists[bi, offs[bi, t] + r]
+            m, j = f // k, f % k
+            con = fma(row2[bi, t], gs2[bi, m, sl], gs1[bi, m, sl])
+            con = con + torch.where(jmax[bi, m, sl] == j[:, None], gmx[bi, m, sl], zero)
+            con = con + torch.where(jmin[bi, m, sl] == j[:, None], gmn[bi, m, sl], zero)
+            acc[bi, t] = acc[bi, t] + con
+        out[:, :, sl] = acc
+    return out
+
+
 def edge_stats_bwd(table, idx, mx, mn, gmx, gmn, gs1, gs2):
     """The table gradient of edge_gather_stats; see the module docstring."""
     _check(table, idx)
@@ -120,19 +257,21 @@ def edge_stats_bwd(table, idx, mx, mn, gmx, gmn, gs1, gs2):
         return edge_stats_bwd_plain(table, idx, mx, mn, gmx, gmn, gs1, gs2)
     dev = table.device
     lib = _lib.lib()
-    route = torch.empty((b, m, c * lib.spn_edge_stats_route_bytes(k)),
-                        dtype=torch.uint8, device=dev)
-    cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
-    cursor = torch.empty((b, n), dtype=torch.int32, device=dev)
-    offs = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
-    lst = torch.empty((b, m * k), dtype=torch.int32, device=dev)
-    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (table, idx, mx, mn, gmx, gmn, gs1, gs2)]
     with torch.cuda.device(dev):
+        route = torch.empty((b, m, c * lib.spn_edge_stats_route_bytes(k)),
+                            dtype=torch.uint8, device=dev)
+        offs = torch.empty((b, n + 1), dtype=torch.int32, device=dev)
+        lst = torch.empty((b, m * k), dtype=torch.int32, device=dev)
+        order = torch.empty((b, n), dtype=torch.int32, device=dev)
+        scratch = torch.empty(lists_scratch_ints(b, n, m, k), dtype=torch.int32,
+                              device=dev)
+        out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
         code = lib.spn_edge_stats_bwd(
-            *ptrs, b, n, m, c, k, route.data_ptr(), cnt.data_ptr(),
-            cursor.data_ptr(), offs.data_ptr(), lst.data_ptr(), out.data_ptr(),
-            _lib.stream_of(table))
+            *ptrs, b, n, m, c, k, route.data_ptr(), offs.data_ptr(),
+            lst.data_ptr(), order.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
+            out.data_ptr(), _lib.stream_of(table))
     _lib.check(code, "edge_stats_bwd")
     _lib.LAUNCHES["edge_stats_bwd"] += 1
     return out

@@ -266,11 +266,13 @@ def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def resolve_impl(impl: str = "auto", serving: bool = False) -> str:
-    """The arm ``minimum_density_sample_xyz`` runs: "auto" is "batched" in
-    serving mode (the reference's TPU serving default) and "exact"
-    otherwise."""
+    """The arm ``minimum_density_sample_xyz`` runs: "auto" is "exact" in
+    both modes, as the reference's dispatch resolves it on the "cpu" and
+    "gpu" backends ("xla", exact greedy MDS) and takes the batched serving
+    arm only on the TPU. ``serving`` names the caller's mode; "auto"
+    resolves alike in both off the TPU."""
     if impl == "auto":
-        return "batched" if serving else "exact"
+        return "exact"
     if impl not in MDS_IMPLS:
         raise ValueError(f"unknown MDS arm {impl!r}; expected one of "
                          f"{MDS_IMPLS} or 'auto'")

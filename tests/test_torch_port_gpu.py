@@ -18,6 +18,7 @@ from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
                                            pairwise_sqdist_graph_seq)
 from sparenet_tpu_torch.runners import base, sparenet, sparenet_gan
 from test_torch_bids_split import _assign_one_read_a_round
+from test_torch_nn_split import _shells
 
 pytestmark = pytest.mark.gpu
 
@@ -29,6 +30,16 @@ def cuda():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     models.set_parity_mode()
     return torch.device("cuda")
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms(True) for the test."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def _gen():
@@ -341,6 +352,46 @@ def test_nn_idx_kernel_matches_plain(cuda, n1, n2, dup):
         assert torch.equal(got[:, :8].cpu(), torch.arange(8).expand(2, 8).int())
 
 
+def _nn_edge_case(n2, g):
+    """x1 [2, 4096] and x2 [2, n2]: half of x2 repeated (exact ties), the
+    first queries on candidates, a NaN query and a NaN candidate."""
+    x2 = torch.rand(2, n2, 3, generator=g) - 0.5
+    h = n2 // 2
+    x2[:, h:2 * h] = x2[:, :h].flip(1)
+    x1 = torch.rand(2, 4096, 3, generator=g) - 0.5
+    x1[:, :8] = x2[:, :8].flip(1)
+    x1[0, 9] = float("nan")
+    x2[1, n2 // 3] = float("nan")
+    return x1, x2
+
+
+@pytest.mark.parametrize("n2,splits", [(1, None), (2047, None), (2049, None),
+                                       (16384, None), (2049, 1), (2049, 2),
+                                       (2049, 3), (16384, 8)])
+def test_nn_idx_edges_match_plain(cuda, deterministic, n2, splits):
+    """Bit for bit at N2 of one point, around a 2048-candidate tile and at
+    the step's 16384, with duplicated points, a NaN query (index 0) and a
+    NaN candidate (never picked), at the split count the kernel picks and
+    at forced ones (any split count gives the same picks)."""
+    x1, x2 = (t.to(cuda) for t in _nn_edge_case(n2, _gen()))
+    got = chamfer.nn_idx(x1, x2, _splits=splits)
+    assert torch.equal(got, chamfer.nn_idx_plain(x1, x2))
+    assert int(got[0, 9]) == 0
+    assert not bool((got[1] == n2 // 3).any()) or n2 == 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_nn_idx_near_ties_match_plain(cuda, deterministic, seed):
+    """Candidates on shells around the queries whose distances differ by a
+    few ulps (tests/test_torch_nn_split.py's input, at 512 queries and
+    16384 candidates): bit for bit."""
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.rand(2, 512, 3, generator=g) - 0.5) * 2
+    x2 = _shells(g, q, 32, 0.3, 1e-7)
+    q, x2 = q.to(cuda), x2.to(cuda)
+    assert torch.equal(chamfer.nn_idx(q, x2), chamfer.nn_idx_plain(q, x2))
+
+
 @pytest.mark.parametrize("u", [1, 37, 8908, 16384])
 def test_bids_kernel_scores_the_counted_bidders(cuda, u):
     """Full-width bidder lists with the counts on the card (the auction's
@@ -443,14 +494,18 @@ def test_bids_kernel_matches_plain(cuda, m, n, dup):
 
 
 @pytest.mark.parametrize("n,c,k,shift", [(3000, 256, 8, False),
+                                         (3000, 512, 8, False),
                                          (3000, 1024, 8, False), (77, 8, 8, False),
-                                         (300, 3, 8, False), (500, 130, 16, False),
+                                         (300, 3, 8, False), (3000, 3, 20, False),
+                                         (500, 130, 16, False),
+                                         (3000, 256, 16, False),
+                                         (4000, 256, 8, False),
                                          (400, 64, 33, True), (200, 7, 20, True)])
-def test_edge_stats_kernels_match_plain(cuda, n, c, k, shift):
+def test_edge_stats_kernels_match_plain(cuda, deterministic, n, c, k, shift):
     """Forward outputs and the table gradient bit for bit, with duplicated
     slots and rows (max and min ties take the first slot); also at
-    C % 4 != 0, k > 15 (wide route codes) and a table not 16-byte
-    aligned."""
+    C % 4 != 0, k > 15 (wide route codes), N = 4000 (the inverse lists in
+    device memory) and a table not 16-byte aligned."""
     g = _gen()
     table = torch.randn(2, n, c, generator=g)
     table[:, 1] = table[:, 0]
@@ -467,6 +522,13 @@ def test_edge_stats_kernels_match_plain(cuda, n, c, k, shift):
     got = edge_gather.edge_stats_bwd(table, idx, outs[0], outs[1], *grads)
     want = edge_gather.edge_stats_bwd_plain(table, idx, outs[0], outs[1], *grads)
     assert torch.equal(got, want)
+
+
+def test_edge_stats_lists_path(cuda):
+    """The inverse lists are built in shared memory at the model's 3000
+    points and k = 8, in device memory at 4000."""
+    assert edge_gather.lists_scratch_ints(4, 3000, 3000, 8) == 0
+    assert edge_gather.lists_scratch_ints(4, 4000, 4000, 8) == 4 * 9 * 4000
 
 
 def test_train_step_launches_every_kernel(cuda):
@@ -743,11 +805,12 @@ def test_p2i_backward_kernel_matches_plain(cuda, radius):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("arm", ["batched", "hybrid", "exact"])
+@pytest.mark.parametrize("arm", ["batched", "hybrid", "exact", "auto"])
 def test_serving_forward_launches_its_kernels(cuda, arm):
     """A B=2 serving forward launches the packed kNN 4 times, gather-max 4
-    times, MDS 2 times (exact) or the continuation 2 times (hybrid), no
-    expansion and no plain version; outputs finite, loss_mst 0."""
+    times, MDS 2 times (exact, and "auto", which is exact off the TPU) or
+    the continuation 2 times (hybrid), no expansion and no plain version;
+    outputs finite, loss_mst 0."""
     model = models.build_generator(num_points=2048, n_primitives=4,
                                    bottleneck_size=128, hide_size=128,
                                    serving=True, mds=arm, mds_g=512,
@@ -757,7 +820,7 @@ def test_serving_forward_launches_its_kernels(cuda, arm):
     outs = models.complete(model, partial)
     torch.cuda.synchronize()
     want = {"knn_packed": 4, "gather_max": 4,
-            "mds": 2 if arm == "exact" else 0,
+            "mds": 2 if arm in ("exact", "auto") else 0,
             "mds_continue": 2 if arm == "hybrid" else 0}
     assert _lib.LAUNCHES == {**dict.fromkeys(_lib.LAUNCHES, 0), **want}
     assert set(_lib.PLAIN_CALLS.values()) == {0}

@@ -183,11 +183,15 @@ def test_serving_needs_no_new_weight_rule(case):
 
 
 def test_serving_arms_and_defaults():
-    """build_generator's serving arguments: "auto" is the batched arm, the
-    reference's calibration 1.33 and G, schedule, tail defaults; an unknown
-    arm raises; parity stays the default."""
+    """build_generator's serving arguments: "auto" is the exact arm, as the
+    JAX package resolves it off the TPU, the reference's calibration 1.33
+    and G, schedule, tail defaults; the batched and hybrid arms by name; an
+    unknown arm raises; parity stays the default."""
     m = port_models.build_generator(device="cpu", serving=True, **CONFIG)
-    assert m.refine.mds == "batched" and m.refine.mml_calibration == 1.33
+    assert m.refine.mds == "exact" and m.refine.mml_calibration == 1.33
+    for arm in ("batched", "hybrid"):
+        assert port_models.build_generator(
+            device="cpu", serving=True, mds=arm, **CONFIG).refine.mds == arm
     assert (m.refine.mds_g, m.refine.mds_schedule, m.refine.mds_tail) == (
         8192, (2048,), 2048)
     assert not port_models.build_generator(device="cpu", **CONFIG).serving

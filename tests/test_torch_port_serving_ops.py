@@ -264,12 +264,30 @@ def test_mds_hybrid_matches_jax(rng, g, tail):
                                         axis=1))
 
 
+# the JAX package's arm names -> the port's ("xla" and "pallas" are both
+# exact greedy MDS)
+_JAX_ARMS = {"xla": "exact", "pallas": "exact", "batched": "batched",
+             "hybrid": "hybrid"}
+
+
+def test_serving_auto_is_the_jax_cpu_mapping(fast_math, monkeypatch):
+    """In serving mode (fast math on) the JAX package's resolve_impl("auto")
+    on its CPU backend, which it shares with the GPU, is the arm the port's
+    resolve_impl("auto", serving=True) takes: exact greedy MDS."""
+    monkeypatch.setattr(jax_mds, "_MDS_IMPL", "auto")
+    assert jax.default_backend() == "cpu"
+    want = _JAX_ARMS[jax_mds.resolve_impl("auto")]
+    assert mds.resolve_impl("auto", serving=True) == want == "exact"
+
+
 def test_mds_dispatch(rng, monkeypatch):
-    """resolve_impl: "auto" is batched in serving mode and exact otherwise;
-    minimum_density_sample_xyz routes each arm as the JAX dispatch does
-    with its globals set to the same G, schedule and tail."""
-    assert mds.resolve_impl("auto", serving=True) == "batched"
+    """resolve_impl: "auto" is exact in both modes, the JAX package's
+    mapping on the CPU and GPU backends; minimum_density_sample_xyz routes
+    each arm as the JAX dispatch does with its globals set to the same G,
+    schedule and tail."""
+    assert mds.resolve_impl("auto", serving=True) == "exact"
     assert mds.resolve_impl("auto") == "exact"
+    assert mds.resolve_impl("batched", serving=True) == "batched"
     assert mds.resolve_impl("hybrid") == "hybrid"
     with pytest.raises(ValueError):
         mds.resolve_impl("pallas")
