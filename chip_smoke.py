@@ -20,6 +20,9 @@ Phases, each printing a flushed line with its elapsed seconds:
      MDS continuation (the same kernel started from a density state) on a
      random state of the hybrid tail's 5048 live lanes at every C = 1..16,
      with and without compaction, bit for bit against its plain version;
+     the expansion kernel also at the B=32 forward's shape and on a
+     degenerate 1e-7-scale cloud (duplicates, a lattice, a NaN) at 1, 4
+     and 16 warps a primitive;
   3. the main path: the flagship SpareNet eval forward (3000 -> 16384 points,
      full widths, seeded random weights with jittered BatchNorm statistics)
      at B=4, with every launch count set to 0 just before and read just
@@ -31,7 +34,10 @@ Phases, each printing a flushed line with its elapsed seconds:
      cluster size on each of its calls' inputs, bit for bit against C = 1;
      the MDS latency floor: an empty step (no lane pass: the CTA argmin,
      the record exchange and its wait) in us at each C, and the
-     C chosen at B = 4, 24 and 32;
+     C chosen at B = 4, 24 and 32; the expansion kernel's warps a
+     primitive, its empty step (no relaxation) in us, its charging and its
+     floor, (S - 1) empty steps + charging, at B = 4, 24 and 32, and the
+     pruning rounds of the forward's trees;
   5. the forward against plain forwards: free-running (every op plain), and
      anchored (the plain forward replays the kernel kNN graphs checked in
      phase 4, so that only reassociation separates the two); two controls
@@ -81,7 +87,10 @@ Phases, each printing a flushed line with its elapsed seconds:
      ``runners.sparenet_gan.gan_step``, counts set to 0 just before and read
      just after: every kernel of the step launched (p2i three times), no
      plain version ran;
- 14. the p2i kernel on the very inputs the GAN step gave it, timed;
+ 14. the p2i kernel and its backward on the very inputs the GAN step gave
+     them, timed; the backward by part (binning, tile pass), its plan
+     (tile, item, bitmask words, hits a round, path) at each radius, and
+     its time at the B=32 step's shape at each radius of sparenet_gan.yaml;
  15. the kernel GAN step against a plain GAN step that replays its kNN graphs,
      MDS picks, dropout masks and p2i backward (held to its plain version on
      the step's inputs), both in deterministic mode, and two
@@ -98,7 +107,8 @@ Phases, each printing a flushed line with its elapsed seconds:
      14336 batched picks, 2048 continued; duplicated points give exact
      ties), bit for bit, at the chosen cluster size and at every C =
      1..16 with and without compaction; the p2i backward at R 5/7/10 within 1e-6 of the
-     largest entry, two launches bit for bit equal;
+     largest entry, two launches bit for bit equal, and bit for bit equal
+     on its scan path and at small tiles and items;
  18. the fourth main path: the serving-mode forward (``build_generator(
      serving=True, mds=arm)``, the same parameters as phase 3) at B=4 in
      each MDS arm, batched, hybrid and exact, counts set to 0 just before
@@ -139,6 +149,7 @@ import copy
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -255,9 +266,17 @@ KERNEL["knn_packed"] = knn.knn_idx
 # main kernel, the merge and re-rank, the exact scan of flagged queries
 KNN_KERNELS = ("knn_prepass", "knn_dedup", "knn_mma", "knn_rerank", "knn_scan")
 # csrc/p2i.cu: the binning (histogram and scatter, scan), the tile splat,
-# the split tiles' prepare and finish passes, the backward
+# the split tiles' prepare and finish passes, the backward (its binning,
+# its bitmask tile pass or its window scan)
 P2I_KERNELS = ("bin_kernel", "bin_scan_kernel", "tile_splat_kernel",
-               "split_prepare_kernel", "split_finish_kernel", "p2i_bwd_kernel")
+               "split_prepare_kernel", "split_finish_kernel", "bwd_bin_kernel",
+               "bwd_bits_kernel", "bwd_scan_kernel")
+# csrc/p2i.cu's backward by part: the binning (with its counts' memset) and
+# the tile pass
+P2I_BWD_PARTS = {"binning": ("bwd_bin_kernel", "bin_scan_kernel", "Memset"),
+                 "tile pass": ("bwd_bits_kernel", "bwd_scan_kernel")}
+# csrc/expansion.cu (the warp kernel; the wide one past S = 1024)
+EXPANSION_KERNELS = ("expansion_warp_kernel", "expansion_wide_kernel")
 # csrc/edge_stats.cu's backward by part: the route codes, the inverse lists,
 # the ordered accumulation
 EDGE_BWD_PARTS = {"route": ("route_kernel",), "lists": ("lists_kernel",),
@@ -479,6 +498,22 @@ def check_random(gen, dev) -> dict:
     verdict("expansion", f"{list(xyz.shape)}", compare_expansion(
         expansion_penalty.mst_charges(xyz),
         expansion_penalty.mst_charges_plain(xyz)))
+    # the B=32 forward's shape, and a degenerate cloud at the random-init
+    # coarse cloud's scale (duplicates, a lattice, a NaN)
+    xyz = (torch.rand(B_BENCH * N_PRIMS, PRIM_S, 3, generator=gen) - 0.5).to(dev)
+    verdict("expansion", f"{list(xyz.shape)}", compare_expansion(
+        expansion_penalty.mst_charges(xyz),
+        expansion_penalty.mst_charges_plain(xyz)))
+    xyz = (torch.rand(B_CHECK * N_PRIMS, PRIM_S, 3, generator=gen) - 0.5) * 1e-7
+    q = PRIM_S // 4
+    xyz[:, q:2 * q] = xyz[:, :q]
+    xyz[:, 2 * q:3 * q] = torch.round(xyz[:, 2 * q:3 * q] * 4e7) / 4e7
+    xyz[0, PRIM_S // 2, 1] = float("nan")
+    xyz = xyz.to(dev)
+    verdict("expansion", f"{list(xyz.shape)} at the 1e-7 scale with ties and "
+            f"a NaN", compare_expansion(
+                expansion_penalty.mst_charges(xyz),
+                expansion_penalty.mst_charges_plain(xyz)))
     coarse = (torch.rand(B_CHECK, N_OUT, 3, generator=gen) - 0.5).to(dev)
     partial = (torch.rand(B_CHECK, n, 3, generator=gen) - 0.5).to(dev)
     _, _, mml = expansion_penalty.expansion_penalty(coarse, PRIM_S, 1.5)
@@ -645,6 +680,48 @@ def mds_latency_floor(args, dev) -> None:
             f"{c}: {us:.3f}" for c, us in cta.items())
         + f"; (C, CTAs an SM) chosen for N={n} at B " + ", ".join(
             f"{b}: {c}" for b, c in chosen.items()) + f" on {nvidia_smi()}")
+
+def expansion_latency_floor(calls) -> float:
+    """The expansion kernel's launch shape and latency floor (phase 4): on
+    the forward's inputs (B_CHECK x 32 primitives of PRIM_S) and on their
+    primitives repeated to the B_TRAIN and B_BENCH forwards' counts, ms a
+    call of the whole kernel, of Prim's steps alone (mode "prim") and of
+    S - 1 empty steps (mode "floor": the argmin, the key exchange and the
+    pick, no relaxation); the empty step in us, the charging (whole minus
+    Prim) and the floor, (S - 1) empty steps + charging; and the pruning
+    rounds of the forward's trees. Returns the floor summed over the
+    forward's calls, in ms."""
+    floor_ms = 0.0
+    for i, (args, _, out) in enumerate(calls):
+        xyz = args[0]
+        rounds = expansion_penalty.pruning_rounds(out[0])
+        full = cuda_ms(lambda: expansion_penalty.mst_charges(xyz), reps=10)
+        prim = cuda_ms(lambda: expansion_penalty.mst_floor(xyz, "prim"), reps=10)
+        empty = cuda_ms(lambda: expansion_penalty.mst_floor(xyz, "floor"), reps=10)
+        floor_ms += empty + max(full - prim, 0.0)
+        log(f"  expansion call {i} {list(xyz.shape)}: pruning rounds max "
+            f"{int(rounds.max())}, mean {float(rounds.float().mean()):.1f}; "
+            f"whole {full:.4f} ms, Prim's steps {prim:.4f}, empty steps "
+            f"{empty:.4f}, charging {full - prim:.4f}")
+    xyz, s = calls[0][0][0], calls[0][0][0].shape[1]
+    shapes = {}
+    for b in (B_CHECK, B_TRAIN, B_BENCH):
+        x = xyz.repeat(b // B_CHECK, 1, 1).contiguous()
+        w = expansion_penalty.WARPS
+        full = cuda_ms(lambda: expansion_penalty.mst_charges(x), reps=10)
+        prim = cuda_ms(lambda: expansion_penalty.mst_floor(x, "prim"), reps=10)
+        empty = cuda_ms(lambda: expansion_penalty.mst_floor(x, "floor"), reps=10)
+        charging = max(full - prim, 0.0)  # the two differ by less than their spread
+        shapes[b] = {"warps": w, "ms": full, "empty_step_us": 1e3 * empty / (s - 1),
+                     "floor_ms": empty + charging}
+        log(f"  expansion at B={b} {list(x.shape)}: {w} warps a primitive; "
+            f"{full:.4f} ms a call, Prim's steps {prim:.4f}, empty step "
+            f"{1e3 * empty / (s - 1):.4f} us, charging {full - prim:.4f} ms, "
+            f"floor {empty + charging:.4f} ms ((S-1) x empty step + "
+            f"charging, a negative charging read as 0) on {nvidia_smi()}")
+    FLOOR["expansion"] = shapes
+    return floor_ms
+
 
 def _library_knn(x, k=8, packed=False):
     """cdist + topk: ranks the exact f32 distances (neither the bf16 split
@@ -1078,7 +1155,7 @@ _TRAIN_GROUPS = (("mds", ("mds_cluster_kernel",)),
                  ("nn_idx", ("nn_split_kernel", "nn_merge_kernel")),
                  ("p2i", P2I_KERNELS),
                  ("edge_stats", ("stats_fwd_kernel",) + sum(EDGE_BWD_PARTS.values(), ())),
-                 ("expansion", ("expansion_kernel",)),
+                 ("expansion", EXPANSION_KERNELS),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
                  ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
 
@@ -1133,6 +1210,67 @@ def kernel_parts(calls, name: str, groups: dict, reps: int = 5) -> dict:
     if not sum(tot.values()):
         fail(f"the profiler saw no device time in {name}'s kernels")
     return tot
+
+
+def device_timeline(fn, names, reps: int = 5) -> dict:
+    """Where back-to-back calls of ``fn`` spend their time on the card:
+    "host_enqueue_ms", the host's ms to enqueue a call (the loop of calls
+    before its synchronisation); "ms_host_ahead", the calls' ms a call by
+    CUDA events when they are enqueued behind a spin kernel of about 10 ms,
+    so the host is out of the way and the card runs them as fast as it
+    can; and, from torch.profiler's device records of such calls after the
+    spin kernel (the ops whose names hold one of ``names``; "records"
+    counts them by name), "timeline": averaged over the calls, each op's us
+    and the card's idle us before it within the call, a call's span, busy
+    and idle ms, and the idle ms between calls (None where the records do
+    not split into calls of the same ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spin = 20_000_000  # cycles, about 10 ms at the H100's clock
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    out = {"host_enqueue_ms": host, "ms_host_ahead": a.elapsed_time(b) / reps,
+           "timeline": None}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(spin)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    after = max((e.time_range.end for e in dev_ops if "spin_kernel" in e.name),
+                default=float("-inf"))
+    ops = sorted((e.time_range.start, e.time_range.end,
+                  (re.search(r"\w+_kernel|Memset|Memcpy", e.name)
+                   or re.match(r".{0,40}", e.name)).group(0)) for e in dev_ops
+                 if e.time_range.start >= after and any(p in e.name for p in names))
+    out["records"] = {k: sum(o[2] == k for o in ops) for k in sorted({o[2] for o in ops})}
+    n = len(ops) // reps
+    calls = [ops[i * n:(i + 1) * n] for i in range(reps)]
+    if not n or len(ops) % reps or any(
+            [o[2] for o in c] != [o[2] for o in calls[0]] for c in calls):
+        return out
+    op_us = [sum(c[j][1] - c[j][0] for c in calls) / reps for j in range(n)]
+    idle_us = [0.0] + [sum(c[j][0] - c[j - 1][1] for c in calls) / reps
+                       for j in range(1, n)]
+    out["timeline"] = {
+        "ops": [o[2] for o in calls[0]], "op_us": op_us, "idle_before_us": idle_us,
+        "span_ms": sum(c[-1][1] - c[0][0] for c in calls) / reps / 1e3,
+        "busy_ms": sum(op_us) / 1e3, "idle_in_call_ms": sum(idle_us) / 1e3,
+        "idle_between_calls_ms": sum(calls[i][0][0] - calls[i - 1][-1][1]
+                                     for i in range(1, reps)) / (reps - 1) / 1e3}
+    return out
 
 
 def timed_steps(run, n: int = 3) -> float:
@@ -1309,6 +1447,26 @@ def check_random_p2i(gen, dev) -> float:
     return worst
 
 
+def p2i_backward_b32(dev) -> None:
+    """The backward at the B_GAN step's shape (B_GAN x 8 views of N_OUT
+    points into 256 x 256 images) at each radius of sparenet_gan.yaml, on
+    the splat's own winner ids: ms a call (CUDA events) and by part."""
+    gen = torch.Generator().manual_seed(8)
+    pts, feat, binds, n_img = splat_inputs(gen, dev, B_GAN)
+    for radius in RADII:
+        _, ids = p2i_op.p2i_max(pts, feat, binds, n_img, IMG, IMG, radius, True)
+        g = torch.randn(n_img, IMG, IMG, 1, generator=gen).to(dev)
+        args = (pts, feat, binds, ids, g, radius)
+        ms = cuda_ms(lambda: p2i_op.p2i_max_backward(*args), reps=5)
+        parts = kernel_parts([(args, {}, None)], "p2i_bwd", P2I_BWD_PARTS)
+        log(f"  p2i_bwd at B={B_GAN}, R={radius}, {pts.shape[0]} points: "
+            f"{ms:.4f} ms a call; " + ", ".join(
+                f"{p} {v:.4f}" for p, v in parts.items()) + f" (device ms) on "
+            f"{nvidia_smi()}")
+        PATHS[f"p2i_bwd_b{B_GAN}_r{radius:g}_ms"] = ms
+    del pts, feat, binds, ids, g
+
+
 def fresh_gan(gstate: dict, dstate: dict, dev):
     """Generator and discriminator holding the states on the card, and new
     Adams over them."""
@@ -1450,6 +1608,30 @@ def main_gan(gstate: dict, dstate: dict, dev) -> tuple[dict, dict]:
         "step gave them")
     rows = check_forward_calls(calls, {"p2i": err, "p2i_bwd": 0.0},
                                ("p2i", "p2i_bwd"), "GAN step")
+    parts = kernel_parts(calls["p2i_bwd"], "p2i_bwd", P2I_BWD_PARTS)
+    rows["p2i_bwd"]["parts_ms"] = parts
+    log(f"  p2i_bwd by part over the step's {len(calls['p2i_bwd'])} call(s) "
+        f"(device ms, torch.profiler): "
+        + ", ".join(f"{p} {v:.4f}" for p, v in parts.items()))
+    args = calls["p2i_bwd"][0][0]
+    tl = device_timeline(lambda: KERNEL["p2i_bwd"](*args),
+                         sum(P2I_BWD_PARTS.values(), ()))
+    rows["p2i_bwd"]["timeline"] = tl
+    line = tl["timeline"]
+    log(f"  p2i_bwd on the step's input: {rows['p2i_bwd']['ms']:.4f} ms a call "
+        f"back to back, {tl['ms_host_ahead']:.4f} with the calls enqueued "
+        f"ahead of the card; host enqueue {tl['host_enqueue_ms']:.4f} ms a "
+        f"call; profiler records after the spin kernel {tl['records']}: "
+        + ("not split into calls" if line is None else ", ".join(
+            f"{o} {u:.2f} us (idle before {i:.2f})" for o, u, i in zip(
+                line["ops"], line["op_us"], line["idle_before_us"]))
+           + f"; a call's span {line['span_ms']:.4f} ms, busy "
+           f"{line['busy_ms']:.4f}, idle in the call {line['idle_in_call_ms']:.4f}, "
+           f"idle between calls {line['idle_between_calls_ms']:.4f}")
+        + f" on {nvidia_smi()}")
+    for radius in sorted(set(RADII) | {GAN_CHECK_RADIUS}):
+        log(f"  p2i_bwd plan at R={radius}: {p2i_op.bwd_plan(radius)}")
+    p2i_backward_b32(dev)
 
     log("phase 15: the kernel GAN step against the anchored plain GAN step")
     compare_gan_steps(gstate, dstate, partial, gt, calls, dev)
@@ -1660,7 +1842,7 @@ def compare_forwards(model, partial, calls, outs) -> None:
 
 _GROUPS = (("knn", KNN_KERNELS),
            ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
-           ("expansion", ("expansion_kernel",)),
+           ("expansion", EXPANSION_KERNELS),
            ("mds", ("mds_cluster_kernel",)),
            ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
 
@@ -1836,6 +2018,15 @@ def check_random_serving(gen, dev) -> dict:
         log(f"  p2i_bwd R={radius}: two launches bit for bit equal: {same}")
         if not same:
             fail(f"p2i_bwd R={radius}: two launches differ")
+        # the result does not depend on the plan: the scan path, small
+        # tiles and items (many items a bin, hits in rounds)
+        for kw in ({"_path": "scan"}, {"_tile": (8, 32), "_item": 40}):
+            other = p2i_op.p2i_max_backward(*args, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, other))
+            log(f"  p2i_bwd R={radius} with {kw}: bit for bit equal to the "
+                f"default plan: {same}")
+            if not same:
+                fail(f"p2i_bwd R={radius} with {kw}: differs from the default plan")
     return errs
 
 
@@ -2102,6 +2293,8 @@ def main() -> int:
                            f"forward call {i}'s input")
     results["mds"]["max_abs_err"] = max(results["mds"]["max_abs_err"], errs["mds"])
     mds_latency_floor(calls["mds"][0][0], dev)
+    results["expansion"]["latency_floor_ms"] = expansion_latency_floor(
+        calls["expansion"])
     c4 = FLOOR["chosen"][B_CHECK][0]
     results["mds"]["latency_floor_ms"] = sum(
         FLOOR["per_step_us"][c4] * (a[1] - 1) for a, _, _ in calls["mds"]) / 1e3

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "spn_gather_rows_per_block": ((), _I),
     "spn_gather_max": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
     "spn_expansion_max_points": ((), _I),
-    "spn_expansion": ((_P, _I, _I, _P, _P, _P, _P), _I),
+    "spn_expansion": ((_P, _I, _I, _I, _P, _P, _P, _P), _I),
     "spn_mds_max_points": ((), _I),
     "spn_mds": ((_P, _P, _I, _I, _I, _I, _I, _P, _P), _I),
     "spn_mds_shape": ((_I, _I, _P), None),
@@ -80,7 +80,9 @@ _SIGNATURES = {
     "spn_edge_stats_bwd": ((_P,) * 8 + (_I,) * 5 + (_P,) * 7, _I),
     "spn_p2i_scratch_ints": ((_I,) * 7, ctypes.c_longlong),
     "spn_p2i_max": ((_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I) + (_P,) * 5, _I),
-    "spn_p2i_max_backward": ((_P,) * 5 + (_I,) * 4 + (_F, _I) + (_P,) * 3, _I),
+    "spn_p2i_bwd_scratch_ints": ((_I,) * 7, ctypes.c_longlong),
+    "spn_p2i_bwd_plan": ((_I,) * 5 + (_P,), None),
+    "spn_p2i_max_backward": ((_P,) * 5 + (_I,) * 4 + (_F,) + (_I,) * 6 + (_P,) * 4, _I),
     "spn_knn_packed": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
     "spn_knn_dots": ((_P, _P) + (_I,) * 5 + (_P,) * 4, _I),
     "spn_mds_continue_max_points": ((), _I),

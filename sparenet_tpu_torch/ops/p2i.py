@@ -24,9 +24,17 @@ with ids, any other the values-only one. Its backward is the JAX package's
 winner's feature through w, and to its (y, x) through
 dw/dr = -(pi / 2R) sin(pi r / R), with the reference's max(r, 1e-10) guard.
 ``p2i_max_backward`` launches ``spn_p2i_max_backward`` on a CUDA tensor
-(counted as ``"p2i_bwd"``): one thread a point gathers the pixels it won
-over its window, deterministic with no atomics; on a CPU tensor it runs
-``p2i_max_backward_plain``, which scatters every pixel into its winner.
+(counted as ``"p2i_bwd"``): the points binned by the tile that holds their
+window's clipped origin, then a block a work item of a bin's points reads
+the tile's ids and a halo of K - 1 rows and columns once and sets each won
+pixel's bit in its point's window bitmask in shared memory; a scan of the
+bitmasks places every hit, a thread a hit computes its terms, and a thread
+a point adds its terms in row-major order, deterministic with no atomics
+on floats (``bwd_plan`` picks the tile, the item and, for windows whose
+bitmask does not fit, a scan of each window by a warp); on a CPU
+tensor it runs ``p2i_max_backward_plain``, which scatters every pixel into
+its winner. ``p2i_bwd_tiles_plain`` is the kernel's decomposition in plain
+PyTorch (for the tests; no path runs it).
 
 Rounding follows the JAX package's XLA path bit for bit (its CPU program
 computes r as sqrt(dy * dy + dx * dx) without fma, the division by R as a
@@ -36,6 +44,7 @@ kernel's r^2 <= R^2 form, which differs in the last bit.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -47,7 +56,7 @@ from .common import check_input, fma, is_cpu, sqrt_ieee
 __all__ = ["COS_COEFFS", "cos_weight_sq", "window_size", "p2i_max",
            "p2i_max_plain", "p2i_tiles_plain", "TILE", "ITEM_PIXELS",
            "item_entries", "p2i_max_backward", "p2i_max_backward_plain",
-           "p2i_max_zbg"]
+           "p2i_bwd_tiles_plain", "bwd_plan", "p2i_max_zbg"]
 
 # cos(pi sqrt(s)) / 2 + 1/2 = 1 + sum_k c_k s^k, c_k = (-1)^k pi^2k / (2 (2k)!),
 # k = 1 .. 10, rounded to f32 (the JAX package's _COS_COEFFS)
@@ -60,8 +69,6 @@ _CHUNK_BUDGET = 1 << 23
 # window pixels of its work items
 TILE = (32, 128)
 ITEM_PIXELS = 1 << 16
-
-
 def window_size(radius: float) -> int:
     """Side K of the square pixel window a point visits: floor(p - R) ..
     floor(p - R) + K - 1 covers every pixel within R."""
@@ -73,6 +80,24 @@ def item_entries(radius: float, tile=TILE, item_pixels: int = ITEM_PIXELS) -> in
     ``item_pixels`` pixels of windows clipped to a tile."""
     k = window_size(radius)
     return max(1, item_pixels // (min(k, tile[0]) * min(k, tile[1])))
+
+
+def bwd_plan(radius: float, tile=None, item: int | None = None,
+             path: str | None = None) -> dict:
+    """The backward kernel's plan at ``radius``, chosen by the kernel
+    library (csrc/p2i.cu:spn_p2i_bwd_plan, beside the shared-memory layout
+    it sizes; so on a machine that builds the kernels): "path", "bits" (a
+    window bitmask of ``words`` ints a point, room for ``hits`` hits a
+    round, ``smem`` bytes a block) or "scan" (words 0); "tile"; and "item",
+    the points a work item. ``tile``, ``item`` and ``path`` ("scan") force
+    them."""
+    out = (ctypes.c_longlong * 6)()
+    th, tw = tile or (0, 0)
+    _lib.lib().spn_p2i_bwd_plan(window_size(radius), th, tw, item or 0,
+                                int(path == "scan"), out)
+    words, th, tw, n, hits, smem = out
+    return {"path": "bits" if words else "scan", "tile": (th, tw),
+            "words": words, "item": n, "hits": hits, "smem": smem}
 
 
 def cos_weight_sq(s: torch.Tensor) -> torch.Tensor:
@@ -278,12 +303,10 @@ def p2i_max(points, feats, binds, b: int, h: int, w: int, radius: float,
     return out, ids
 
 
-def p2i_max_backward_plain(points, feats, binds, ids, g, radius: float):
-    """Plain PyTorch version of the backward kernel: gradients (points
-    [P, 2], feats [P, 1]) of sum(g * out) for the winner ids [B, H, W, 1]
-    (the JAX package's _p2i_max_bwd; ``binds`` is not needed here, the ids
-    name each pixel's point)."""
-    _lib.PLAIN_CALLS["p2i_bwd"] += 1
+def _pixel_terms(points, feats, ids, g, radius: float):
+    """Each pixel's gradient terms for its winner: (winner index [B*H*W],
+    P where no point won; d feat, d y, d x terms [B*H*W]), the JAX
+    package's _p2i_max_bwd arithmetic."""
     b, h, w, _ = g.shape
     p = points.shape[0]
     dev = g.device
@@ -296,19 +319,127 @@ def p2i_max_backward_plain(points, feats, binds, ids, g, radius: float):
     r = sqrt_ieee(dy * dy + dx * dx)
     gm = g * won
     sid = torch.where(won, safe, p).reshape(-1)
-    pf = torch.zeros(p + 1, 1, dtype=g.dtype, device=dev).index_add_(
-        0, sid, (gm * _weight(r, radius)).reshape(-1, 1))[:p]
     kfac = (gm * feats[safe, 0] * torch.sin(r * math.pi / radius)
             * 0.5 * math.pi / radius / r.clamp_min(1e-10))
-    pt = torch.zeros(p + 1, 2, dtype=g.dtype, device=dev).index_add_(
-        0, sid, torch.stack([kfac * dy, kfac * dx], -1).reshape(-1, 2))[:p]
+    return (sid, (gm * _weight(r, radius)).reshape(-1),
+            (kfac * dy).reshape(-1), (kfac * dx).reshape(-1))
+
+
+def p2i_max_backward_plain(points, feats, binds, ids, g, radius: float):
+    """Plain PyTorch version of the backward kernel: gradients (points
+    [P, 2], feats [P, 1]) of sum(g * out) for the winner ids [B, H, W, 1]
+    (the JAX package's _p2i_max_bwd; ``binds`` is not needed here, the ids
+    name each pixel's point)."""
+    _lib.PLAIN_CALLS["p2i_bwd"] += 1
+    p = points.shape[0]
+    sid, tf, ty, tx = _pixel_terms(points, feats, ids, g, radius)
+    pf = torch.zeros(p + 1, 1, dtype=g.dtype, device=g.device).index_add_(
+        0, sid, tf[:, None])[:p]
+    pt = torch.zeros(p + 1, 2, dtype=g.dtype, device=g.device).index_add_(
+        0, sid, torch.stack([ty, tx], -1))[:p]
     return pt, pf
 
 
-def p2i_max_backward(points, feats, binds, ids, g, radius: float):
+def p2i_bwd_tiles_plain(points, feats, binds, ids, g, radius: float,
+                        tile=(16, 64), item: int = 300, path: str = "bits",
+                        seed: int = 0):
+    """The backward kernel's decomposition in plain PyTorch (for the tests):
+    each point with a valid image index and a window (clamped as the
+    kernel's, then clipped to the image) goes to the bin of the tile holding
+    the window's origin, in an order drawn from ``seed``, its place kept;
+    the bins split into work items of ``item`` points (the kernel's plan,
+    ``bwd_plan``, at the GAN's radii: 16 x 64 tiles, 283-300 points an
+    item, the bitmask path). On the bitmask ("bits") path each item reads its tile's ids and K - 1 more rows and columns
+    (clipped to the image), and a pixel whose id names a point of the item
+    (by its place) and lies in that point's window sets the point's bit for
+    (row, column) of the window; each point then adds the terms of its bits
+    in row-major order, from +0. On the scan path each point reads its
+    window's ids in the same order. Other points get zeros. Equals
+    ``p2i_max_backward_plain`` on the CPU, whose index_add_ sums each
+    point's pixels in pixel order."""
+    b, h, w, _ = g.shape
+    p = points.shape[0]
+    k = window_size(radius)
+    th, tw = tile
+    nty, ntx = -(-h // th), -(-w // tw)
+    nbins = b * nty * ntx
+    _, tf, ty, tx = _pixel_terms(points, feats, ids, g, radius)
+    # 1. bin by the clipped window origin (the kernel's window_of)
+    o = torch.floor(points - torch.tensor(radius, dtype=torch.float32))
+    o = torch.where(o.isnan(), float(-k), o)
+    o = torch.minimum(torch.maximum(o, torch.tensor(float(-k))),
+                      torch.tensor([float(h), float(w)])).long()
+    y0, y1 = o[:, 0].clamp_min(0), (o[:, 0] + k).clamp_max(h)
+    x0, x1 = o[:, 1].clamp_min(0), (o[:, 1] + k).clamp_max(w)
+    bi = binds.long()
+    ok = (bi >= 0) & (bi < b) & (y0 < y1) & (x0 < x1)
+    pid = torch.nonzero(ok)[:, 0]
+    bins = ((bi * nty + y0 // th) * ntx + x0 // tw)[pid]
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(len(pid), generator=gen)
+    pid, bins = pid[perm], bins[perm]
+    order = torch.sort(bins, stable=True).indices
+    pid, bins = pid[order], bins[order]                 # entries
+    pos = torch.full((p,), -1, dtype=torch.long)
+    pos[pid] = torch.arange(len(pid))
+    counts = torch.bincount(bins, minlength=nbins)
+    off = torch.cumsum(counts, 0) - counts
+    n_items = -(-counts // item)
+    # 2. each point's won pixels, as (row, column) of its window
+    won = torch.zeros((len(pid), k, k), dtype=torch.bool)
+    flat = ids.reshape(b, h, w)
+    if path == "bits":
+        for t in torch.nonzero(counts)[:, 0].tolist():
+            img, rest = divmod(t, nty * ntx)
+            ys, xs = (rest // ntx) * th, (rest % ntx) * tw
+            yy, xx = torch.meshgrid(torch.arange(ys, min(ys + th + k - 1, h)),
+                                    torch.arange(xs, min(xs + tw + k - 1, w)),
+                                    indexing="ij")
+            q = flat[img, yy, xx].long()
+            q_ok = (q >= 0) & (q < p)
+            e = torch.where(q_ok, pos[q.clamp(0, max(p - 1, 0))], -1)
+            for i in range(int(n_items[t])):            # the bin's items
+                first = int(off[t]) + i * item
+                last = min(int(off[t] + counts[t]), first + item)
+                j = e.clamp_min(0)
+                hit = (q_ok & (e >= first) & (e < last)
+                       & (yy >= y0[pid[j]]) & (yy < y1[pid[j]])
+                       & (xx >= x0[pid[j]]) & (xx < x1[pid[j]]))
+                won[j[hit], (yy - y0[pid[j]])[hit], (xx - x0[pid[j]])[hit]] = True
+    else:
+        r = torch.arange(k)
+        iy = (y0[pid, None] + r).clamp_max(h - 1)
+        ix = (x0[pid, None] + r).clamp_max(w - 1)
+        inside = ((y0[pid, None, None] + r[:, None] < y1[pid, None, None])
+                  & (x0[pid, None, None] + r < x1[pid, None, None]))
+        won = inside & (flat[bi[pid, None, None], iy[:, :, None], ix[:, None, :]]
+                        == pid[:, None, None])
+    # 3. the sums, in row-major order from +0
+    zero = torch.zeros(())
+    base = bi[pid] * (h * w)
+    af, ay, ax = (torch.zeros(len(pid)) for _ in range(3))
+    for r in range(k):
+        for c in range(k):
+            pix = base + ((y0[pid] + r) * w + x0[pid] + c).clamp(0, h * w - 1)
+            hit = won[:, r, c]
+            af = af + torch.where(hit, tf[pix], zero)
+            ay = ay + torch.where(hit, ty[pix], zero)
+            ax = ax + torch.where(hit, tx[pix], zero)
+    pt = torch.zeros(p, 2)
+    pf = torch.zeros(p, 1)
+    pt[pid] = torch.stack([ay, ax], -1)
+    pf[pid, 0] = af
+    return pt, pf
+
+
+def p2i_max_backward(points, feats, binds, ids, g, radius: float, *,
+                     _tile=None, _item: int | None = None,
+                     _path: str | None = None):
     """(d points [P, 2], d feats [P, 1]) of sum(g * out) for the winner ids
     [B, H, W, 1] of a splat of points, feats and binds; see the module
-    docstring."""
+    docstring. ``_tile``, ``_item`` and ``_path`` set the kernel's tile,
+    work-item size and path (``bwd_plan``), for the tests and for tuning;
+    the result does not depend on them."""
     check_input("p2i backward ids", ids, torch.int32, 4, last=1)
     check_input("p2i backward g", g, torch.float32, 4, last=1)
     if ids.shape != g.shape or ids.device != g.device:
@@ -321,11 +452,20 @@ def p2i_max_backward(points, feats, binds, ids, g, radius: float):
     gpf = torch.empty((p, 1), dtype=torch.float32, device=g.device)
     if p == 0:
         return gpt, gpf
+    lib = _lib.lib()
+    plan = bwd_plan(radius, _tile, _item, _path)
+    th, tw = plan["tile"]
+    n_scratch = lib.spn_p2i_bwd_scratch_ints(p, b, h, w, th, tw, plan["item"])
+    if n_scratch < 0:
+        raise ValueError(f"p2i backward: the kernel refuses tiles {(th, tw)} "
+                         f"for {p} points, images {b} x {h} x {w}")
+    scratch = torch.empty((n_scratch,), dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
-        code = _lib.lib().spn_p2i_max_backward(
+        code = lib.spn_p2i_max_backward(
             points.contiguous().data_ptr(), feats.contiguous().data_ptr(),
-            binds.data_ptr(), ids.data_ptr(), g.data_ptr(), p, b, h, w,
-            float(radius), window_size(radius), gpt.data_ptr(),
+            binds.contiguous().data_ptr(), ids.data_ptr(), g.data_ptr(), p, b,
+            h, w, float(radius), window_size(radius), th, tw, plan["item"],
+            plan["words"], plan["hits"], scratch.data_ptr(), gpt.data_ptr(),
             gpf.data_ptr(), _lib.stream_of(g))
     _lib.check(code, "p2i_max_backward")
     _lib.LAUNCHES["p2i_bwd"] += 1

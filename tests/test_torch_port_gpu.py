@@ -211,14 +211,53 @@ def test_gather_max_kernel_matches_plain(cuda, c, k, shift):
 
 
 @pytest.mark.parametrize("bp,s", [(8, 64), (16, 512), (3, 1000), (2, 1500),
-                                  (1, 5000), (1, 14336)])
+                                  (1, 5000), (1, 14336), (1024, 512)])
 def test_expansion_kernel_matches_plain(cuda, bp, s):
-    """parent and charged exact, cost to atol 1e-6."""
+    """parent and charged exact, cost to atol 1e-6 ((1024, 512): the B=32
+    forward's shape)."""
     xyz = (torch.rand(bp, s, 3, generator=_gen()) * 2 - 1).to(cuda)
     par, cost, chg = expansion_penalty.mst_charges(xyz)
     ppar, pcost, pchg = expansion_penalty.mst_charges_plain(xyz)
     assert torch.equal(par, ppar) and torch.equal(chg, pchg)
     assert float((cost - pcost).abs().max()) <= 1e-6
+
+
+def _degenerate_prims(g, bp, s):
+    """The random-init coarse cloud's scale (1e-7), a quarter of the
+    points duplicated, some on a lattice (exact distance ties), one NaN."""
+    x = (torch.rand(bp, s, 3, generator=g) - 0.5) * 1e-7
+    q = s // 4
+    x[:, q:2 * q] = x[:, :q]
+    x[:, 2 * q:3 * q] = torch.round(x[:, 2 * q:3 * q] * 4e7) / 4e7
+    x[0, s // 2, 1] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("bp,s", [(128, 512), (16, 33), (8, 2), (4, 300),
+                                  (4, 700), (2, 1024), (1, 1500)])
+def test_expansion_kernel_degenerate_at_every_width(cuda, bp, s):
+    """A 1e-7-scale cloud with duplicates, lattice ties and a NaN, at the
+    B=4 forward's shape, at S = 33, 2 and 300 (a vertex a thread), 700 and
+    1024 (two) and 1500 (the wide kernel): parent and charged exact, cost
+    to atol 1e-6."""
+    xyz = _degenerate_prims(_gen(), bp, s).to(cuda)
+    par, cost, chg = expansion_penalty.mst_charges(xyz)
+    ppar, pcost, pchg = expansion_penalty.mst_charges_plain(xyz)
+    assert torch.equal(par, ppar) and torch.equal(chg, pchg)
+    assert float((cost - pcost).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("bp", [128, 768, 1024])
+def test_expansion_timing_modes_run(cuda, bp):
+    """The "prim" mode gives the tree with no charges, the "floor" mode
+    launches."""
+    xyz = (torch.rand(bp, 512, 3, generator=_gen()) - 0.5).to(cuda)
+    par, cost, _ = expansion_penalty.mst_charges_plain(xyz[:2])
+    p2, c2, ch2 = expansion_penalty.mst_floor(xyz, "prim")
+    assert torch.equal(p2[:2], par) and torch.equal(c2[:2], cost)
+    assert not bool(ch2.any())
+    expansion_penalty.mst_floor(xyz, "floor")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n,npoint", [(320, 256), (8300, 300), (19384, 600)])
@@ -803,6 +842,63 @@ def test_p2i_backward_kernel_matches_plain(cuda, radius):
         assert scale > 0 and float((a - b).abs().max()) <= 1e-6 * scale
     again = p2i.p2i_max_backward(pts, f, binds, ids, g, radius)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _gan_splat(g, b):
+    """The GAN step's renderer layout: b clouds x 8 views of 16384 points
+    projected into 256 x 256 images, image-major."""
+    from sparenet_tpu_torch.renderer import ComputeDepthMaps
+    r = ComputeDepthMaps(image_size=256)
+    pix, feat = r._project(torch.rand(b, 16384, 3, generator=g) - 0.5,
+                           r.matrices[:, None])
+    binds = torch.arange(b * 8, dtype=torch.int32).repeat_interleave(16384)
+    return (pix.transpose(0, 1).reshape(-1, 2).contiguous(),
+            feat.transpose(0, 1).reshape(-1, 1).contiguous(), binds)
+
+
+def test_p2i_backward_kernel_at_the_gan_shape(cuda):
+    """The B=4 GAN step's shape at R = 10: within 1e-6 of the plain
+    version, two launches bit for bit equal."""
+    pts, f, binds = (t.to(cuda) for t in _gan_splat(_gen(), 4))
+    _, ids = p2i.p2i_max(pts, f, binds, 32, 256, 256, 10.0, True)
+    g = torch.randn(32, 256, 256, 1, generator=_gen()).to(cuda)
+    got = p2i.p2i_max_backward(pts, f, binds, ids, g, 10.0)
+    want = p2i.p2i_max_backward_plain(pts, f, binds, ids, g, 10.0)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    again = p2i.p2i_max_backward(pts, f, binds, ids, g, 10.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("radius", [2.5, 10.0, 40.0])
+def test_p2i_backward_edges_and_tiles(cuda, radius):
+    """Points off the image, NaN points, invalid and scrambled image
+    indices, at the kernel's plan and at forced tiles, work items and the
+    scan path: every plan bit for bit equal to the default, and the default
+    within 1e-6 of the plain version's largest entry (1e-5 at R = 40, where
+    a point sums up to K^2 = 6724 pixels: the plain version's index_add_
+    adds them in another order, with atomics)."""
+    h, w = 96, 160
+    pts, f, binds = _splat_case(_gen(), 3, 1500, h, w)
+    pts[:10] = pts[:10] * 40 - 2000
+    pts[10:14] = float("nan")
+    binds = binds.clone()
+    binds[20:30] = torch.tensor([-1, 3, 7, -5, 2, 0, 1, 2, 0, 1], dtype=torch.int32)
+    perm = torch.randperm(len(binds), generator=_gen())
+    pts, f, binds = (t[perm].contiguous().to(cuda) for t in (pts, f, binds))
+    _, ids = p2i.p2i_max(pts, f, binds, 3, h, w, radius, True)
+    g = torch.randn(3, h, w, 1, generator=_gen()).to(cuda)
+    got = p2i.p2i_max_backward(pts, f, binds, ids, g, radius)
+    want = p2i.p2i_max_backward_plain(pts, f, binds, ids, g, radius)
+    rtol = 1e-5 if radius > 10 else 1e-6
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= rtol * scale
+    for tile, item, path in (((8, 32), 1, None), ((16, 64), 33, None),
+                             ((32, 128), 1000, "scan"), ((8, 32), 7, "scan")):
+        other = p2i.p2i_max_backward(pts, f, binds, ids, g, radius, _tile=tile,
+                                     _item=item, _path=path)
+        assert all(torch.equal(a, b) for a, b in zip(got, other)), (tile, item, path)
 
 
 @pytest.mark.parametrize("arm", ["batched", "hybrid", "exact", "auto"])

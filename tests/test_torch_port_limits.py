@@ -46,6 +46,8 @@ class _Library:
 
         def call(*args):
             self.calls.append((name, args))
+            if name == "spn_p2i_bwd_plan":  # words, tile, item, hits, smem
+                args[-1][:] = (7, 5, 9, 11, 13, 0)
             return 1 if name == "spn_edge_stats_route_bytes" else (
                 16 if "scratch" in name else 0)
         return call
@@ -115,6 +117,48 @@ def test_expansion_takes_s_past_1024(kernels):
     (args,) = _launched(kernels, "spn_expansion")
     assert args[1:3] == (2, 5000)
     assert kernels.caps["spn_expansion_max_points"] >= 14336
+
+
+def test_expansion_passes_its_warps_and_modes(kernels):
+    """The 16-warp kernel takes no warp count: the whole function reaches
+    it as mode 0, the timing modes as 1 (Prim only) and 2 (empty steps)."""
+    x = torch.zeros(3, 512, 3)
+    expansion_penalty.mst_charges(x)
+    expansion_penalty.mst_floor(x, "prim")
+    expansion_penalty.mst_floor(x, "floor")
+    calls = _launched(kernels, "spn_expansion")
+    assert [a[1:4] for a in calls] == [(3, 512, 0), (3, 512, 1), (3, 512, 2)]
+
+
+@pytest.mark.parametrize("radius", [10.0, 46.0, 300.0])
+def test_p2i_backward_takes_any_radius(kernels, radius):
+    """The GAN's radius, a window that takes the smaller tiles and one whose
+    bitmask does not fit: the wrapper asks the library for the plan at the
+    window's K and hands the kernel that plan (test_torch_p2i_bwd_tiles.py:
+    test_plans checks the plans themselves on the card)."""
+    pts, f = torch.zeros(700, 2), torch.zeros(700, 1)
+    binds = torch.zeros(700, dtype=torch.int32)
+    ids = torch.zeros(3, 90, 70, 1, dtype=torch.int32)
+    p2i.p2i_max_backward(pts, f, binds, ids, torch.zeros(3, 90, 70, 1), radius)
+    (plan,) = _launched(kernels, "spn_p2i_bwd_plan")
+    (args,) = _launched(kernels, "spn_p2i_max_backward")
+    assert plan[:5] == (p2i.window_size(radius), 0, 0, 0, 0)
+    assert args[5:9] == (700, 3, 90, 70)
+    assert args[10:16] == (p2i.window_size(radius), 5, 9, 11, 7, 13)
+
+
+def test_p2i_backward_passes_forced_plans(kernels):
+    """Forced tiles, items and the scan path reach the library's plan as
+    (K, rows, columns, item, scan); none forced as zeros."""
+    pts, f = torch.zeros(50, 2), torch.zeros(50, 1)
+    binds = torch.zeros(50, dtype=torch.int32)
+    ids = torch.zeros(2, 40, 30, 1, dtype=torch.int32)
+    g = torch.zeros(2, 40, 30, 1)
+    p2i.p2i_max_backward(pts, f, binds, ids, g, 5.0, _tile=(8, 32), _item=7)
+    p2i.p2i_max_backward(pts, f, binds, ids, g, 5.0, _path="scan")
+    p2i.p2i_max_backward(pts, f, binds, ids, g, 2.5)
+    plans = [a[:5] for a in _launched(kernels, "spn_p2i_bwd_plan")]
+    assert plans == [(12, 8, 32, 7, 0), (12, 0, 0, 0, 1), (8, 0, 0, 0, 0)]
 
 
 @pytest.mark.parametrize("c,k,offset", [(3, 8, 0), (130, 20, 0), (64, 40, 1)])
