@@ -22,14 +22,19 @@ Phases, each printing a flushed line with its elapsed seconds:
      with and without compaction, bit for bit against its plain version;
      the expansion kernel also at the B=32 forward's shape and on a
      degenerate 1e-7-scale cloud (duplicates, a lattice, a NaN) at 1, 4
-     and 16 warps a primitive;
+     and 16 warps a primitive; gather-max at every slice plan (widths 4, 8
+     and 16, without and with a row split; csrc/slices.cuh), its sum bit
+     for bit against the model of its order, two calls equal, with NaN
+     rows and past the slices' reach (the row path);
   3. the main path: the flagship SpareNet eval forward (3000 -> 16384 points,
      full widths, seeded random weights with jittered BatchNorm statistics)
      at B=4, with every launch count set to 0 just before and read just
      after; every kernel launched, no plain version ran;
   4. each kernel on the very inputs the main path gave it: its outputs there
      against the plain version's, and kernel, plain and library times summed
-     over the forward's calls (the numbers of the kernels line); the kNN
+     over the forward's calls (the numbers of the kernels line; the kernel
+     by CUDA events over calls back to back, and with the host ahead:
+     calls enqueued behind a spin kernel, "host_ahead_ms"); the kNN
      queries flagged for the exact scan on those inputs; MDS at every
      cluster size on each of its calls' inputs, bit for bit against C = 1;
      the MDS latency floor: an empty step (no lane pass: the CTA argmin,
@@ -37,7 +42,9 @@ Phases, each printing a flushed line with its elapsed seconds:
      C chosen at B = 4, 24 and 32; the expansion kernel's warps a
      primitive, its empty step (no relaxation) in us, its charging and its
      floor, (S - 1) empty steps + charging, at B = 4, 24 and 32, and the
-     pruning rounds of the forward's trees;
+     pruning rounds of the forward's trees; each gather-max call's slice
+     plan (width, row groups, shared memory), time and share of its byte
+     bound, at B=4 and on its inputs repeated to B=32;
   5. the forward against plain forwards: free-running (every op plain), and
      anchored (the plain forward replays the kernel kNN graphs checked in
      phase 4, so that only reassociation separates the two); two controls
@@ -56,14 +63,17 @@ Phases, each printing a flushed line with its elapsed seconds:
      query and a NaN candidate, with its candidate split count; the
      edge-stats kernels at C = 256, 512, 1024 and 3, at k = 16 and 20 (wide
      route codes) and at N = 4000, with where the backward built its
-     inverse lists (shared or device memory);
+     inverse lists (shared or device memory); the forward also with NaN
+     rows at every slice plan and past the slices' reach (the row path);
   8. the second main path: one flagship training step (the same model and
      widths, EMD + consistency-Chamfer loss, Adam) at B=4 through
      ``runners.sparenet.train_step``, counts set to 0 just before and read
      just after: every kernel of the step launched, no plain version ran;
   9. each training kernel on the very inputs the step gave it: outputs
      against the plain version's, kernel, plain and library times summed
-     over the step's calls; the edge-stats backward by part (route codes,
+     over the step's calls; each edge-stats forward call's slice plan,
+     time and share of its byte bound at B=4 and on its inputs repeated to
+     B=24; the edge-stats backward by part (route codes,
      inverse lists, accumulation; device time by torch.profiler) and the
      NN's candidate splits, both also in the kernels line; the bids' plan
      at the smallest and largest u of the step's rounds (the rounds run at
@@ -171,7 +181,8 @@ from sparenet_tpu_torch.ops import p2i as p2i_op
 from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
 from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
-                                           pairwise_sqdist_graph_seq, sqdist3)
+                                           pairwise_sqdist_graph_seq,
+                                           slice_plan, sqdist3)
 from sparenet_tpu_torch.runners import base as train_base
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
@@ -212,6 +223,26 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     FAILURES.append(msg)
     log(f"FAIL: {msg}")
+
+
+SPIN_CYCLES = 20_000_000  # a spin kernel of about 10 ms at the H100's clock
+
+
+def host_ahead_ms(fn, reps: int = 5) -> float:
+    """Mean milliseconds a call by CUDA events over ``reps`` calls enqueued
+    behind a spin kernel of about 10 ms, after a warm-up: the host is out of
+    the way, so the card runs the calls back to back as fast as it can
+    (their kernels and the gaps between them, no host pacing)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -277,6 +308,11 @@ P2I_BWD_PARTS = {"binning": ("bwd_bin_kernel", "bin_scan_kernel", "Memset"),
                  "tile pass": ("bwd_bits_kernel", "bwd_scan_kernel")}
 # csrc/expansion.cu (the warp kernel; the wide one past S = 1024)
 EXPANSION_KERNELS = ("expansion_warp_kernel", "expansion_wide_kernel")
+# csrc/gather_max.cu and the edge-stats forward (csrc/edge_stats.cu): the
+# slice kernels, the row path past their reach, the sum's partials
+GATHER_KERNELS = ("gather_slice_kernel", "gather_max_kernel",
+                  "sum_partials_kernel")
+STATS_FWD_KERNELS = ("stats_slice_kernel", "stats_fwd_kernel")
 # csrc/edge_stats.cu's backward by part: the route codes, the inverse lists,
 # the ordered accumulation
 EDGE_BWD_PARTS = {"route": ("route_kernel",), "lists": ("lists_kernel",),
@@ -391,18 +427,75 @@ def compare_knn(x, got, want):
             f"beyond the near-tie envelope; max distance gap {err:.3e}")
 
 
+def nan_equal(a, b) -> bool:
+    """Equal bit for bit where not NaN, NaN at the same places."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
 def compare_gather(table, idx, got, want):
-    """max bitwise; the sum reassociates: rtol 1e-5, plus 1e-6 of the sum
-    of |rows| for cancellation in a sum of 24000 terms of either sign."""
+    """max bitwise (NaN-aware); the sum bitwise against the model of the
+    kernel's order under the call's plan (ops/gather.py:
+    gather_max_sum_blocks_plain; the row path of a shape no slice fits has
+    no model), and against the plain sum, which reassociates: rtol 1e-5,
+    plus 1e-6 of the sum of |rows| for cancellation in a sum of 24000
+    terms of either sign, NaN where it has NaN."""
     (out, s), (pout, ps) = got, want
-    exact = torch.equal(out, pout)
+    b, n, c = table.shape
+    plan = slice_plan(b, n, idx.shape[1], c, idx.shape[2])
+    exact = nan_equal(out, pout)
+    model = "row path, no model"
+    ordered = True
+    if plan["width"]:
+        _, ms = gather.gather_max_sum_blocks_plain(table, idx, plan["lanes"],
+                                                   plan["group_rows"])
+        ordered = nan_equal(s, ms)
+        model = f"sum equals its order's model={ordered}"
     abs_sum = gather.gather_rows(table.abs(), idx).sum((1, 2))
     err = (s - ps).abs()
-    sum_ok = bool((err <= 1e-5 * ps.abs() + 1e-6 * abs_sum).all())
-    e = float(err.max())
-    return (exact and sum_ok, e,
-            f"max exact={exact}; sum max abs err {e:.3e}, within "
+    ok = ~ps.isnan()
+    sum_ok = (torch.equal(s.isnan(), ps.isnan()) and bool(
+        (err <= 1e-5 * ps.abs() + 1e-6 * abs_sum)[ok].all()))
+    e = float(err[ok].max()) if bool(ok.any()) else 0.0
+    return (exact and sum_ok and ordered, e,
+            f"plan W={plan['width']} G={plan['groups']}; max exact={exact}; "
+            f"{model}; sum max abs err {e:.3e} against the plain sum, within "
             f"tolerance={sum_ok}")
+
+
+def gather_inputs(gen, dev, b, n, m, c, nan=False):
+    """A table with equal rows and, where asked, NaN in rows the lists
+    name; lists with equal slots."""
+    table = torch.randn(b, n, c, generator=gen)
+    table[:, 1] = table[:, 0]
+    idx = torch.randint(0, n, (b, m, K), generator=gen, dtype=torch.int32)
+    idx[:, :, K - 1] = idx[:, :, 0]
+    if nan:
+        table[0, 7, c // 2] = float("nan")
+        table[-1, 9] = float("nan")
+        idx[:, :3, 1] = 7
+        idx[:, 3:6, 0] = 9
+    return table.to(dev), idx.to(dev)
+
+
+# shapes (B, N, M, C) at which phases 2 and 7 check the slice kernels
+# beside the paths' own, with the plan each takes on an H100
+# (csrc/slices.cuh:make_plan): every width, without and with a row split
+SLICE_SHAPES = [((4, 3000, 3000, 1024), 16, False), ((1, 3000, 3000, 256), 16, True),
+                ((4, 5000, 3000, 256), 8, False), ((1, 5000, 3000, 256), 8, True),
+                ((2, 3000, 3000, 8), 8, True), ((4, 10000, 2000, 256), 4, False),
+                ((1, 10000, 2000, 256), 4, True), ((2, 3000, 3000, 3), 4, True)]
+
+
+def plan_as_expected(shape, width, split) -> tuple[bool, str]:
+    """Whether the plan of a SLICE_SHAPES entry is the width and row split
+    listed, and a description of it."""
+    plan = slice_plan(*shape, K)
+    ok = (plan["width"], plan["groups"] > 1) == (width, split)
+    return ok, (f"{list(shape)}: plan W={plan['width']} G={plan['groups']} "
+                f"(expected W={width}{', split' if split else ''}: {ok})")
+# a cloud past the slices' reach: the row-at-a-time kernels (N, M, C)
+ROW_PATH_SHAPE = (15000, 700, 256)
 
 
 def compare_expansion(got, want):
@@ -491,9 +584,29 @@ def check_random(gen, dev) -> dict:
         table = torch.randn(B_CHECK, n, c, generator=gen).to(dev)
         idx = torch.randint(0, n, (B_CHECK, n, K), generator=gen,
                             dtype=torch.int32).to(dev)
+        want = gather.gather_max_plain(table, idx, need_sum=True)
         verdict("gather_max", f"C={c}", compare_gather(
+            table, idx, gather.gather_max(table, idx, need_sum=True), want))
+        again = gather.gather_max(table, idx, need_sum=True)
+        same = all(torch.equal(x, y) for x, y in zip(
+            again, gather.gather_max(table, idx, need_sum=True)))
+        verdict("gather_max", f"C={c}, two calls", (same, 0.0,
+                                                    f"bit for bit equal={same}"))
+    for shape, width, split in SLICE_SHAPES:
+        planned, what = plan_as_expected(shape, width, split)
+        table, idx = gather_inputs(gen, dev, *shape)
+        ok, e, msg = compare_gather(
             table, idx, gather.gather_max(table, idx, need_sum=True),
-            gather.gather_max_plain(table, idx, need_sum=True)))
+            gather.gather_max_plain(table, idx, need_sum=True))
+        verdict("gather_max", what, (ok and planned, e, msg))
+    for what, (nn_, m, c), nan in (("NaN rows", (n, n, 256), True),
+                                   ("past the slices' reach", ROW_PATH_SHAPE,
+                                    False)):
+        table, idx = gather_inputs(gen, dev, B_CHECK, nn_, m, c, nan)
+        verdict("gather_max", f"[{B_CHECK}, {nn_}, {c}] -> {m} rows, {what}",
+                compare_gather(table, idx,
+                               gather.gather_max(table, idx, need_sum=True),
+                               gather.gather_max_plain(table, idx, need_sum=True)))
     xyz = (torch.rand(B_CHECK * N_PRIMS, PRIM_S, 3, generator=gen) * 2 - 1).to(dev)
     verdict("expansion", f"{list(xyz.shape)}", compare_expansion(
         expansion_penalty.mst_charges(xyz),
@@ -723,6 +836,51 @@ def expansion_latency_floor(calls) -> float:
     return floor_ms
 
 
+def slice_plans(calls, name: str, batch: int) -> dict:
+    """Phases 4 and 9: each of a path's calls of a slice kernel (gather-max,
+    the edge-stats forward) with its plan (width, row groups, shared
+    memory, blocks), its time (CUDA events over calls back to back, which
+    count the host's enqueue where a call enqueues slower than it runs, and
+    with the host ahead: host_ahead_ms) and its share of the byte bound,
+    on the
+    path's own inputs (B_CHECK clouds) and on them repeated to ``batch``
+    clouds (the B=32 forward's, the B=24 step's). Returns, for each batch,
+    the calls' plans and their summed times and bounds."""
+    bound_fn = SPECS[name][3]
+    got = {}
+    for b in (B_CHECK, batch):
+        tot = {"ms": 0.0, "host_ahead_ms": 0.0, "bound_ms": 0.0, "plans": []}
+        for i, (args, kw, _) in enumerate(calls):
+            reps = b // B_CHECK
+            a = tuple(x.repeat(reps, 1, 1).contiguous() for x in args[:2]) + tuple(args[2:])
+            n, c = a[0].shape[1:]
+            m, k = a[1].shape[1:]
+            plan = slice_plan(b, n, m, c, k)
+            ms = cuda_ms(lambda: KERNEL[name](*a, **kw), reps=10)
+            ahead_ms = host_ahead_ms(lambda: KERNEL[name](*a, **kw))
+            b_ms, _ = bound_fn(a, KERNEL[name](*a, **kw))
+            tot["ms"] += ms
+            tot["host_ahead_ms"] += ahead_ms
+            tot["bound_ms"] += b_ms
+            tot["plans"].append({k_: plan[k_] for k_ in ("width", "groups",
+                                                         "smem", "blocks")})
+            log(f"  {name} call {i} at B={b} [{b}, {n}, {c}]: plan W="
+                f"{plan['width']} G={plan['groups']}, shared memory "
+                f"{plan['smem']} B, {plan['blocks']} blocks of "
+                f"{plan['threads']}; {ms:.4f} ms, host ahead {ahead_ms:.4f} "
+                f"ms, bound {b_ms:.5f} ms ({100 * b_ms / ahead_ms:.1f}% of "
+                f"the host-ahead time)")
+            del a
+        log(f"  {name}: the {len(calls)} calls at B={b}: {tot['ms']:.4f} ms "
+            f"(host ahead {tot['host_ahead_ms']:.4f} ms) against a "
+            f"{tot['bound_ms']:.5f} ms byte bound ("
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f}%; "
+            f"{100 * tot['bound_ms'] / tot['host_ahead_ms']:.1f}% of the "
+            f"host-ahead time) on {nvidia_smi()}")
+        got[f"b{b}"] = tot
+    return got
+
+
 def _library_knn(x, k=8, packed=False):
     """cdist + topk: ranks the exact f32 distances (neither the bf16 split
     of parity mode nor serving mode's one bf16 pass and truncated keys)."""
@@ -776,6 +934,15 @@ def compare_exact(got, want):
     n_bad = sum(int((g != w).sum()) for g, w in zip(got, want))
     return (all(same), err, f"outputs exact={all(same)}, {n_bad} elements differ, "
             f"max abs err {err:.3e}")
+
+
+def compare_exact_nan(got, want):
+    """As compare_exact, with NaN equal to NaN at the same place."""
+    same = all(nan_equal(g, w) for g, w in zip(got, want))
+    n_bad = sum(int(((g != w) & ~(g.isnan() & w.isnan())).sum())
+                for g, w in zip(got, want))
+    return (same, 0.0 if same else float("nan"),
+            f"outputs exact (NaN-aware)={same}, {n_bad} elements differ")
 
 
 def _library_nn(x1, x2):
@@ -978,6 +1145,25 @@ def check_random_train(gen, dev) -> dict:
                 compare_exact(chamfer_op.nn_idx(x1, x2),
                               chamfer_op.nn_idx_plain(x1, x2)))
     n = N_INPUT_POINTS
+    table, idx = gather_inputs(gen, dev, b, n, n, 256, nan=True)
+    want = edge_gather.edge_stats_fwd_plain(table, idx)
+    plan = slice_plan(b, n, n, 256, K)
+    verdict("edge_stats_fwd", f"[{b}, {n}, 256] with NaN rows, plan "
+            f"W={plan['width']} G={plan['groups']}", compare_exact_nan(
+                edge_gather.edge_stats_fwd(table, idx), want))
+    for shape, width, split in SLICE_SHAPES:
+        planned, what = plan_as_expected(shape, width, split)
+        table, idx = gather_inputs(gen, dev, *shape, nan=True)
+        ok, e, msg = compare_exact_nan(edge_gather.edge_stats_fwd(table, idx),
+                                       edge_gather.edge_stats_fwd_plain(table, idx))
+        verdict("edge_stats_fwd", f"{what} with NaN rows",
+                (ok and planned, e, msg))
+    nn_, m, c = ROW_PATH_SHAPE
+    table, idx = gather_inputs(gen, dev, b, nn_, m, c)
+    verdict("edge_stats_fwd", f"[{b}, {nn_}, {c}] -> {m} rows, past the "
+            f"slices' reach (plan W={slice_plan(b, nn_, m, c, K)['width']})",
+            compare_exact(edge_gather.edge_stats_fwd(table, idx),
+                          edge_gather.edge_stats_fwd_plain(table, idx)))
     for c, k, rows in ((256, K, n), (512, K, n), (1024, K, n), (3, K, n),
                        (256, 16, n), (256, 20, n), (256, K, 4000)):
         table = torch.randn(b, rows, c, generator=gen)
@@ -1154,20 +1340,41 @@ _TRAIN_GROUPS = (("mds", ("mds_cluster_kernel",)),
                  ("knn", KNN_KERNELS),
                  ("nn_idx", ("nn_split_kernel", "nn_merge_kernel")),
                  ("p2i", P2I_KERNELS),
-                 ("edge_stats", ("stats_fwd_kernel",) + sum(EDGE_BWD_PARTS.values(), ())),
+                 ("edge_stats", STATS_FWD_KERNELS + sum(EDGE_BWD_PARTS.values(), ())),
                  ("expansion", EXPANSION_KERNELS),
                  ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
                  ("conv (cuDNN)", ("conv", "cudnn", "implicit", "wgrad", "dgrad")))
 
 
+def profiled(body, cpu: bool = False, tries: int = 3):
+    """A torch.profiler session (CUDA, and the CPU where ``cpu``) over
+    ``body()``, which synchronises the card; opened again where a session
+    recorded no device time, up to ``tries`` sessions, each reopening
+    logged. On an H100 a session now and then records none (1 of 900
+    short sessions of scripts/port_profiler_sessions.py, cause not found);
+    the callers fail where the last session is empty too. Returns the
+    last session's profiler and body's result."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for i in range(tries):
+        with profile(activities=acts) as prof:
+            got = body()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 for e in prof.key_averages()):
+            break
+        log(f"  the profiler recorded no device time in session {i + 1} of "
+            f"{tries}")
+    return prof, got
+
+
 def profile_step(run, b: int) -> None:
     """One profiled step (``run()``, synchronised): device time by kernel
     group, busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def body():
         t = time.perf_counter()
         run()
-        wall_ms = (time.perf_counter() - t) * 1e3
+        return (time.perf_counter() - t) * 1e3
+    prof, wall_ms = profiled(body, cpu=True)
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1193,15 +1400,16 @@ def kernel_parts(calls, name: str, groups: dict, reps: int = 5) -> dict:
     """Device ms of each group of a wrapper's kernels (by kernel name),
     summed over the recorded calls, by torch.profiler over ``reps`` launches
     a call after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
     tot = dict.fromkeys(groups, 0.0)
     for args, kw, _ in calls:
         KERNEL[name](*args, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def body():
             for _ in range(reps):
                 KERNEL[name](*args, **kw)
             torch.cuda.synchronize()
+        prof, _ = profiled(body)
         for e in prof.key_averages():
             g = next((g for g, pats in groups.items()
                       if any(p in e.key for p in pats)), None)
@@ -1225,8 +1433,6 @@ def device_timeline(fn, names, reps: int = 5) -> dict:
     and idle ms, and the idle ms between calls (None where the records do
     not split into calls of the same ops)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    spin = 20_000_000  # cycles, about 10 ms at the H100's clock
     fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1234,20 +1440,14 @@ def device_timeline(fn, names, reps: int = 5) -> dict:
         fn()
     host = (time.perf_counter() - t) * 1e3 / reps
     torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    out = {"host_enqueue_ms": host, "ms_host_ahead": a.elapsed_time(b) / reps,
+    out = {"host_enqueue_ms": host, "ms_host_ahead": host_ahead_ms(fn, reps),
            "timeline": None}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(spin)
+    def body():
+        torch.cuda._sleep(SPIN_CYCLES)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    prof, _ = profiled(body)
     dev_ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     after = max((e.time_range.end for e in dev_ops if "spin_kernel" in e.name),
                 default=float("-inf"))
@@ -1280,6 +1480,25 @@ def timed_steps(run, n: int = 3) -> float:
         run(i)
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / n
+
+
+def step_times(run, n: int = 3) -> list[float]:
+    """ms of each of n steps (``run(i)``), each synchronised."""
+    out = []
+    for i in range(n):
+        t = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def allocator_counts() -> dict:
+    """The caching allocator's counts of retries (a malloc that failed,
+    freed the cache and tried again) and of cudaMalloc and cudaFree calls."""
+    st = torch.cuda.memory_stats()
+    return {k: int(st.get(k, 0)) for k in ("num_alloc_retries",
+                                           "num_device_alloc", "num_device_free")}
 
 
 def train_throughput(state, gen, dev) -> None:
@@ -1357,6 +1576,8 @@ def main_train(model_state, dev) -> tuple[dict, dict, dict]:
 
     log("phase 9: each training kernel on the inputs the step gave it")
     rows = check_forward_calls(calls, errs, TRAIN_OPS, "step")
+    rows["edge_stats_fwd"]["plans"] = slice_plans(calls["edge_stats_fwd"],
+                                                  "edge_stats_fwd", B_TRAIN)
     parts = kernel_parts(calls["edge_stats_bwd"], "edge_stats_bwd", EDGE_BWD_PARTS)
     rows["edge_stats_bwd"]["parts_ms"] = parts
     log(f"  edge_stats_bwd by part over the step's "
@@ -1641,12 +1862,16 @@ def main_gan(gstate: dict, dstate: dict, dev) -> tuple[dict, dict]:
 def gan_throughput(gstate: dict, dstate: dict, gen, dev) -> None:
     """Phase 16: GAN steps at B=32, or the largest batch that fits, one
     radius of sparenet_gan.yaml each in turn: ms per step over 3 steps after
-    one warm-up, clouds/s, peak memory; one profiled step; the 3 steps
-    and one profiled step again in deterministic mode."""
+    one warm-up (each step synchronised and its ms printed, with the caching
+    allocator's retries, cudaMalloc and cudaFree calls over the 3 and the
+    memory earlier phases still hold), clouds/s, peak memory; one profiled
+    step; the 3 steps and one profiled step again in deterministic mode."""
     for b in (B_GAN, 24, 16, 8):
         models = None
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        held_reserved = torch.cuda.memory_reserved()
         try:
             models = fresh_gan(gstate, dstate, dev)
             partial, gt = (t.to(dev) for t in train_batch(gen, b))
@@ -1654,7 +1879,10 @@ def gan_throughput(gstate: dict, dstate: dict, gen, dev) -> None:
             def step(i):
                 run_gan(models, partial, gt, RADII[i % len(RADII)], False)
             step(len(RADII) - 1)
-            ms = timed_steps(step, len(RADII))
+            before = allocator_counts()
+            each = step_times(step, len(RADII))
+            after = allocator_counts()
+            ms = sum(each) / len(each)
         except torch.cuda.OutOfMemoryError:
             log(f"  B={b}: out of memory (peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
@@ -1664,7 +1892,14 @@ def gan_throughput(gstate: dict, dstate: dict, gen, dev) -> None:
         log(f"  B={b}: {ms:.1f} ms per GAN step (radii {list(RADII)}, one a "
             f"step), {b / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} GiB "
             f"(max_memory_allocated) on {nvidia_smi()}")
+        log(f"  B={b}: each step, ms (radius): " + ", ".join(
+            f"{t:.1f} ({RADII[i % len(RADII)]})" for i, t in enumerate(each))
+            + "; the caching allocator over the steps: " + ", ".join(
+                f"{k} {after[k] - before[k]:+d}" for k in before)
+            + f"; held before the phase {held / 2**30:.2f} GiB allocated, "
+            f"{held_reserved / 2**30:.2f} GiB reserved")
         PATHS[f"gan_b{b}_ms"] = ms
+        PATHS[f"gan_b{b}_step_ms"] = each
         profile_step(lambda: step(1), b)
         with deterministic():
             det = timed_steps(step, len(RADII))
@@ -1685,7 +1920,7 @@ def check_forward_calls(calls: dict, errs: dict, names=EVAL_OPS,
     rows = {}
     for name in names:
         library, reps, compare, bound_fn = SPECS[name]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        tot = {"ms": 0.0, "host_ahead_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "library_ms": 0.0 if library else None,
                "max_abs_err": errs[name]}
         by = set()
@@ -1697,6 +1932,7 @@ def check_forward_calls(calls: dict, errs: dict, names=EVAL_OPS,
                 fail(f"{name} call {i} of the {what}: kernel differs from "
                      f"the plain version")
             ms = cuda_ms(lambda: KERNEL[name](*args, **kw), reps=reps)
+            ahead = host_ahead_ms(lambda: KERNEL[name](*args, **kw), reps=reps)
             pms = cuda_ms(lambda: PLAIN[name](*args, **kw), reps=1, warmup=0)
             lms = (cuda_ms(lambda: library(*args, **kw), reps=3)
                    if library else None)
@@ -1704,11 +1940,12 @@ def check_forward_calls(calls: dict, errs: dict, names=EVAL_OPS,
             by.add(b_by)
             shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
             if len(calls[name]) <= 8 or i % 10 == 0:
-                log(f"  {name} call {i} {shapes}: {msg}; kernel {ms:.4f} ms, "
-                    f"plain {pms:.4f} ms"
+                log(f"  {name} call {i} {shapes}: {msg}; kernel {ms:.4f} ms "
+                    f"(host ahead {ahead:.4f}), plain {pms:.4f} ms"
                     + (f", library {lms:.4f} ms" if library else "")
                     + f", bound {b_ms:.5f} ms ({b_by})")
             tot["ms"] += ms
+            tot["host_ahead_ms"] += ahead
             tot["plain_ms"] += pms
             tot["bound_ms"] += b_ms
             if library:
@@ -1716,7 +1953,8 @@ def check_forward_calls(calls: dict, errs: dict, names=EVAL_OPS,
         tot["bound_by"] = "bytes" if by == {"bytes"} else "operations"
         lib_ms = "none" if library is None else f"{tot['library_ms']:.4f} ms"
         log(f"  {name}: {len(calls[name])} calls per {what}: kernel "
-            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['ms']:.4f} ms (host ahead {tot['host_ahead_ms']:.4f} ms), "
+            f"plain {tot['plain_ms']:.4f} ms, library "
             f"{lib_ms}, bound {tot['bound_ms']:.5f} ms")
         rows[name] = tot
     return rows
@@ -1841,7 +2079,7 @@ def compare_forwards(model, partial, calls, outs) -> None:
 
 
 _GROUPS = (("knn", KNN_KERNELS),
-           ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
+           ("gather_max", GATHER_KERNELS),
            ("expansion", EXPANSION_KERNELS),
            ("mds", ("mds_cluster_kernel",)),
            ("gemm", ("gemm", "xmma", "cutlass", "cublas")))
@@ -1851,12 +2089,12 @@ def profile_forward(model, partial, groups=None) -> None:
     """One profiled forward: device time by kernel group, busy share of
     the wall time (the profiler's own overhead counts as idle)."""
     groups_def = groups or _GROUPS
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def body():
         t = time.perf_counter()
         complete(model, partial)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+        return (time.perf_counter() - t) * 1e3
+    prof, wall_ms = profiled(body, cpu=True)
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2171,7 +2409,7 @@ def main_serving(state: dict, partial, parity_outs, errs: dict, dev):
 
 
 _SERVE_GROUPS = (("knn (packed)", KNN_KERNELS),
-                 ("gather_max", ("gather_max_kernel", "sum_partials_kernel")),
+                 ("gather_max", GATHER_KERNELS),
                  ("mds continuation", (CONTINUE_KERNEL,)),
                  ("mds (exact)", ("mds_cluster_kernel",)),
                  ("sort", ("radix", "sort")),
@@ -2287,6 +2525,8 @@ def main() -> int:
 
     log("phase 4: each kernel on the inputs the main path gave it")
     results = check_forward_calls(calls, errs)
+    results["gather_max"]["plans"] = slice_plans(calls["gather_max"],
+                                                 "gather_max", B_BENCH)
     report_flagged(calls["knn"], "the forward's inputs")
     for i, (a, kw, out) in enumerate(calls["mds"]):
         check_mds_clusters(a[0], a[1], a[2], out, errs,
@@ -2395,7 +2635,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "state": "ported"})
-        for key in ("latency_floor_ms", "parts_ms", "splits"):
+        for key in ("host_ahead_ms", "latency_floor_ms", "parts_ms", "splits",
+                    "plans"):
             if key in r:
                 kernels[-1][key] = r[key]
     if FAILURES:

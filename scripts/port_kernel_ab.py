@@ -4,7 +4,7 @@ on one card:
 
     git archive PARENT | tar -x -C _archive/a     # and the change in _archive/c
     for d in a c c a; do python scripts/port_kernel_ab.py _archive/$d $d; done
-    python scripts/port_kernel_ab.py _archive/c c expansion,p2i_bwd   # some groups
+    python scripts/port_kernel_ab.py _archive/c c gather,edge   # some groups
 
 The optional third argument names the groups to run (bids, mds, expansion,
 gather, edge, nn, continue, p2i, p2i_bwd; all by default).
@@ -17,8 +17,10 @@ a u-row list) and B=24, one whole 50-round auction, MDS at B=4, 24 and
 ellipsoid shell (mml 0.01), and, where the copy has them, the cluster size
 chosen and the latency floor in us a step at C = 1, 3, 16; then the
 kernels at the main paths' shapes: expansion on [128, 512, 3], gather-max
-with sums on [4, 3000, 256] and [4, 3000, 1024] and the edge-stats
-forward on [4, 3000, 256] and the backward on [4, 3000, 256], [4, 3000,
+with sums on [B, 3000, C] (B = 4 and 32, the eval forward's) and the
+edge-stats forward on [B, 3000, C] (B = 4 and 24, the training step's),
+C = 256, 512 and 1024, at k = 8, each with a digest of its outputs (the
+gather's max and sum apart), and the backward on [4, 3000, 256], [4, 3000,
 1024], [24, 3000, 256] and [24, 3000, 1024] at k = 8, each with its parts
 (route codes, inverse lists, accumulation: device ms by torch.profiler),
 the chamfer NN on [4, 16384] x [4, 16384] and [24, 16384] x [24, 16384],
@@ -152,14 +154,25 @@ if run("expansion"):
         xe = ((torch.rand(bp, 512, 3, generator=ge) - 0.5) * 1e-7).to(dev)
         out[f"expansion_{bp}"] = ms(lambda: expansion_penalty.mst_charges(xe), reps=20)
         out[f"expansion_{bp}_digest"] = digest(*expansion_penalty.mst_charges(xe))
-t = torch.randn(4, 3000, 256, generator=g).to(dev)
-idx = torch.randint(0, 3000, (4, 3000, 8), generator=g, dtype=torch.int32).to(dev)
-t4 = torch.randn(4, 3000, 1024, generator=g).to(dev)
-if run("gather"):
-    out["gather_max"] = ms(lambda: gather.gather_max(t, idx, need_sum=True), reps=200)
-    out["gather_max_1024"] = ms(lambda: gather.gather_max(t4, idx, need_sum=True), reps=100)
-if run("edge"):
-    out["edge_fwd"] = ms(lambda: edge_gather.edge_stats_fwd(t, idx), reps=200)
+ge = torch.Generator().manual_seed(3)
+for group, batches in (("gather", (4, 32)), ("edge", (4, 24))):
+    for b in (batches if run(group) else ()):
+        idx = torch.randint(0, 3000, (b, 3000, 8), generator=ge,
+                            dtype=torch.int32).to(dev)
+        for c in (256, 512, 1024):
+            tb = torch.randn(b, 3000, c, generator=ge).to(dev)
+            call = ((lambda: gather.gather_max(tb, idx, need_sum=True))
+                    if group == "gather" else
+                    (lambda: edge_gather.edge_stats_fwd(tb, idx)))
+            key = f"{'gather_max' if group == 'gather' else 'edge_fwd'}_b{b}_c{c}"
+            out[key] = ms(call, reps=100 if b == 4 else 20)
+            res = call()
+            if group == "gather":   # the max, and the sum (its order may differ)
+                out[f"{key}_digest"] = digest(res[0])
+                out[f"{key}_sum_digest"] = digest(res[1])
+            else:
+                out[f"{key}_digest"] = digest(*res)
+            del tb, res
 for b in ((4, 24) if run("edge") else ()):
     idx = torch.randint(0, 3000, (b, 3000, 8), generator=g,
                         dtype=torch.int32).to(dev)

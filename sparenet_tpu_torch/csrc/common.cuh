@@ -48,6 +48,15 @@ __device__ __forceinline__ void warp_argmin_payload(float& v, int& i, float& p) 
   }
 }
 
+// NaN-propagating max and min, as torch.amax / jnp.maximum (and min): a
+// NaN in either argument wins.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
 // x rounded to bfloat16 (round to nearest even) and widened back to float:
 // one term of the 3-term bf16 split used by the kNN graph distance.
 __device__ __forceinline__ float bf16_round(float x) {
@@ -59,6 +68,32 @@ __device__ __forceinline__ float bf16_round(float x) {
 // reference's XLA CPU program computes for sum((p - q) ** 2, axis=-1).
 __device__ __forceinline__ float sqdist3(float dx, float dy, float dz) {
   return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
+}
+
+// Asynchronous copies into shared memory (cp.async): 16 bytes through L2
+// only (both addresses 16-byte aligned), or 4 bytes through L1 (`.cg`
+// takes only 16). A group is committed, then waited for until at most N
+// newer groups are pending; a __syncthreads() after the wait makes every
+// thread's copies visible to the block.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace spn

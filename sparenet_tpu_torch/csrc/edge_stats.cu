@@ -27,11 +27,15 @@
 // channel) at k = 8, 0.235 ms for the four calls of a B=4 training step at
 // an H100 SXM's published 3.35 TB/s (700 W; measured times in PERF.md).
 //
-// Design, forward: as the gather-max kernel, a block takes 32 points of one
-// cloud; threads run across C with 16-byte loads (where C % 4 == 0 and the
-// rows are 16-byte aligned; else one channel a thread), so a gathered row
-// is read by neighbouring threads at neighbouring addresses; all four
-// statistics accumulate in registers in slot order.
+// Design, forward: stats_slice_kernel, a channel slice of the cloud's
+// table held in shared memory (slices.cuh, shared with the gather-max
+// kernel: a block is (cloud, row group, slice), the slice copied in by
+// cp.async, each row's k reads from shared memory); all four statistics
+// accumulate in registers in slot order, and each row's W channels of the
+// four outputs are written as W x 4 contiguous bytes. Where no slice fits
+// (N > 13760 at k = 8), stats_fwd_kernel: a block takes 32 points of one
+// cloud, threads across C with 16-byte loads where C % 4 == 0 and the rows
+// are 16-byte aligned (else one channel a thread).
 //
 // Design, backward: the TPU kernel scatters every (m, j) contribution into a
 // gradient table held in VMEM, in ascending (m, j) order because its grid
@@ -71,8 +75,13 @@
 #include <mutex>
 
 #include "common.cuh"
+#include "slices.cuh"
 
 namespace {
+
+using spn::max_nan;
+using spn::min_nan;
+namespace sl = spn::slices;
 
 constexpr int kRows = 32;      // points a block of the forward
 constexpr int kThreads = 256;  // per block
@@ -90,14 +99,6 @@ constexpr int kSortPadded = kSortThreads * (kSortItems + 1);
 // rows of the radix path: its first-slot targets (2 bytes a slot) and row
 // flags (a byte a row) fit the count columns' 64 KB
 constexpr int kMaxSortRows = kDigits * kSortThreads * 4 - 2 * kSortThreads * kSortItems;
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  // NaN-propagating, as jnp.maximum and torch.amax
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
 
 // V consecutive elements at p (aligned to V elements when V = 4)
 template <int V>
@@ -154,7 +155,50 @@ __device__ __forceinline__ const int* stage_idx(int* sidx, const int* ib,
   return staged ? sidx : ib;
 }
 
-// threads: blockDim.x = tx across the C / V vectors, blockDim.y = 256 / tx
+// The four statistics of a row's slots, in slot order.
+struct Stats {
+  float *mx, *mn, *s1, *s2;
+  float4 a, i, s, q, r0;
+  __device__ void first(float4 r) {
+    a = i = s = r0 = r;
+    q = make_float4(__fmul_rn(r.x, r.x), __fmul_rn(r.y, r.y),
+                    __fmul_rn(r.z, r.z), __fmul_rn(r.w, r.w));
+  }
+  __device__ static float sq(float r, float acc) { return __fmaf_rn(r, r, acc); }
+  __device__ void next(int j, float4 r) {
+    a = make_float4(max_nan(a.x, r.x), max_nan(a.y, r.y), max_nan(a.z, r.z),
+                    max_nan(a.w, r.w));
+    i = make_float4(min_nan(i.x, r.x), min_nan(i.y, r.y), min_nan(i.z, r.z),
+                    min_nan(i.w, r.w));
+    s = make_float4(__fadd_rn(s.x, r.x), __fadd_rn(s.y, r.y),
+                    __fadd_rn(s.z, r.z), __fadd_rn(s.w, r.w));
+    if (j == 1)  // the reference contracts r0*r0 + r1*r1 into fma(r0, r0, r1*r1)
+      q = make_float4(sq(r0.x, __fmul_rn(r.x, r.x)), sq(r0.y, __fmul_rn(r.y, r.y)),
+                      sq(r0.z, __fmul_rn(r.z, r.z)), sq(r0.w, __fmul_rn(r.w, r.w)));
+    else
+      q = make_float4(sq(r.x, q.x), sq(r.y, q.y), sq(r.z, q.z), sq(r.w, q.w));
+  }
+  __device__ void store(size_t o, int valid, bool vec) {
+    sl::st4(mx + o, a, valid, vec);
+    sl::st4(mn + o, i, valid, vec);
+    sl::st4(s1 + o, s, valid, vec);
+    sl::st4(s2 + o, q, valid, vec);
+  }
+  __device__ void close(const sl::Shape&, const sl::Place&, float*) {}
+};
+
+template <int K>
+__global__ void __launch_bounds__(sl::kThreads)
+stats_slice_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                   sl::Shape sh, float* __restrict__ mx, float* __restrict__ mn,
+                   float* __restrict__ s1, float* __restrict__ s2) {
+  extern __shared__ float4 smem4[];
+  Stats e{mx, mn, s1, s2};
+  sl::pass<K>(table, idx, sh, reinterpret_cast<float*>(smem4), e);
+}
+
+// The row path. threads: blockDim.x = tx across the C / V vectors,
+// blockDim.y = 256 / tx
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 stats_fwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
@@ -722,8 +766,18 @@ extern "C" int spn_edge_stats_fwd(const float* table, const int* idx, int batch,
                                   int n, int m, int c, int k, float* mx,
                                   float* mn, float* s1, float* s2,
                                   void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || c < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  sl::Plan p;
+  const cudaError_t err = sl::make_plan(batch, n, m, c, k, &p);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.width > 0) {
+    const sl::Shape sh = sl::shape_of(p, n, m, c, k,
+                                      vector_path(c, table, mx, mn, s1, s2), idx);
+    return (int)(k == 8 ? sl::launch(stats_slice_kernel<8>, p, st, table, idx,
+                                     sh, mx, mn, s1, s2)
+                        : sl::launch(stats_slice_kernel<0>, p, st, table, idx,
+                                     sh, mx, mn, s1, s2));
+  }
   const dim3 grid((m + kRows - 1) / kRows, batch);
   if (vector_path(c, table, mx, mn, s1, s2))
     stats_fwd_kernel<4><<<grid, row_block(c / 4), 0, st>>>(table, idx, n, m, c, k,

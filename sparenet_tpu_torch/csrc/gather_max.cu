@@ -6,31 +6,95 @@
 // by the eval EdgeConv commute path (sparenet_tpu/models/layers.py,
 // EdgeConv1x1._commute).
 //
-// Bound on an H100: bytes. Each output row reads k random table rows of C
-// floats; the table (N*C*4 bytes per cloud, at most 12 MB on the model's
-// path) stays in the 50 MB L2, so the least traffic is one read of the table
-// and the indices and one write of the output.
+// Bound on an H100: bytes. The least traffic is one read of the table and
+// the indices and one write of the output (and the sum).
 //
-// Design: a block takes 32 output rows of one cloud and stages their
-// indices in shared memory (read from device memory directly above 16
-// neighbours). Threads run across C, with 16-byte loads where C % 4 == 0
-// and the table is 16-byte aligned, else one channel a thread; either way a
-// gathered row is read by neighbouring threads at neighbouring addresses.
-// The max is taken in registers with no reassociation, so it equals the
-// plain version exactly. The sum avoids atomics: each block writes its
-// per-column partial sums to scratch [B, blocks, C], and a second small
-// kernel adds them in block order, so the result is the same on every run.
+// Design: gather_slice_kernel, a channel slice of the cloud's table held in
+// shared memory (slices.cuh: a block is (cloud, row group, slice), the
+// slice copied in by cp.async, the rows' k reads from shared memory). The
+// max is taken in registers in slot order, with no reassociation, so it
+// equals the plain version exactly. The sum, in a fixed order and the same
+// on every run: each thread adds its rows' slots in order (rows q, q + R,
+// ... of its group, R rows a chunk), the block adds its R row lanes by a
+// halving tree in shared memory (lane q += lane q + h, h = R / 2, ..., 1);
+// a block that holds its cloud's every row writes the sum itself, and with
+// row groups each group writes a partial [B, groups, C] that
+// sum_partials_kernel adds in group order (ops/gather.py:
+// gather_max_sum_blocks_plain is this order in PyTorch).
+//
+// Where no slice fits in shared memory (slices.cuh: N > 13760 at k = 8),
+// gather_max_kernel: a block takes 32 output rows of one cloud, threads
+// across C with 16-byte loads where C % 4 == 0 and the table is 16-byte
+// aligned, and the sum goes through per-block partials [B, ceil(M / 32),
+// C] and sum_partials_kernel.
 #include "common.cuh"
+#include "slices.cuh"
 
 namespace {
 
-constexpr int kRows = 32;      // output rows per block
+using spn::max_nan;
+namespace sl = spn::slices;
+
+constexpr int kRows = 32;      // output rows a block of the row path
 constexpr int kThreads = 256;
 constexpr int kStageK = 16;    // neighbour lists staged in shared memory
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  // NaN-propagating max, as torch.amax / jnp.max
-  return (a > b || a != a) ? a : b;
+// The max of a row's slots, and the thread's running sum over its rows;
+// at the block's close, the sum of its row lanes.
+struct MaxSum {
+  float* out;
+  float* sum;      // [B, C] where a block holds every row of its cloud
+  float* partial;  // [B, groups, C] where it holds a row group
+  float4 mx, acc;
+  __device__ void first(float4 r) {
+    mx = r;
+    add(r);
+  }
+  __device__ void next(int, float4 r) {
+    mx = make_float4(max_nan(mx.x, r.x), max_nan(mx.y, r.y), max_nan(mx.z, r.z),
+                     max_nan(mx.w, r.w));
+    add(r);
+  }
+  __device__ void add(float4 r) {
+    acc = make_float4(__fadd_rn(acc.x, r.x), __fadd_rn(acc.y, r.y),
+                      __fadd_rn(acc.z, r.z), __fadd_rn(acc.w, r.w));
+  }
+  __device__ void store(size_t o, int valid, bool vec) {
+    sl::st4(out + o, mx, valid, vec);
+  }
+  // the row lanes by a halving tree in the slice's space
+  __device__ void close(const sl::Shape& sh, const sl::Place& at, float* smem) {
+    if (sum == nullptr && partial == nullptr) return;
+    __syncthreads();  // every thread done with the slice
+    float* red = smem + 4 * (threadIdx.x & ((sh.width >> 2) - 1));
+    *reinterpret_cast<float4*>(red + at.q * sh.width) = acc;
+    __syncthreads();
+    for (int h = sl::kLanes >> 1; h > 0; h >>= 1) {
+      if (at.q < h) {
+        const float4 a = sl::ld4(red + at.q * sh.width);
+        const float4 o = sl::ld4(red + (at.q + h) * sh.width);
+        *reinterpret_cast<float4*>(red + at.q * sh.width) =
+            make_float4(__fadd_rn(a.x, o.x), __fadd_rn(a.y, o.y),
+                        __fadd_rn(a.z, o.z), __fadd_rn(a.w, o.w));
+      }
+      __syncthreads();
+    }
+    if (at.q == 0 && at.ch < sh.c) {
+      float* dst = partial ? partial + ((size_t)at.b * sh.groups + at.g) * sh.c
+                           : sum + (size_t)at.b * sh.c;
+      sl::st4(dst + at.ch, sl::ld4(red), sh.c - at.ch, false);
+    }
+  }
+};
+
+template <int K>
+__global__ void __launch_bounds__(sl::kThreads)
+gather_slice_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                    sl::Shape sh, float* __restrict__ out,
+                    float* __restrict__ sum, float* __restrict__ partial) {
+  extern __shared__ float4 smem4[];
+  MaxSum e{out, sum, partial, {}, make_float4(0.f, 0.f, 0.f, 0.f)};
+  sl::pass<K>(table, idx, sh, reinterpret_cast<float*>(smem4), e);
 }
 
 // V consecutive floats at p (16-byte aligned when V = 4)
@@ -53,8 +117,9 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
   }
 }
 
-// V channels a thread (4: float4 loads; 1: any C and alignment);
-// blockDim.x = tx threads across the C / V vectors, blockDim.y = 256 / tx
+// The row path. V channels a thread (4: float4 loads; 1: any C and
+// alignment); blockDim.x = tx threads across the C / V vectors,
+// blockDim.y = 256 / tx
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 gather_max_kernel(const float* __restrict__ table, const int* __restrict__ idx,
@@ -125,6 +190,7 @@ gather_max_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
+// sum[b, c] = partial[b, 0, c] + ... + partial[b, nblk - 1, c], from 0
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int nblk,
                                     int c, float* __restrict__ sum) {
   const int b = blockIdx.y;
@@ -132,14 +198,14 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, int nblk,
   if (col >= c) return;
   const float* p = partial + (size_t)b * nblk * c + col;
   float s = 0.f;
-  for (int i = 0; i < nblk; ++i) s += p[(size_t)i * c];
+  for (int i = 0; i < nblk; ++i) s = __fadd_rn(s, p[(size_t)i * c]);
   sum[(size_t)b * c + col] = s;
 }
 
 template <int V>
-cudaError_t launch(const float* table, const int* idx, int batch, int n, int m,
-                   int c, int k, float* out, float* partial, int nblk,
-                   cudaStream_t st) {
+cudaError_t launch_rows(const float* table, const int* idx, int batch, int n,
+                        int m, int c, int k, float* out, float* partial,
+                        int nblk, cudaStream_t st) {
   const int cv = c / V;
   int tx = 1;
   while (tx * 2 <= cv && tx * 2 <= kThreads) tx *= 2;
@@ -149,26 +215,53 @@ cudaError_t launch(const float* table, const int* idx, int batch, int n, int m,
   return cudaGetLastError();
 }
 
+// rows of the partial sums need_sum takes: the row groups where there are
+// more than one, the row path's blocks, or 0
+int partial_rows(const sl::Plan& p, int m) {
+  if (p.width == 0) return (m + kRows - 1) / kRows;
+  return p.groups > 1 ? p.groups : 0;
+}
+
 }  // namespace
 
-extern "C" int spn_gather_rows_per_block(void) { return kRows; }
+// Rows of the partials [B, rows, C] spn_gather_max takes with the sum for a
+// [B, N, C] table and [B, M, k] lists (0: none), or a negative CUDA error.
+extern "C" int spn_gather_partial_rows(int batch, int n, int m, int c, int k) {
+  sl::Plan p;
+  const cudaError_t err = sl::make_plan(batch, n, m, c, k, &p);
+  return err == cudaSuccess ? partial_rows(p, m) : -(int)err;
+}
 
-// partial [B, ceil(M / 32), C] and sum [B, C] are both null or both set.
+// sum [B, C] null without the sum; partial [B, rows, C] with the sum where
+// spn_gather_partial_rows gives rows, else null.
 extern "C" int spn_gather_max(const float* table, const int* idx, int batch,
                               int n, int m, int c, int k, float* out,
                               float* partial, float* sum, void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || c < 1 || k < 1 ||
-      ((partial == nullptr) != (sum == nullptr)))
-    return (int)cudaErrorInvalidValue;
+  sl::Plan p;
+  cudaError_t err = sl::make_plan(batch, n, m, c, k, &p);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = sum == nullptr ? 0 : partial_rows(p, m);
+  if ((rows > 0) != (partial != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (m + kRows - 1) / kRows;
-  const bool vec = c % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0 &&
-                   reinterpret_cast<size_t>(out) % 16 == 0 &&
-                   reinterpret_cast<size_t>(partial) % 16 == 0;
-  cudaError_t err = vec ? launch<4>(table, idx, batch, n, m, c, k, out, partial, nblk, st)
-                        : launch<1>(table, idx, batch, n, m, c, k, out, partial, nblk, st);
-  if (err != cudaSuccess || partial == nullptr) return (int)err;
+  if (p.width > 0) {
+    const bool vec = c % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0 &&
+                     reinterpret_cast<size_t>(out) % 16 == 0;
+    const sl::Shape sh = sl::shape_of(p, n, m, c, k, vec, idx);
+    float* whole = rows > 0 ? nullptr : sum;
+    err = k == 8 ? sl::launch(gather_slice_kernel<8>, p, st, table, idx, sh,
+                              out, whole, partial)
+                 : sl::launch(gather_slice_kernel<0>, p, st, table, idx, sh,
+                              out, whole, partial);
+  } else {
+    const bool vec = c % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0 &&
+                     reinterpret_cast<size_t>(out) % 16 == 0 &&
+                     reinterpret_cast<size_t>(partial) % 16 == 0;
+    const int nblk = (m + kRows - 1) / kRows;
+    err = vec ? launch_rows<4>(table, idx, batch, n, m, c, k, out, partial, nblk, st)
+              : launch_rows<1>(table, idx, batch, n, m, c, k, out, partial, nblk, st);
+  }
+  if (err != cudaSuccess || rows == 0) return (int)err;
   const dim3 g2((c + 255) / 256, batch);
-  sum_partials_kernel<<<g2, 256, 0, st>>>(partial, nblk, c, sum);
+  sum_partials_kernel<<<g2, 256, 0, st>>>(partial, rows, c, sum);
   return (int)cudaGetLastError();
 }

@@ -166,20 +166,9 @@ static_assert(kThreads == 2 * kNT && kQT == kNT, "one 16-byte copy a thread");
 // M, the shortlist a query keeps
 __host__ __device__ constexpr int list_len(int k) { return 2 * k; }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using spn::cp_async16;
+using spn::cp_async_commit;
+using spn::cp_async_wait;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));

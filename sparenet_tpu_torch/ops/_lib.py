@@ -61,7 +61,8 @@ _SIGNATURES = {
     "spn_error_string": ((_I,), ctypes.c_char_p),
     "spn_knn_scratch_bytes": ((_I, _I, _I, _I, _I), ctypes.c_longlong),
     "spn_knn": ((_P, _P, _I, _I, _I, _I, _P, _P, _P), _I),
-    "spn_gather_rows_per_block": ((), _I),
+    "spn_slice_plan": ((_I,) * 5 + (_P,), _I),
+    "spn_gather_partial_rows": ((_I,) * 5, _I),
     "spn_gather_max": ((_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P), _I),
     "spn_expansion_max_points": ((), _I),
     "spn_expansion": ((_P, _I, _I, _I, _P, _P, _P, _P), _I),

@@ -18,13 +18,22 @@ are arguments of the modules and ops that use them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _lib
 
 __all__ = ["graph_dot", "pairwise_sqdist_graph", "pairwise_sqdist_graph_seq",
            "graph_dot_seq", "sqnorm_fma", "sqdist_from", "serving_dot",
            "pairwise_sqdist_serving",
            "sqnorm_seq", "sqdist3", "sqnorm3",
-           "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu"]
+           "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu",
+           "slice_plan", "PLAN_KEYS"]
+
+# csrc/slices.cu:spn_slice_plan's fields
+PLAN_KEYS = ("width", "groups", "group_rows", "threads", "lanes", "smem",
+             "blocks")
 
 
 def _split_bf16(x: torch.Tensor):
@@ -184,3 +193,12 @@ def check_input(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: last dim must be {last}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def slice_plan(b: int, n: int, m: int, c: int, k: int) -> dict:
+    """The plan of the slice kernels (gather-max and the edge-stats forward,
+    csrc/slices.cuh) for a [b, n, c] table and [b, m, k] lists on the
+    current card, as they launch: width 0 is the row-at-a-time path."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _lib.check(_lib.lib().spn_slice_plan(b, n, m, c, k, out), "slice_plan")
+    return dict(zip(PLAN_KEYS, out))

@@ -64,7 +64,9 @@ def edge_stats_fwd_plain(table: torch.Tensor, idx: torch.Tensor):
 
 
 def edge_stats_fwd(table: torch.Tensor, idx: torch.Tensor):
-    """(mx, mn, s1, s2) of the gathered rows; see the module docstring."""
+    """(mx, mn, s1, s2) of the gathered rows; see the module docstring. The
+    kernel holds a channel slice of each cloud's table in shared memory
+    (csrc/slices.cuh; its plan: ops/common.py:slice_plan)."""
     _check(table, idx)
     if is_cpu(table):
         return edge_stats_fwd_plain(table, idx)

@@ -210,6 +210,121 @@ def test_gather_max_kernel_matches_plain(cuda, c, k, shift):
     assert torch.equal(gather.gather_max(table, idx), pout)
 
 
+def _nan_equal(a, b):
+    """Equal bit for bit where not NaN, and NaN at the same places."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def _slice_case(b, n, m, c, k, shift=False, nan=False):
+    g = _gen()
+    table = torch.randn(b, n, c, generator=g)
+    table[:, 1] = table[:, 0]                       # equal rows
+    idx = torch.randint(0, n, (b, m, k), generator=g, dtype=torch.int32)
+    idx[:, :, k - 1] = idx[:, :, 0]                 # equal slots
+    if nan:
+        table[0, 7, c // 2] = float("nan")
+        table[-1, 9] = float("nan")
+        idx[:, :3, 1] = 7
+        idx[:, 3:6, 0] = 9
+    table, idx = table.cuda(), idx.cuda()
+    return (_unaligned(table) if shift else table), idx
+
+
+def _check_gather_slices(table, idx):
+    """Max equal to the plain version's (NaN-aware), the sum equal to the
+    model of the plan's order bit for bit, within the tolerance of the
+    plain sum, and the same on a second call. Returns the plan."""
+    b, n, c = table.shape
+    _, m, k = idx.shape
+    plan = common.slice_plan(b, n, m, c, k)
+    out, s = gather.gather_max(table, idx, need_sum=True)
+    out2, s2 = gather.gather_max(table, idx, need_sum=True)
+    pout, ps = gather.gather_max_plain(table, idx, need_sum=True)
+    assert _nan_equal(out, pout) and _nan_equal(out2, out) and _nan_equal(s2, s)
+    assert _nan_equal(gather.gather_max(table, idx), pout)
+    if plan["width"]:
+        _, ms = gather.gather_max_sum_blocks_plain(table, idx, plan["lanes"],
+                                                   plan["group_rows"])
+        assert _nan_equal(s, ms), plan
+    ok = ~ps.isnan()
+    abs_sum = gather.gather_rows(table.abs(), idx).sum((1, 2))
+    assert torch.equal(s.isnan(), ps.isnan())
+    assert bool(((s - ps).abs() <= 1e-5 * ps.abs() + 1e-6 * abs_sum)[ok].all())
+    return plan
+
+
+def _check_stats_slices(table, idx):
+    """The four outputs equal to the plain version's bit for bit
+    (NaN-aware), on two calls."""
+    outs = edge_gather.edge_stats_fwd(table, idx)
+    again = edge_gather.edge_stats_fwd(table, idx)
+    for o, w, a in zip(outs, edge_gather.edge_stats_fwd_plain(table, idx), again):
+        assert _nan_equal(o, w) and _nan_equal(a, o)
+
+
+@pytest.mark.parametrize("c", [256, 512, 1024])
+def test_slice_kernels_at_the_path_shapes(cuda, c):
+    """N = M = 3000, k = 8 (every EdgeConv stage's), the plan the paths
+    take: a 16-channel slice of the table in shared memory, with a row
+    split at C = 256 only."""
+    table, idx = _slice_case(4, 3000, 3000, c, 8)
+    plan = _check_gather_slices(table, idx)
+    assert plan["width"] == 16 and (plan["groups"] > 1) == (c == 256)
+    _check_stats_slices(table, idx)
+
+
+# (B, N, M, C) -> the plan's width and whether it splits the rows, on an
+# H100 (csrc/slices.cuh:make_plan): W = 16 up to N = 3440, W = 8 for C in
+# 5..8 or N in 3441..6880, W = 4 for C <= 4 or N in 6881..13760; row groups
+# where the clouds' slices fill less than one wave of blocks.
+SLICE_SHAPES = [((4, 3000, 3000, 1024), 16, False), ((1, 3000, 3000, 256), 16, True),
+                ((4, 5000, 3000, 256), 8, False), ((1, 5000, 3000, 256), 8, True),
+                ((2, 3000, 3000, 8), 8, True), ((4, 10000, 2000, 256), 4, False),
+                ((1, 10000, 2000, 256), 4, True), ((2, 3000, 3000, 3), 4, True)]
+
+
+@pytest.mark.parametrize("shape,width,split", SLICE_SHAPES)
+def test_slice_kernels_every_width_and_row_split(cuda, shape, width, split):
+    """Every width the plan takes, without and with a row split, each at a
+    shape the plan maps to it."""
+    table, idx = _slice_case(*shape, 8)
+    plan = _check_gather_slices(table, idx)
+    assert (plan["width"], plan["groups"] > 1) == (width, split), plan
+    _check_stats_slices(table, idx)
+
+
+@pytest.mark.parametrize("n,m,c,k,shift", [
+    (700, 650, 3, 8, False), (700, 650, 7, 8, True), (3000, 3000, 130, 8, False),
+    (500, 800, 64, 16, False), (3000, 2000, 256, 20, True),
+    (3000, 3000, 40, 40, False), (3000, 3000, 130, 40, True), (90, 30, 260, 1, False)])
+def test_slice_kernels_ragged_k_and_alignment(cuda, n, m, c, k, shift):
+    """Ragged C (the last slice masked), k other than 8 (the loop), a
+    table 4 bytes past 16-byte alignment (4-byte copies), M != N."""
+    table, idx = _slice_case(2, n, m, c, k, shift)
+    assert _check_gather_slices(table, idx)["width"] > 0
+    _check_stats_slices(table, idx)
+
+
+@pytest.mark.parametrize("n,width", [(3000, 16), (10000, 4)])
+def test_slice_kernels_nan_rows(cuda, n, width):
+    """NaN in rows the lists name: the max, min and sums carry it."""
+    table, idx = _slice_case(2, n, 3000, 256, 8, nan=True)
+    assert _check_gather_slices(table, idx)["width"] == width
+    _check_stats_slices(table, idx)
+
+
+def test_slice_kernels_past_the_slices_reach(cuda):
+    """Where no slice fits in shared memory (N = 15000 rows of 16 bytes),
+    the plan gives width 0 and the row-at-a-time kernels run; at N = 13000
+    the narrowest slice still fits."""
+    table, idx = _slice_case(1, 15000, 700, 256, 8)
+    assert common.slice_plan(1, 15000, 700, 256, 8)["width"] == 0
+    assert common.slice_plan(1, 13000, 700, 256, 8)["width"] == 4
+    _check_gather_slices(table, idx)
+    _check_stats_slices(table, idx)
+
+
 @pytest.mark.parametrize("bp,s", [(8, 64), (16, 512), (3, 1000), (2, 1500),
                                   (1, 5000), (1, 14336), (1024, 512)])
 def test_expansion_kernel_matches_plain(cuda, bp, s):

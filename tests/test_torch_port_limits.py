@@ -25,8 +25,7 @@ def _constants(source: str) -> dict:
 
 def _capacities() -> dict:
     m, e = _constants("mds.cu"), _constants("expansion.cu")
-    return {"spn_gather_rows_per_block": _constants("gather_max.cu")["kRows"],
-            "spn_mds_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
+    return {"spn_mds_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
             "spn_mds_continue_max_points": m["kMaxCluster"] * m["kMaxLanes"] * m["kThreads"],
             "spn_mds_continue_max_steps": 1 << 14,
             "spn_expansion_max_points": e["kMaxV"] * e["kMaxS"]}
@@ -48,6 +47,8 @@ class _Library:
             self.calls.append((name, args))
             if name == "spn_p2i_bwd_plan":  # words, tile, item, hits, smem
                 args[-1][:] = (7, 5, 9, 11, 13, 0)
+            if name == "spn_gather_partial_rows":  # three row groups
+                return 3
             return 1 if name == "spn_edge_stats_route_bytes" else (
                 16 if "scratch" in name else 0)
         return call
@@ -165,9 +166,12 @@ def test_p2i_backward_passes_forced_plans(kernels):
 def test_gather_max_takes_any_width_k_and_alignment(kernels, c, k, offset):
     table = torch.zeros(2 * 50 * c + offset)[offset:].view(2, 50, c)
     idx = torch.zeros(2, 40, k, dtype=torch.int32)
-    gather.gather_max(table, idx, need_sum=True)
+    _, s = gather.gather_max(table, idx, need_sum=True)
     (args,) = _launched(kernels, "spn_gather_max")
     assert args[2:7] == (2, 50, 40, c, k)
+    assert args[8] is not None and s.shape == (2, c)   # 3 partial rows
+    gather.gather_max(table, idx)
+    assert _launched(kernels, "spn_gather_max")[1][8] is None
 
 
 @pytest.mark.parametrize("c,k,offset", [(3, 8, 0), (130, 16, 0), (64, 33, 1)])
