@@ -139,7 +139,33 @@ Phases, each printing a flushed line with its elapsed seconds:
      time on its own inputs, one profiled forward for batched and hybrid,
      each kNN call of the batched forward timed beside its library call,
      and the batched forward on zero-padded clouds with its flagged kNN
-     queries; the arm the default serving forward took (phase 18).
+     queries; the arm the default serving forward took (phase 18);
+ 21. the trained flagship (docs/artifacts/r5/flagship_e8_bf16.npz, read by
+     the port's checkpoint reader) at B=4 on the first clouds of the
+     evaluation CLI's split (sparenet_tpu_torch/configs/flagship_e8_eval.yaml:
+     Synthetic TEST, 128 clouds in batches of 16): launch counts, each
+     kernel against its plain version on the inputs it gave them (timed),
+     the kNN queries flagged for the exact scan, the MDS steps that met an
+     exact tie or a near-tie of the smallest density, and the forward
+     against plain forwards under the parity contract (free-running end to
+     end by Chamfer; anchored on the kernel kNN graphs: the encoder stage
+     features and coarse elementwise, middle and refine by Chamfer), with
+     two controls;
+ 22. the evaluation CLI's path: the runner (``runners.get_runner``) over
+     that split on the npz, in process, counts set to 0 just before and
+     read just after (kNN, gather-max, expansion, MDS, the chamfer NN and
+     the auction bids all launched, no plain version); per-batch and
+     overall F-Score, CD x 1000 and EMD x 100 against the JAX package's
+     reading on the CPU (docs/artifacts/port/jax_eval_flagship_e8.json,
+     scripts/port_jax_eval_reading.py): CD and EMD within 1% and F within
+     0.005 over the split, each batch within 2% and 0.01; clouds/s with
+     data, forward and metrics apart;
+ 23. the final-test EMD protocol (eps 0.002, up to 10000 rounds) on the
+     trained outputs of the split's first batch of 16: the rounds the
+     auction ran before its early stop (its bids launches), the time and
+     the EMD; where the stop does not fire, the unassigned bidders after
+     some rounds of a run without the stop; the run's first bids call (all
+     16384 bidders of each cloud) against its plain version.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -160,9 +186,11 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 # Deterministic mode (phases 10, 11, 15 and 16) refuses cuBLAS calls unless
@@ -172,6 +200,8 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import torch  # noqa: E402
 
+from sparenet_tpu_torch.configs import CONFIG_DIR, cfg_from_file, cfg_update
+from sparenet_tpu_torch.data import data_init
 from sparenet_tpu_torch.models import (N_INPUT_POINTS, build_discriminator,
                                        build_generator,
                                        complete, set_parity_mode)
@@ -186,7 +216,11 @@ from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
 from sparenet_tpu_torch.runners import base as train_base
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
+from sparenet_tpu_torch.runners import get_runner
 from sparenet_tpu_torch.runners import sparenet_gan as gan_runner
+from sparenet_tpu_torch.utils.checkpoint import checkpoint_load
+from sparenet_tpu_torch.utils.logging import set_logger
+from sparenet_tpu_torch.utils.metrics import Metrics, emd_metric
 
 T0 = time.perf_counter()
 TIME_LIMIT_S = 1150          # the whole script, build included
@@ -2461,6 +2495,316 @@ def serving_throughput(state: dict, parity_state: dict, gen, dev) -> None:
         f"{PATHS.get('serving_default_arm')} arm (phase 18)")
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the trained flagship and the evaluation CLI
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAINED_NPZ = os.path.join(ROOT, "docs", "artifacts", "r5",
+                           "flagship_e8_bf16.npz")
+EVAL_YAML = os.path.join(CONFIG_DIR, "flagship_e8_eval.yaml")
+# scripts/port_jax_eval_reading.py: the JAX package's reading of the npz on
+# the same split (CPU)
+JAX_READING = os.path.join(ROOT, "docs", "artifacts", "port",
+                           "jax_eval_flagship_e8.json")
+EVAL_OPS_ALL = EVAL_OPS + ("nn_idx", "emd_bids")
+# The parity contract (ROADMAP.md): deterministic stages elementwise within
+# atol 3e-6 and rtol 1e-4, end to end Chamfer <= 1e-4.
+CONTRACT_ATOL, CONTRACT_RTOL, CONTRACT_CHAMFER = 3e-6, 1e-4, 1e-4
+# The trained eval against the JAX reading: the split's means (CD and EMD
+# relative, F-Score absolute) and each batch's.
+EVAL_REL, EVAL_F = 0.01, 0.005
+BATCH_REL, BATCH_F = 0.02, 0.01
+# the final-test EMD protocol (sparenet_tpu/configs/defaults.py: TEST)
+FINAL_EPS, FINAL_ITERS = 0.002, 10000
+
+
+def eval_config(weights=None, workdir=None):
+    """The CLI's split: flagship_e8_eval.yaml (Synthetic TEST, 128 clouds in
+    batches of 16, the trained NETWORK block)."""
+    cfg = cfg_from_file(EVAL_YAML)
+    if weights or workdir:
+        cfg_update(cfg, weights=weights, workdir=workdir)
+    return cfg
+
+
+def trained_model(dev):
+    """The flagship generator holding the npz's weights, in parity mode."""
+    if not os.path.exists(TRAINED_NPZ):
+        raise FileNotFoundError(
+            f"{TRAINED_NPZ} is missing: the trained-weight phases need the "
+            f"archive in the checkout")
+    cfg = eval_config()
+    cfg.CONST.weights = TRAINED_NPZ
+    model = build_generator(seed=0, device="cpu")
+    epoch, best = checkpoint_load(cfg, model)
+    if (epoch, best) != (1, None):
+        fail(f"the npz loaded as epoch {epoch}, best {best}")
+    return model.to(dev).eval()
+
+
+def mds_ties(xyz, npoint, mml):
+    """mds_plain's loop (ops/mds.py) counting, per cloud, the steps whose
+    smallest density is held by more than one point (an exact tie, which
+    the lowest index breaks) and those where another density is within
+    1e-6 relative of it (a near-tie)."""
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    t = (5.0 * mml * mml).reshape(b, 1)
+    weight = torch.where(torch.arange(n, device=dev) >= 8192, 2.0, 1.0)
+    temp = torch.zeros((b, n), device=dev)
+    temp[:, 0] = 1e9
+    rows = torch.arange(b, device=dev)
+    last = torch.zeros(b, dtype=torch.long, device=dev)
+    exact = torch.zeros(b, dtype=torch.long, device=dev)
+    near = torch.zeros(b, dtype=torch.long, device=dev)
+    for _ in range(1, npoint):
+        d2 = sqdist3(xyz - xyz[rows, last][:, None, :])
+        e = torch.exp(-d2 / t)
+        temp = temp + weight * torch.where(
+            e < torch.finfo(torch.float32).tiny, 0.0, e)
+        low = temp.amin(1, keepdim=True)
+        exact += (temp == low).sum(1) > 1
+        near += (temp <= low + 1e-6 * low.abs()).sum(1) > 1
+        nxt = temp.argmin(1)
+        temp[rows, nxt] = 1e9
+        last = nxt
+    return exact.tolist(), near.tolist()
+
+
+def compare_trained(model, partial, calls, outs) -> None:
+    """The kernel forward on trained weights against plain forwards under
+    the parity contract: free-running (every op plain; kNN near-ties may
+    flip and cascade) end to end, every output by Chamfer; anchored (the
+    kernel kNN graphs replayed) the encoder stage features and coarse
+    elementwise, middle and refine by Chamfer (MDS picks swap among
+    near-ties); two controls the anchored check must catch."""
+    def within(a, b):
+        return bool(torch.allclose(a, b, atol=CONTRACT_ATOL, rtol=CONTRACT_RTOL))
+
+    names = ("coarse", "middle", "refine")
+    with swapped(**PLAIN):
+        p = complete(model, partial)
+    cds = {n: chamfer(x, y) for n, x, y in zip(names, outs[:3], p[:3])}
+    log(f"  free-running: Chamfer " + ", ".join(
+        f"{n} {v:.3e}" for n, v in cds.items())
+        + f" (limit {CONTRACT_CHAMFER:g}); coarse max abs "
+        f"{float((outs[0] - p[0]).abs().max()):.3e}")
+    seen: list = []
+    acalls: dict = {}
+    with swapped(**dict(PLAIN, knn=replay_knn(calls["knn"], seen))):
+        with swapped(**recording(acalls)):
+            a = complete(model, partial)
+    feat = max(float((x - x_k).abs().max()) for x, x_k in seen)
+    feat_ok = all(within(x, x_k) for x, x_k in seen)
+    a_err = float((outs[0] - a[0]).abs().max())
+    diff = [int((g[2] != w[2]).sum()) for g, w in zip(calls["mds"], acalls["mds"])]
+    acd = {n: chamfer(x, y) for n, x, y in zip(names[1:], outs[1:3], a[1:3])}
+    log(f"  anchored: encoder stage features max abs {feat:.3e}, coarse max "
+        f"abs {a_err:.3e} (both within atol {CONTRACT_ATOL:g} + rtol "
+        f"{CONTRACT_RTOL:g}: {feat_ok and within(outs[0], a[0])}), MDS picks "
+        f"that differ per call {diff}, Chamfer middle {acd['middle']:.3e} "
+        f"refine {acd['refine']:.3e}")
+    if not (feat_ok and within(outs[0], a[0])):
+        fail(f"trained anchored encoder {feat:.3e} or coarse {a_err:.3e} "
+             f"outside the contract")
+    for n, v in list(cds.items()) + list(acd.items()):
+        if v > CONTRACT_CHAMFER:
+            fail(f"trained {n} Chamfer {v:.3e} > {CONTRACT_CHAMFER:g}")
+    for op, what in (("knn", "kNN top-k off by one (9th for 8th)"),
+                     ("gather_max", "gather-max loop one short")):
+        f_gap, c_gap = anchored_gaps(model, partial, calls["knn"], outs[0], op)
+        caught = f_gap > CONTRACT_ATOL or c_gap > CONTRACT_ATOL
+        log(f"  control, {what}: encoder stage features max abs {f_gap:.3e}, "
+            f"coarse max abs {c_gap:.3e}: {'caught' if caught else 'NOT caught'}")
+        if not caught:
+            fail(f"the trained anchored check does not see a {what}")
+
+
+def main_trained(dev) -> None:
+    """Phase 21: the trained forward at B=4 (the split's first clouds),
+    every kernel against its plain version on the inputs it gave them, the
+    kNN flags and MDS ties it met, and the forward against plain ones."""
+    model = trained_model(dev)
+    _, val_loader = data_init(eval_config())
+    _, _, _, data = next(iter(val_loader))
+    partial = torch.from_numpy(data["partial_cloud"][:B_CHECK]).to(dev)
+    calls: dict = {}
+    with swapped(**recording(calls)):
+        _lib.reset_counts()
+        outs = complete(model, partial)
+        torch.cuda.synchronize()
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        flagged = _lib.device_count("knn_flagged")
+    log(f"  trained forward B={B_CHECK}: launches {launches}, plain calls "
+        f"{plain}; kNN queries flagged for the exact scan {flagged} of "
+        f"{4 * B_CHECK * N_INPUT_POINTS}")
+    for name, want in {"knn": 4, "gather_max": 4, "expansion": 2, "mds": 2}.items():
+        if launches[name] != want or plain[name] != 0:
+            fail(f"trained forward {name}: {launches[name]} launches, "
+                 f"{plain[name]} plain calls")
+    for name, v in zip(("coarse", "middle", "refine"), outs[:3]):
+        if v.shape != (B_CHECK, N_OUT, 3) or not bool(torch.isfinite(v).all()):
+            fail(f"trained {name}: shape {tuple(v.shape)} or non-finite values")
+    check_forward_calls(calls, dict.fromkeys(EVAL_OPS, 0.0),
+                        what="trained forward")
+    report_flagged(calls["knn"], "the trained forward's inputs")
+    for i, (a, _, _) in enumerate(calls["mds"]):
+        exact, near = mds_ties(a[0], a[1], a[2])
+        log(f"  mds call {i} of the trained forward: steps meeting an exact "
+            f"tie of the smallest density per cloud {exact}, a near-tie "
+            f"(1e-6 relative) {near}, of {a[1] - 1}")
+    compare_trained(model, partial, calls, outs)
+
+
+def check_reading(name: str, got: dict, want: dict, rel: float, f_abs: float):
+    """F-Score within f_abs, CD and EMD within rel of the JAX reading."""
+    gaps = {"F-Score": abs(got["F-Score"] - want["F-Score"]),
+            "ChamferDistance": abs(got["ChamferDistance"] / want["ChamferDistance"] - 1),
+            "EMD": abs(got["EMD"] / want["EMD"] - 1)}
+    ok = (gaps["F-Score"] <= f_abs and gaps["ChamferDistance"] <= rel
+          and gaps["EMD"] <= rel)
+    log(f"  {name}: F {got['F-Score']:.4f} (JAX {want['F-Score']:.4f}), CD x "
+        f"1000 {got['ChamferDistance']:.4f} ({want['ChamferDistance']:.4f}), "
+        f"EMD x 100 {got['EMD']:.4f} ({want['EMD']:.4f}); gaps F "
+        f"{gaps['F-Score']:.2e} (limit {f_abs:g}), CD {gaps['ChamferDistance']:.2e}"
+        f", EMD {gaps['EMD']:.2e} (relative, limit {rel:g}): "
+        f"{'within' if ok else 'OUTSIDE'}")
+    if not ok:
+        fail(f"trained eval {name} outside its limits of the JAX reading")
+
+
+def main_eval_cli(dev) -> dict:
+    """Phase 22: the evaluation runner, in process, over the CLI's split on
+    the npz (the CLI's path: config, Synthetic loader, checkpoint reader,
+    eval forward, validation losses, metrics), counts set to 0 just before
+    and read just after; per-batch and overall metrics against the JAX
+    reading; clouds/s by part."""
+    if not os.path.exists(JAX_READING):
+        raise FileNotFoundError(f"{JAX_READING} is missing")
+    with open(JAX_READING) as f:
+        reading = json.load(f)
+    work = tempfile.mkdtemp(prefix="eval_cli_")
+    try:
+        cfg = eval_config(weights=TRAINED_NPZ, workdir=work)
+        runner = get_runner(cfg)(cfg, set_logger(None), device=dev)
+        _lib.reset_counts()
+        runner.test()
+        torch.cuda.synchronize()
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = runner.summary()
+    log(f"  eval: launches {launches}, plain calls {plain}")
+    for name in EVAL_OPS_ALL:
+        if launches[name] == 0:
+            fail(f"eval CLI: {name} was not launched")
+    if any(plain.values()):
+        fail(f"eval CLI: plain calls {plain}")
+    names = Metrics.names()
+    if summary["n_clouds"] != reading["n_clouds"] or len(
+            runner.batch_metrics) != len(reading["per_batch"]):
+        fail(f"eval CLI: {summary['n_clouds']} clouds in "
+             f"{len(runner.batch_metrics)} batches, the reading has "
+             f"{reading['n_clouds']} in {len(reading['per_batch'])}")
+    for i, (got, want) in enumerate(zip(runner.batch_metrics, reading["per_batch"])):
+        check_reading(f"batch {i}", dict(zip(names, got)), want, BATCH_REL,
+                      BATCH_F)
+    check_reading("the split", summary, reading["overall"], EVAL_REL, EVAL_F)
+    sec = summary["seconds"]
+    n_batches = len(runner.batch_metrics)
+    log(f"  eval epoch on {nvidia_smi()}: {summary['n_clouds']} clouds in "
+        f"{sec['total']:.3f} s, {summary['clouds_per_s']:.2f} clouds/s; data "
+        f"{sec['data']:.3f} s, forward (with the validation losses) "
+        f"{sec['forward']:.3f} s, metrics {sec['metrics']:.3f} s; launches a "
+        f"batch: chamfer NN {launches['nn_idx'] / n_batches:g}, bids "
+        f"{launches['emd_bids'] / n_batches:g}")
+    PATHS["eval_trained"] = dict(
+        clouds_per_s=summary["clouds_per_s"], clouds=summary["n_clouds"],
+        **{f"{k}_s": v for k, v in sec.items()},
+        **{k: summary[k] for k in names})
+    return {"nn_idx": launches["nn_idx"] // n_batches,
+            "emd_bids": launches["emd_bids"] // n_batches}
+
+
+def first_call(name: str, keep: list):
+    """A wrapper of the op now installed that keeps a clone of its first
+    call's arguments in ``keep``."""
+    fn = getattr(*OPS[name])
+
+    def once(*args, **kw):
+        if not keep:
+            keep.append((_clone(args), kw))
+        return fn(*args, **kw)
+    return once
+
+
+TRAJECTORY_MARKS = (1, 10, 50, 100, 500, 1000, 2000, 5000, FINAL_ITERS - 1)
+
+
+def auction_trajectory(xyz1, xyz2, eps: float, iters: int) -> dict:
+    """The auction of ops/emd.py:auction_assign run round by round with no
+    early stop: the largest number of unassigned bidders of a cloud after
+    each round of TRAJECTORY_MARKS (read on the host there only)."""
+    b, n, _ = xyz1.shape
+    state = (torch.full((b, n), -1, dtype=torch.long, device=xyz1.device),
+             torch.full((b, n), -1, dtype=torch.long, device=xyz1.device),
+             torch.zeros((b, n), device=xyz1.device))
+    left = {}
+    for r in range(1, iters):
+        state = emd._round(xyz1, xyz2, state, eps, last=False)
+        if r in TRAJECTORY_MARKS:
+            left[r] = int((state[0] < 0).sum(1).max())
+    return left
+
+
+def main_final_emd(dev) -> None:
+    """Phase 23: the final-test EMD protocol (eps 0.002, up to 10000 rounds)
+    on the trained refine of the split's first batch of 16: the rounds the
+    auction took before it stopped (its bids launches: one a round), its
+    time, the EMD; one bids call of that run (the first, every bidder
+    scored) against its plain version."""
+    model = trained_model(dev)
+    _, val_loader = data_init(eval_config())
+    _, _, _, data = next(iter(val_loader))
+    partial = torch.from_numpy(data["partial_cloud"]).to(dev)
+    gt = torch.from_numpy(data["gtcloud"]).to(dev)
+    refine = complete(model, partial)[2]
+    del model
+    keep: list = []
+    with swapped(emd_bids=first_call("emd_bids", keep)):
+        torch.cuda.synchronize()
+        before = _lib.LAUNCHES["emd_bids"]
+        t = time.perf_counter()
+        final = emd_metric(refine, gt, FINAL_EPS, FINAL_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rounds = _lib.LAUNCHES["emd_bids"] - before
+    val = emd_metric(refine, gt, 0.005, 50)
+    log(f"  final-test EMD (eps {FINAL_EPS}, at most {FINAL_ITERS} rounds) on "
+        f"B={refine.shape[0]}: {rounds} rounds before it stopped, "
+        f"{wall:.3f} s (host clock, synchronised), EMD x 100 "
+        f"mean {float(final.mean()):.4f} (validation protocol on the same "
+        f"clouds {float(val.mean()):.4f})")
+    if not bool(torch.isfinite(final).all()):
+        fail("final-test EMD is not finite")
+    if rounds >= FINAL_ITERS:
+        left = auction_trajectory(refine, gt, FINAL_EPS, FINAL_ITERS)
+        log(f"  the auction's early stop did not fire: unassigned bidders "
+            f"(most of a cloud, of {refine.shape[1]}) after round "
+            + ", ".join(f"{r}: {v}" for r, v in left.items()))
+        PATHS["final_emd_unassigned"] = left
+    args, kw = keep[0]
+    got = emd.emd_bids(*args, **kw)
+    want = emd.emd_bids_plain(*args, **kw)
+    ok, err, msg = compare_exact(got, want)
+    log(f"  bids call 0 of that run {[list(x.shape) for x in args if isinstance(x, torch.Tensor)]}"
+        f": kernel against plain: {msg}")
+    if not ok:
+        fail("final-test bids call differs from its plain version")
+    PATHS["final_emd"] = dict(rounds=rounds, s=wall, emd=float(final.mean()))
+
+
 def main() -> int:
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
@@ -2590,6 +2934,18 @@ def main() -> int:
     log(f"phase 20: serving throughput at B={B_BENCH} in each MDS arm, "
         f"beside parity")
     serving_throughput(train_state, train_state, gen, dev)
+    del train_state, parity_outs
+
+    log("phase 21: the trained flagship (docs/artifacts/r5/flagship_e8_bf16."
+        f"npz) at B={B_CHECK}: its kernels on the inputs it gave them, and "
+        "plain forwards")
+    main_trained(dev)
+    log("phase 22: the evaluation CLI's runner over its split (Synthetic "
+        "TEST, 8 batches of 16) on the npz, against the JAX reading")
+    eval_launches = main_eval_cli(dev)
+    log(f"phase 23: the final-test EMD protocol (eps {FINAL_EPS}, "
+        f"{FINAL_ITERS} rounds) on one batch of the trained outputs")
+    main_final_emd(dev)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -2639,6 +2995,8 @@ def main() -> int:
                     "plans"):
             if key in r:
                 kernels[-1][key] = r[key]
+        if name in eval_launches:
+            kernels[-1]["launches_eval_batch"] = eval_launches[name]
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

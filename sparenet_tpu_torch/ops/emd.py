@@ -67,7 +67,7 @@ def emd_bids_plain(xyz1: torch.Tensor, xyz2: torch.Tensor,
     u = m if count is None else min(m, max(1, int(count.max())))
     tgt = torch.zeros((b, m), dtype=torch.int32, device=xyz1.device)
     inc = torch.zeros((b, m), dtype=torch.float32, device=xyz1.device)
-    for sl in query_chunks(b, u, xyz2.shape[1]):
+    for sl in query_chunks(b, u, xyz2.shape[1], xyz1.device):
         v = pp - sqrt_ieee(sqdist_pairs(xyz1[:, sl], xyz2))
         best_i = v.argmax(-1, keepdim=True)          # first maximal index
         best = v.gather(-1, best_i)

@@ -1,5 +1,6 @@
-"""The flagship SpareNet training step (counterpart of
-sparenet_tpu/runners/sparenet.py: completion_loss and _train_impl).
+"""The flagship SpareNet runner (counterpart of
+sparenet_tpu/runners/sparenet.py: completion_loss, _train_impl and
+sparenetRunner's evaluation).
 
 ``train_step(model, optimizer, partial, gt, lr)`` runs one step on the
 model's device: the train-mode forward, the completion loss, its gradient,
@@ -7,17 +8,29 @@ one Adam step at ``lr`` and the BatchNorm running-statistics update (made
 by the forward). It returns (loss, coarse_loss, refine_loss) as 0-d tensors
 on the device. Like the other entry points it needs a card unless the model
 was built with ``device="cpu"``.
+
+``sparenetRunner`` is ``runners.base.BaseRunner`` with the generator built
+from the config (``build_models``) and its ``val_step``: the eval forward,
+the validation losses of coarse and refine (Chamfer or EMD by
+NETWORK.metric, as ``_val_impl``) and ``utils.metrics.compute_all`` at
+TEST.emd_eps / emd_iters. Its training loop around ``train_step`` is not
+ported yet (ROADMAP.md, queue 1 item 3).
 """
 
 from __future__ import annotations
 
+from time import perf_counter
+
 import torch
 
-from ..models import resolve_device, set_parity_mode
+from ..configs import model_names
+from ..models import build_generator, complete, resolve_device, set_parity_mode
 from ..ops import chamfer, emd
-from .base import set_lr
+from ..utils.metrics import Metrics, compute_all
+from .base import BaseRunner, set_lr
+from .misc import AverageMeter
 
-__all__ = ["CONFIG", "completion_loss", "train_step"]
+__all__ = ["CONFIG", "completion_loss", "train_step", "sparenetRunner"]
 
 # The flagship's training settings: sparenet_tpu/configs/sparenet.yaml
 # (NETWORK.metric emd, use_consist_loss true; TRAIN.batch_size 24,
@@ -74,3 +87,70 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     set_lr(optimizer, lr)
     optimizer.step()
     return loss.detach(), coarse_loss.detach(), refine_loss.detach()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class sparenetRunner(BaseRunner):
+    """The reference's class name, which the runner registry keys."""
+
+    def __init__(self, config, logger, device=None):
+        super().__init__(config, logger, device)
+        self.test_losses = AverageMeter(["CoarseLoss", "RefineLoss"])
+        self.test_metrics = AverageMeter(Metrics.names())
+
+    def reset_meters(self):
+        self.test_losses.reset()
+        self.test_metrics = AverageMeter(Metrics.names())
+
+    def build_models(self):
+        """The generator only (define_G's SpareNet: bottleneck and hide
+        4096), in eval mode, initialised from CONST.seed."""
+        cfg = self.config
+        if cfg.NETWORK.model_type != model_names.MODEL_SPARENET:
+            raise ValueError(f"sparenetRunner builds SpareNet, not "
+                             f"{cfg.NETWORK.model_type!r}")
+        self.model = build_generator(
+            seed=cfg.CONST.seed, device=self.device,
+            num_points=cfg.DATASET.n_outpoints, bottleneck_size=4096,
+            hide_size=4096, n_primitives=cfg.NETWORK.n_primitives,
+            use_selayer=cfg.NETWORK.use_selayer,
+            use_adain=cfg.NETWORK.use_adain, encode=cfg.NETWORK.encode)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.logger.info("Parameters in net_G: %d." % n_params)
+
+    def _val_impl(self, partial, gt):
+        """(refine, coarse loss, refine loss) of one batch."""
+        coarse, _, refine, _ = complete(self.model, partial)
+        if self.config.NETWORK.metric == "emd":
+            def rec(a):
+                dist, _ = emd.emd_auction(a, gt, 0.005, 50)
+                return dist.sqrt().mean()
+        else:
+            def rec(a):
+                return chamfer.chamfer_distance(a, gt)
+        return refine, rec(coarse), rec(refine)
+
+    @torch.no_grad()
+    def val_step(self, items):
+        _, _, _, data = items
+        dev = self.device
+        t0 = perf_counter()
+        partial = torch.from_numpy(data["partial_cloud"]).to(dev)
+        gt = torch.from_numpy(data["gtcloud"]).to(dev)
+        _sync(dev)
+        t1 = perf_counter()
+        refine, c_l, r_l = self._val_impl(partial, gt)
+        self.test_losses.update([float(c_l) * 1000, float(r_l) * 1000])
+        t2 = perf_counter()
+        self.ptcloud = refine
+        vals = compute_all(refine, gt, eps=float(self.config.TEST.emd_eps),
+                           iters=int(self.config.TEST.emd_iters))
+        t3 = perf_counter()
+        self.seconds["data"] += t1 - t0
+        self.seconds["forward"] += t2 - t1
+        self.seconds["metrics"] += t3 - t2
+        return vals

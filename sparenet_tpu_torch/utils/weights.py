@@ -8,6 +8,10 @@ which the port's ``SpareNetGenerator.load_state_dict(strict=True)`` takes
 whole. The rule table is this module's own copy, for the ported
 configuration (``use_adain="share"``, ``encode="Residualnet"``).
 
+``reference_state_dict(model)`` goes the other way for the port's own
+generator: its state_dict in that same reference layout (the port keeps the
+per-primitive decoder weights stacked), which the port's checkpoints hold.
+
 ``disc_state_dict_from_jax(params, batch_stats, spectral)`` does the same
 for the JAX package's discriminator (``ProjectionD`` or
 ``PatchDiscriminator``) into the port's ``models.discriminator`` layout.
@@ -15,12 +19,14 @@ for the JAX package's discriminator (``ProjectionD`` or
 
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["netG_rules", "state_dict_from_jax", "disc_state_dict_from_jax"]
+__all__ = ["netG_rules", "state_dict_from_jax", "reference_state_dict",
+           "disc_state_dict_from_jax"]
 
 _DEC_BOTTLENECK = 1026
 
@@ -149,6 +155,37 @@ def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
         for key in {prefix.format(p=p) for p in range(n_primitives)}:
             sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def reference_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A SpareNetGenerator's state_dict in the reference's net_G layout, the
+    layout ``state_dict_from_jax`` gives, as CPU tensors: the decoder
+    stack's [P, ...] tensors split into ``decoder.decoder.{p}.dec.<name>``
+    (conv weights [out, in, 1]), with the reference's registered-but-unused
+    tensors of each primitive added at their defaults (BatchNorm step counts
+    0, AdaIN's dummy running statistics). ``load_state_dict`` stacks them
+    back."""
+    prefix = "decoder.decoder."
+    stack = model.decoder.decoder
+    out: dict[str, torch.Tensor] = {}
+    for key, v in model.state_dict().items():
+        v = v.detach().cpu()
+        if not key.startswith(prefix):
+            out[key] = v.clone()
+            continue
+        name = key[len(prefix):]
+        conv = re.fullmatch(r"conv\d\.weight", name) is not None
+        for p in range(stack.n_primitives):
+            out[f"{prefix}{p}.dec.{name}"] = (v[p, ..., None] if conv
+                                              else v[p]).clone()
+    for p in range(stack.n_primitives):
+        for i, nf in enumerate(stack.sizes):
+            dec = f"{prefix}{p}.dec"
+            out[f"{dec}.bn{i + 1}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+            out[f"{dec}.adain{i + 1}.running_mean"] = torch.zeros(nf)
+            out[f"{dec}.adain{i + 1}.running_var"] = torch.ones(nf)
+    return out
 
 
 def _hwc_to_chw(v: np.ndarray, channels: int, axis: int) -> np.ndarray:

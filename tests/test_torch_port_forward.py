@@ -213,7 +213,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('ops.p2i', 'renderer.depth_maps', 'models.discriminator',"
-        " 'runners.sparenet_gan', 'utils.calibration', 'ops.mds', 'ops.knn'):\n"
+        " 'runners.sparenet_gan', 'utils.calibration', 'ops.mds', 'ops.knn',"
+        " 'configs', 'configs.defaults', 'data.datasets', 'data.loaders',"
+        " 'utils.metrics', 'utils.ckpt_npz', 'utils.checkpoint',"
+        " 'utils.logging', 'utils.visualizer', 'runners.misc',"
+        " 'runners.base', 'runners.sparenet', 'test'):\n"
         "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"
