@@ -165,7 +165,28 @@ Phases, each printing a flushed line with its elapsed seconds:
      auction ran before its early stop (its bids launches), the time and
      the EMD; where the stop does not fire, the unassigned bidders after
      some rounds of a run without the stop; the run's first bids call (all
-     16384 bidders of each cloud) against its plain version.
+     16384 bidders of each cloud) against its plain version;
+ 24. the training CLI (``sparenet_tpu_torch.train``: ``build`` and ``run``, in
+     process) on the port's sparenet.yaml with Synthetic data: B=24, EMD and
+     the consistency loss, a checkpoint every epoch; epoch 1 (2 steps, then
+     validation over 32 clouds at B=16), then a run resumed from its
+     checkpoint for epoch 2; each run's counts set to 0 just before and
+     read just after: every training kernel launched (gather-max in
+     validation), a step's launches as phase 8's, no plain version; finite
+     losses; one checkpoint an epoch; the resumed runner holds the epoch-1
+     run's generator (parameters and buffers) and Adam bit for bit and
+     starts at epoch 2 at lr_for_epoch(2); in deterministic mode the
+     runner's step equals a direct train_step on the same state and batch
+     bit for bit; the epoch's clouds/s, seconds by part and peak memory;
+ 25. the SpareNet-GAN training CLI (``--gan``, the port's sparenet_gan.yaml)
+     on the trained npz: one epoch (epoch 2: the npz loads as epoch 1) of 2
+     steps at B=32 with the class-conditioned ProjectionD (8 Synthetic
+     classes), then validation; every kernel of the GAN step launched, p2i
+     3 times and its backward once a step, no plain version; the radii
+     drawn; the whole-GAN checkpoint (generator, discriminator, both Adams,
+     the step generators) reloads bit for bit; p2i and its backward on the
+     first step's trained clouds against their plain versions, timed beside
+     phase 14's random-weight clouds.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -182,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -200,8 +222,9 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import torch  # noqa: E402
 
+from sparenet_tpu_torch import train as train_cli
 from sparenet_tpu_torch.configs import CONFIG_DIR, cfg_from_file, cfg_update
-from sparenet_tpu_torch.data import data_init
+from sparenet_tpu_torch.data import collate, data_init
 from sparenet_tpu_torch.models import (N_INPUT_POINTS, build_discriminator,
                                        build_generator,
                                        complete, set_parity_mode)
@@ -2805,6 +2828,293 @@ def main_final_emd(dev) -> None:
     PATHS["final_emd"] = dict(rounds=rounds, s=wall, emd=float(final.mean()))
 
 
+# ---------------------------------------------------------------------------
+# phases 24-25: the training CLI
+# ---------------------------------------------------------------------------
+
+# phase 24: sparenet.yaml (B=24, EMD, consistency loss) on Synthetic, 2 steps
+# an epoch, validation over 32 clouds at B=16, a checkpoint every epoch;
+# phase 25: sparenet_gan.yaml (B=32) the same way
+TRAIN_CLI_RUN = {"TRAIN": {"save_freq": 1}, "TEST": {"batch_size": 16},
+                 "DATASETS": {"synthetic": {"n_train": 2 * B_TRAIN, "n_val": 32}}}
+GAN_CLI_RUN = {"TRAIN": {"save_freq": 1}, "TEST": {"batch_size": 16},
+               "DATASETS": {"synthetic": {"n_train": 2 * B_GAN, "n_val": 32}}}
+
+
+def run_yaml(name: str, work: str, overrides: dict) -> str:
+    """The port's shipped config ``name`` with ``overrides`` merged in,
+    written under ``work``."""
+    import yaml
+
+    with open(os.path.join(CONFIG_DIR, name)) as f:
+        tree = yaml.safe_load(f)
+
+    def merge(a, b):
+        for k, v in b.items():
+            if isinstance(v, dict):
+                merge(a.setdefault(k, {}), v)
+            else:
+                a[k] = v
+    merge(tree, overrides)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(tree, f)
+    return path
+
+
+@contextlib.contextmanager
+def training_launches(keep: list):
+    """Append each ``BaseRunner.train()``'s launches (an epoch's training,
+    validation apart) to ``keep``."""
+    train = train_base.BaseRunner.train
+
+    def counted(self):
+        before = dict(_lib.LAUNCHES)
+        train(self)
+        keep.append({k: v - before.get(k, 0) for k, v in _lib.LAUNCHES.items()})
+    with patched((train_base.BaseRunner, "train", counted)):
+        yield
+
+
+def release_memory(what: str) -> None:
+    """Free what earlier phases left (runners hold reference cycles) and
+    return the cache, so that a phase's peak is its own; log what stays."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  before {what}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+
+def per_step(epochs: list, steps: int) -> dict:
+    return {k: sum(e[k] for e in epochs) / steps for k in _lib.LAUNCHES}
+
+
+def checkpoints(runner) -> list:
+    d = runner.config.DIR.checkpoints
+    return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+
+def same_state(name: str, got: dict, want: dict) -> int:
+    """Fail unless two flat dicts of tensors are equal bit for bit; the
+    count of tensors compared."""
+    if got.keys() != want.keys():
+        fail(f"{name}: keys differ")
+        return 0
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    if bad:
+        fail(f"{name}: {len(bad)} of {len(want)} tensors differ, e.g. {bad[:3]}")
+    return len(want)
+
+
+def adam_state(opt) -> dict:
+    return {f"{i}.{k}": v for i, st in opt.state_dict()["state"].items()
+            for k, v in st.items()}
+
+
+def check_cli_line(line: dict, launches: dict, plain: dict, expected,
+                   what: str) -> None:
+    log(f"  {what}: epochs {line['epochs']}, lr {line['lr']}, mean losses "
+        f"{line['epoch_losses']}, best metrics {line['best_metrics']}; "
+        f"launches {launches}, plain calls {plain}")
+    for name in expected:
+        if launches[name] < 1:
+            fail(f"{what}: {name} was not launched")
+    if any(plain.values()):
+        fail(f"{what}: plain calls {plain}")
+    losses = [v for e in line["epoch_losses"].values() for v in e.values()]
+    if not losses or not all(map(math.isfinite, losses)):
+        fail(f"{what}: losses not finite: {line['epoch_losses']}")
+
+
+def main_train_cli(step_launches: dict, dev) -> dict:
+    """Phase 24; returns a training step's launches as the CLI runs it."""
+    release_memory("the training CLI")
+    work = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        path = run_yaml("sparenet.yaml", work, TRAIN_CLI_RUN)
+        args = ["--config", path, "--dataset", "Synthetic"]
+        first = train_cli.build(args + ["--workdir", os.path.join(work, "a"),
+                                        "--epochs", "1"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        epochs: list = []
+        with training_launches(epochs):
+            line = train_cli.run(first)
+            torch.cuda.synchronize()
+            launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = len(first.train_loader)
+        check_cli_line(line, launches, plain, TRAIN_EXPECTED + ("gather_max",),
+                       "training CLI, epoch 1")
+        step = per_step(epochs, steps)
+        log(f"  a training step's launches as the CLI runs it: "
+            f"{ {k: v for k, v in step.items() if v} }")
+        for name in ("knn", "expansion", "mds", "nn_idx", "edge_stats_fwd",
+                     "edge_stats_bwd"):
+            if step[name] != step_launches[name]:
+                fail(f"training CLI: {name} {step[name]} launches a step, "
+                     f"phase 8's step {step_launches[name]}")
+        names = checkpoints(first)
+        log(f"  epoch 1 checkpoints: {names}")
+        if len(names) != 1:
+            fail(f"training CLI: {len(names)} checkpoints after one epoch")
+        sec = line["seconds"]
+        log(f"  training epoch on {nvidia_smi()}: {line['clouds_trained']} "
+            f"clouds in {steps} steps of {B_TRAIN}, {line['clouds_per_s']:.2f} "
+            f"clouds/s over data and step time; seconds: data {sec['data']:.3f}, "
+            f"step {sec['step']:.3f}, val {sec['val']:.3f} (validation over "
+            f"32 clouds at B=16, metrics and the checkpoint included), total "
+            f"{sec['total']:.3f}; peak memory {peak:.2f} GiB "
+            f"(max_memory_allocated)")
+        PATHS["train_cli"] = dict(clouds_per_s=line["clouds_per_s"],
+                                  steps=steps, peak_gib=peak,
+                                  **{f"{k}_s": v for k, v in sec.items()})
+
+        ckpt = os.path.join(first.config.DIR.checkpoints, names[0]) if names else ""
+        second = train_cli.build(args + ["--workdir", os.path.join(work, "b"),
+                                         "--epochs", "2", "--weights", ckpt])
+        n = same_state("resumed generator", second.model.state_dict(),
+                       first.model.state_dict())
+        n += same_state("resumed Adam", adam_state(second.optimizer),
+                        adam_state(first.optimizer))
+        log(f"  the resumed runner holds the epoch-1 run's generator and Adam "
+            f"bit for bit ({n} tensors); init_epoch {second.init_epoch}")
+        line = train_cli.run(second)
+        torch.cuda.synchronize()
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        check_cli_line(line, launches, plain, TRAIN_EXPECTED + ("gather_max",),
+                       "training CLI, resumed")
+        want_lr = train_base.lr_for_epoch(second.config.TRAIN, 2)
+        if line["epochs"] != [2] or line["lr"] != {"2": want_lr}:
+            fail(f"the resumed run ran epochs {line['epochs']} at {line['lr']}, "
+                 f"expected epoch 2 at {want_lr}")
+        if len(checkpoints(second)) != 1:
+            fail(f"training CLI: {len(checkpoints(second))} checkpoints after "
+                 f"the resumed epoch")
+        del second
+
+        # the runner's step against a direct train_step on the same state
+        # and batch, deterministic mode
+        ds = first.train_loader.dataset
+        items = collate([ds[i] for i in range(B_TRAIN)])
+        model = copy.deepcopy(first.model)
+        opt = train_base.make_optimizer(model, first.step_config)
+        opt.load_state_dict(copy.deepcopy(first.optimizer.state_dict()))
+        with deterministic():
+            first.train_step(items)
+            direct = train_runner.train_step(
+                model, opt, torch.from_numpy(items[3]["partial_cloud"]).to(dev),
+                torch.from_numpy(items[3]["gtcloud"]).to(dev), first.lr,
+                first.step_config)
+            torch.cuda.synchronize()
+        got = [first.loss["rec_loss"], first.loss["coarse_loss"],
+               first.loss["refine_loss"]]
+        want = [float(direct[0]), float(direct[1]) * 1000,
+                float(direct[2]) * 1000]
+        n = same_state("runner step vs train_step", first.model.state_dict(),
+                       model.state_dict())
+        n += same_state("runner step vs train_step, Adam",
+                        adam_state(first.optimizer), adam_state(opt))
+        log(f"  deterministic mode: the runner's step {got} against a direct "
+            f"train_step {want}; after the step {n} tensors compared bit for "
+            f"bit")
+        if got != want:
+            fail("the runner's step differs from a direct train_step")
+        return step
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main_gan_cli(p2i_rows: dict, dev) -> dict:
+    """Phase 25; returns a GAN step's launches as the CLI runs it."""
+    release_memory("the GAN training CLI")
+    work = tempfile.mkdtemp(prefix="gan_cli_")
+    try:
+        path = run_yaml("sparenet_gan.yaml", work, GAN_CLI_RUN)
+        args = ["--gan", "--config", path, "--dataset", "Synthetic"]
+        first = train_cli.build(args + ["--workdir", os.path.join(work, "a"),
+                                        "--epochs", "2", "--weights",
+                                        TRAINED_NPZ])
+        n_class = first.config.DATASET.num_class
+        log(f"  the GAN runner on the npz: init_epoch {first.init_epoch}, "
+            f"{type(first.disc).__name__} with {n_class} classes")
+        if first.init_epoch != 1 or n_class != 8 or first.disc.num_classes != 8:
+            fail("the GAN runner did not load the npz as epoch 1 with a "
+                 "class-conditioned ProjectionD of 8 classes")
+        epochs: list = []
+        calls: dict = {}
+        rec = {k: v for k, v in recording(calls).items()
+               if k in ("p2i", "p2i_bwd")}
+        with training_launches(epochs), swapped(**rec):
+            line = train_cli.run(first)
+            torch.cuda.synchronize()
+            launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+        steps = len(first.train_loader)
+        check_cli_line(line, launches, plain, GAN_EXPECTED + ("gather_max",),
+                       "GAN training CLI")
+        step = per_step(epochs, steps)
+        log(f"  a GAN step's launches as the CLI runs it: "
+            f"{ {k: v for k, v in step.items() if v} }; radii drawn "
+            f"{first.radii}")
+        if step["p2i"] != 3 or step["p2i_bwd"] != 1:
+            fail(f"GAN CLI: p2i {step['p2i']} and its backward "
+                 f"{step['p2i_bwd']} launches a step, expected 3 and 1")
+        if len(first.radii) != steps or not set(first.radii) <= set(RADII):
+            fail(f"GAN CLI: radii drawn {first.radii}")
+        sec = line["seconds"]
+        log(f"  GAN epoch on the npz on {nvidia_smi()}: {line['clouds_trained']}"
+            f" clouds in {steps} steps of {B_GAN}, {line['clouds_per_s']:.2f} "
+            f"clouds/s; seconds: data {sec['data']:.3f}, step {sec['step']:.3f}"
+            f", val {sec['val']:.3f}")
+        PATHS["gan_cli_trained"] = dict(clouds_per_s=line["clouds_per_s"],
+                                        steps=steps, radii=first.radii,
+                                        **{f"{k}_s": v for k, v in sec.items()})
+
+        names = checkpoints(first)
+        log(f"  checkpoints: {names}")
+        if len(names) != 1:
+            fail(f"GAN CLI: {len(names)} checkpoints after one epoch")
+        else:
+            second = train_cli.build(args + [
+                "--workdir", os.path.join(work, "b"), "--epochs", "3",
+                "--weights", os.path.join(first.config.DIR.checkpoints,
+                                          names[0])])
+            n = same_state("resumed generator", second.model.state_dict(),
+                           first.model.state_dict())
+            n += same_state("resumed discriminator", second.disc.state_dict(),
+                            first.disc.state_dict())
+            n += same_state("resumed Adam of G", adam_state(second.optimizer),
+                            adam_state(first.optimizer))
+            n += same_state("resumed Adam of D", adam_state(second.optimizer_d),
+                            adam_state(first.optimizer_d))
+            n += same_state("resumed step generators", {
+                "radius": second.radius_generator.get_state(),
+                "dropout": second.dropout_generator.get_state()}, {
+                "radius": first.radius_generator.get_state(),
+                "dropout": first.dropout_generator.get_state()})
+            log(f"  the whole-GAN checkpoint reloads bit for bit ({n} tensors);"
+                f" init_epoch {second.init_epoch}")
+            if second.init_epoch != 2:
+                fail(f"the GAN checkpoint loaded as epoch {second.init_epoch}")
+            del second
+
+        first_step = {"p2i": calls["p2i"][:3], "p2i_bwd": calls["p2i_bwd"][:1]}
+        log(f"  p2i and its backward on the first step's trained clouds (radius"
+            f" {first.radii[0]}, B={B_GAN}):")
+        rows = check_forward_calls(first_step, {"p2i": 0.0, "p2i_bwd": 0.0},
+                                   ("p2i", "p2i_bwd"), "trained GAN step")
+        for name, row in rows.items():
+            log(f"  {name} a step: trained clouds at B={B_GAN} {row['ms']:.4f} ms "
+                f"(host ahead {row['host_ahead_ms']:.4f}, bound "
+                f"{row['bound_ms']:.5f}); phase 14's random-weight clouds at "
+                f"B={B_CHECK}, R={GAN_CHECK_RADIUS} {p2i_rows[name]['ms']:.4f} ms")
+        PATHS["gan_cli_trained"].update(
+            p2i_ms=rows["p2i"]["ms"], p2i_bwd_ms=rows["p2i_bwd"]["ms"])
+        return step
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
@@ -2946,6 +3256,13 @@ def main() -> int:
     log(f"phase 23: the final-test EMD protocol (eps {FINAL_EPS}, "
         f"{FINAL_ITERS} rounds) on one batch of the trained outputs")
     main_final_emd(dev)
+    log(f"phase 24: the training CLI on sparenet.yaml (Synthetic, B={B_TRAIN}, "
+        f"2 steps an epoch, validation over 32 clouds at B=16): epoch 1, then "
+        f"epoch 2 resumed from its checkpoint")
+    cli_step = main_train_cli(t_launches, dev)
+    log(f"phase 25: the SpareNet-GAN training CLI on the npz (sparenet_gan.yaml"
+        f", Synthetic, B={B_GAN}, 2 steps, 8 classes)")
+    gan_step_launches = main_gan_cli(g_rows, dev)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -2997,6 +3314,10 @@ def main() -> int:
                 kernels[-1][key] = r[key]
         if name in eval_launches:
             kernels[-1]["launches_eval_batch"] = eval_launches[name]
+        # a step's launches as the training CLI runs it (phase 24) and as
+        # its --gan runs it (phase 25)
+        kernels[-1]["launches_train_step"] = cli_step.get(name, 0)
+        kernels[-1]["launches_gan_step"] = gan_step_launches.get(name, 0)
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

@@ -23,6 +23,7 @@ CONFIG_DIR = os.path.dirname(os.path.abspath(__file__))
 
 __all__ = [
     "CONFIG_DIR",
+    "shipped_yaml",
     "AttrDict",
     "default_config",
     "cfg_from_file",
@@ -30,6 +31,16 @@ __all__ = [
     "merge_into",
     "model_names",
 ]
+
+
+def shipped_yaml(model: str, gan: bool = False) -> str:
+    """The port's copy of a model's shipped config: ``<model>_gan.yaml``
+    with the GAN where there is one, else ``<model>.yaml`` (the root
+    scripts' rule)."""
+    path = os.path.join(CONFIG_DIR, f"{model}_gan.yaml")
+    if gan and os.path.exists(path):
+        return path
+    return os.path.join(CONFIG_DIR, f"{model}.yaml")
 
 
 def merge_into(a: dict, b: AttrDict, path: str = "") -> None:

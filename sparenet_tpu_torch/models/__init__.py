@@ -65,7 +65,9 @@ def build_generator(*, seed: int = 0, device=None, serving: bool = False,
     "batched" or "hybrid") and the mml estimate's ``mml_calibration``; the
     batched arms' G, schedule and tail default to
     the reference's (``mds_g``, ``mds_schedule``, ``mds_tail`` override
-    them). The same parameters serve both modes."""
+    them). The same parameters serve both modes. ``train_mds="batched"``
+    puts the training forward's MDS on the batched arm (the JAX package's
+    serving-aligned training); eval forwards keep exact greedy MDS."""
     dev = resolve_device(device)
     set_parity_mode()
     model = SpareNetGenerator(**{**FLAGSHIP, **config}, serving=serving,

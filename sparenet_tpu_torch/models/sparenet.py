@@ -8,7 +8,10 @@ in place of the expansion penalty (``loss_mst`` = 0), and the MDS arm
 ``mds`` ("auto" = "exact" as off the TPU, "batched" or "hybrid"; ops/mds.py)
 returning its selected rows, the flag channel being index math. Serving applies in
 eval mode only; a serving model in train mode runs the parity training
-path, as in the reference. ``use_adain="share"`` and
+path, as in the reference. ``train_mds`` is the MDS arm of the training
+forward: "exact" (greedy MDS, the reference's), or "batched" as the JAX
+package's serving-aligned training (``TRAIN.serving_aligned``,
+``define_G(train=True)``); eval forwards keep exact greedy MDS. ``use_adain="share"`` and
 ``encode="Residualnet"`` only; the other decoder and encoder arms wait for a
 later slice. Clouds are channel-last [B, N, 3]; primitive i owns points
 [i*S, (i+1)*S) of the coarse cloud. Module and parameter names follow the
@@ -114,12 +117,13 @@ class SpareNetRefine(nn.Module):
                  use_selayer: bool = False, serving: bool = False,
                  mds: str = "auto", mml_calibration: float = 1.33,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
-                 mds_tail: int = _mds.TAIL):
+                 mds_tail: int = _mds.TAIL, train_mds: str = "exact"):
         super().__init__()
         self.num_points = num_points
         self.primitive_size = num_points // n_primitives
         self.serving = serving
         self.mds = _mds.resolve_impl(mds, serving)
+        self.train_mds = _mds.resolve_impl(train_mds)
         self.mml_calibration = mml_calibration
         self.mds_g, self.mds_schedule, self.mds_tail = (
             mds_g, tuple(mds_schedule), mds_tail)
@@ -140,8 +144,13 @@ class SpareNetRefine(nn.Module):
         dist, _, mml = _expansion.expansion_penalty(
             coarse, self.primitive_size, _EXPANSION_ALPHA)
         base = flagged_base(coarse, partial)
-        idx = _mds.minimum_density_sample(
-            base[..., :3].contiguous(), self.num_points, mml)
+        xyz = base[..., :3].contiguous()
+        if self.training and self.train_mds != "exact":
+            idx, _ = _mds.minimum_density_sample_xyz(
+                xyz, self.num_points, mml, self.train_mds, g=self.mds_g,
+                schedule=self.mds_schedule, tail=self.mds_tail)
+        else:
+            idx = _mds.minimum_density_sample(xyz, self.num_points, mml)
         return self.finish(base, idx), dist.mean()
 
     def serve(self, coarse: torch.Tensor, partial: torch.Tensor):
@@ -166,7 +175,7 @@ class SpareNetGenerator(nn.Module):
                  encode: str = "Residualnet", serving: bool = False,
                  mds: str = "auto", mml_calibration: float = 1.33,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
-                 mds_tail: int = _mds.TAIL):
+                 mds_tail: int = _mds.TAIL, train_mds: str = "exact"):
         super().__init__()
         if use_adain != "share" or encode != "Residualnet":
             raise NotImplementedError(
@@ -181,7 +190,7 @@ class SpareNetGenerator(nn.Module):
                                       bottleneck_size, use_selayer, serving)
         self.refine = SpareNetRefine(
             num_points, n_primitives, use_selayer, serving, mds,
-            mml_calibration, mds_g, mds_schedule, mds_tail)
+            mml_calibration, mds_g, mds_schedule, mds_tail, train_mds)
 
     def forward(self, partial: torch.Tensor):
         coarse = self.decoder(self.encoder(partial))

@@ -1,7 +1,7 @@
 """Runners: the flagship SpareNet training step (``runners.sparenet.
 train_step``), the SpareNet-GAN step (``runners.sparenet_gan.gan_step``),
-the optimizer rules (``runners.base``) and the evaluation runner
-(``sparenetRunner``), resolved by ``get_runner``."""
+the optimizer rules (``runners.base``) and the runners around them
+(``sparenetRunner``, ``sparenetGANRunner``), resolved by ``get_runner``."""
 
 from __future__ import annotations
 
@@ -9,17 +9,17 @@ from ..configs import model_names
 from .base import BaseRunner
 from .misc import AverageMeter
 from .sparenet import sparenetRunner
+from .sparenet_gan import sparenetGANRunner
 
 __all__ = ["BaseRunner", "AverageMeter", "RUNNERS", "get_runner",
-           "runner_class", "sparenetRunner"]
+           "runner_class", "sparenetRunner", "sparenetGANRunner"]
 
 RUNNERS = {
     (model_names.MODEL_SPARENET, False): sparenetRunner,
+    (model_names.MODEL_SPARENET, True): sparenetGANRunner,
 }
 # the runners still to port, and the queue item of ROADMAP.md that ports each
 _WAITING = {
-    (model_names.MODEL_SPARENET, True): "queue 1 item 3 (the GAN runner's "
-                                        "lifecycle around gan_step)",
     (model_names.MODEL_MSN, False): "queue 1 item 4 (MSN and AtlasNet)",
     (model_names.MODEL_ATLASNET, False): "queue 1 item 4 (MSN and AtlasNet)",
     (model_names.MODEL_GRNET, False): "queue 1 item 5 (GRNet)",

@@ -6,14 +6,16 @@ the JAX package).
 
 CKPT is a checkpoint of the port (``.pth``, utils/checkpoint.py) or the JAX
 package's bf16 archive (``.npz``). The config defaults to the port's copy of
-the model's shipped yaml (``configs/sparenet.yaml``). It runs on the card
+the model's shipped yaml (``configs/sparenet.yaml``, with ``--gan``
+``configs/sparenet_gan.yaml``). It runs on the card
 unless ``--device cpu`` is given. The table of per-category metrics goes to
 stdout and to DIR/logs/<stamp>/test.txt; the last line printed is one JSON
 object: the split's mean F-Score, ChamferDistance (x 1000) and EMD (x 100),
 its clouds and batches, the seconds spent on data, forward and metrics,
 and the evaluation's kernel launches and plain-version calls by op (on the
 card every op launches its kernel; on the CPU each runs its plain version).
-Only SpareNet without the GAN and TEST.mode "default" are ported yet.
+Only SpareNet (with or without ``--gan``) and TEST.mode "default" are
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import json
 import os
 import sys
 
-from .configs import CONFIG_DIR, cfg_from_file, cfg_update, model_names
+from .configs import cfg_from_file, cfg_update, model_names, shipped_yaml
 
 MODELS = {"sparenet": model_names.MODEL_SPARENET,
           "atlasnet": model_names.MODEL_ATLASNET,
@@ -60,7 +62,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"--test_mode {args.test_mode}: the plots, depth maps and KITTI "
             f"outputs are not ported yet (ROADMAP.md, queue 1 item 3)")
-    yaml_path = args.config or os.path.join(CONFIG_DIR, f"{args.model}.yaml")
+    yaml_path = args.config or shipped_yaml(args.model, args.gan)
     cfg = cfg_from_file(yaml_path)
     cfg_update(cfg, weights=args.weights, workdir=args.workdir)
     cfg.TEST.mode = args.test_mode

@@ -113,7 +113,7 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(toy, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,err,match", [
-    (["--gan"], NotImplementedError, "queue 1 item 3"),
+    (["--test_mode", "render"], NotImplementedError, "queue 1 item 3"),
     (["--model", "msn"], NotImplementedError, "queue 1 item 4"),
     (["--model", "grnet"], NotImplementedError, "queue 1 item 5"),
     (["--test_mode", "vis"], NotImplementedError, "queue 1 item 3"),

@@ -217,7 +217,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'configs', 'configs.defaults', 'data.datasets', 'data.loaders',"
         " 'utils.metrics', 'utils.ckpt_npz', 'utils.checkpoint',"
         " 'utils.logging', 'utils.visualizer', 'runners.misc',"
-        " 'runners.base', 'runners.sparenet', 'test'):\n"
+        " 'runners.base', 'runners.sparenet', 'test', 'train',"
+        " 'utils.profiler'):\n"
         "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"
