@@ -187,13 +187,43 @@ Phases, each printing a flushed line with its elapsed seconds:
      the step generators) reloads bit for bit; p2i and its backward on the
      first step's trained clouds against their plain versions, timed beside
      phase 14's random-weight clouds.
+ 26. the evaluation CLI in serving mode (``sparenet_tpu_torch.test``: ``build``
+     and ``run``, in process, ``--serving``) on the npz over
+     flagship_e8_eval.yaml's split, in the default arm (auto = exact) and
+     with ``--mds hybrid``; counts set to 0 before the runner is built and
+     read after its load and after the evaluation: the load's mml fit
+     launches the expansion once, the ratio lies in [0.05, 50], equals a
+     fit on the same batch again and lies within 0.005 of the JAX
+     package's fit on the same serving coarse clouds (on the CPU,
+     docs/artifacts/port/jax_serving_witness.json); the serving kernels
+     (packed kNN, gather-max, MDS or its continuation, the NN, the bids)
+     launched and no plain version; clouds/s by part; the B=32 serving
+     forward of each arm on trained clouds beside phase 20's; the packed
+     kNN on the trained inputs against its plain version (near-tie slots
+     counted) with its flagged queries, the continuation bit for bit;
+     scripts/calibrate_mml.py's fit on the npz, the port's and with the
+     estimate's product at one bf16 pass (the TPU's arithmetic), a
+     reading; with NETWORK.mml_calibration set, no fit;
+ 27. serving's quality contract (docs/SERVING_ENVELOPE.md section 7:
+     Synthetic VAL, 8 batches of 16, the npz, mml calibration 1.2695):
+     parity, serving exact, S=2048, S=4096 and G=8192 each with sort and
+     pack16, hybrid; per row CD x 1000, F-Score and EMD x 100 (eps 0.005,
+     50 rounds) and the paired dF against the port's parity: each row's
+     mean dF within 0.3 pp of the JAX package's reading of it on the same
+     weights and coarse clouds (on the CPU, jax_serving_witness.json; a
+     pack16 row's is its sort twin's), inside its JAX (TPU) row's mean +- 2
+     sigma (docs/artifacts/r5/stage5/envelope_r5ckpt.json) where the JAX
+     package's CPU reading is inside it too (a window that reading misses
+     is printed as a finding), each pack16 row within 0.3 pp of its sort
+     twin; bisect picks sort's set in every round.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
 mode needs.
 The output ends with a line "paths {...}" of each path's end-to-end time (the
 line two runs are compared by), one JSON line of per-kernel numbers (every
-TPU kernel of the JAX package, the packed kNN arm and the p2i backward), the
+TPU kernel of the JAX package, the packed kNN arm and the p2i backward, each
+with its launches a step and a serving eval batch as the CLIs run them), the
 card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
@@ -222,11 +252,13 @@ os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import torch  # noqa: E402
 
+from sparenet_tpu_torch import test as test_cli
 from sparenet_tpu_torch import train as train_cli
 from sparenet_tpu_torch.configs import CONFIG_DIR, cfg_from_file, cfg_update
-from sparenet_tpu_torch.data import collate, data_init
-from sparenet_tpu_torch.models import (N_INPUT_POINTS, build_discriminator,
-                                       build_generator,
+from sparenet_tpu_torch.data import (TEST, VAL, SyntheticDataset, collate,
+                                     data_init)
+from sparenet_tpu_torch.models import (N_INPUT_POINTS, ServingDial,
+                                       build_discriminator, build_generator,
                                        complete, set_parity_mode)
 from sparenet_tpu_torch.ops import _lib
 from sparenet_tpu_torch.ops import chamfer as chamfer_op
@@ -235,6 +267,7 @@ from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
 from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
                                            pairwise_sqdist_graph_seq,
+                                           pairwise_sqdist_serving,
                                            slice_plan, sqdist3)
 from sparenet_tpu_torch.runners import base as train_base
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
@@ -243,7 +276,9 @@ from sparenet_tpu_torch.runners import get_runner
 from sparenet_tpu_torch.runners import sparenet_gan as gan_runner
 from sparenet_tpu_torch.utils.checkpoint import checkpoint_load
 from sparenet_tpu_torch.utils.logging import set_logger
-from sparenet_tpu_torch.utils.metrics import Metrics, emd_metric
+from sparenet_tpu_torch.utils import calibration
+from sparenet_tpu_torch.utils.calibration import BAND
+from sparenet_tpu_torch.utils.metrics import Metrics, compute_all, emd_metric
 
 T0 = time.perf_counter()
 TIME_LIMIT_S = 1150          # the whole script, build included
@@ -3115,6 +3150,429 @@ def main_gan_cli(p2i_rows: dict, dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: serving mode on the trained npz
+# ---------------------------------------------------------------------------
+
+# the JAX package's mml fit of this checkpoint (before its bf16 archive;
+# docs/SERVING_ENVELOPE.md section 7: 1.2695 +- 0.009), made on a TPU by
+# scripts/calibrate_mml.py: parity-mode coarse clouds of 32 partial clouds
+# drawn uniform in [-0.5, 0.5]^3 by RandomState(0); the contract's
+# calibration. The port's runner fits its own ratio on the split's first
+# batch (phase 26), held to the JAX package's fit on the same serving
+# coarse clouds (scripts/port_jax_serving_witness.py, on the CPU) within
+# FIT_TOL, half the JAX fit's spread over batches
+JAX_FIT, FIT_TOL = 1.2695, 0.005
+CALIBRATE_B, CALIBRATE_SEED = 32, 0
+WITNESS = os.path.join(ROOT, "docs", "artifacts", "port",
+                       "jax_serving_witness.json")
+# the serving contract (docs/SERVING_ENVELOPE.md section 7,
+# scripts/r5/envelope_multibatch.py): Synthetic VAL, 8 batches of 16, the
+# calibration fixed at JAX_FIT, F / CD / EMD (eps 0.005, 50 rounds). Each
+# row is held to the JAX package's own reading of it on the same weights
+# and coarse clouds (WITNESS, on the CPU) within WITNESS_PP, and to its
+# JAX (TPU) row's window where the JAX package's CPU reading lies inside
+# that window
+ENVELOPE = os.path.join(ROOT, "docs", "artifacts", "r5", "stage5",
+                        "envelope_r5ckpt.json")
+ENV_BATCHES, ENV_B = 8, 16
+ENV_EPS, ENV_ITERS = 0.005, 50
+# (row, its dial, its JAX (TPU) row, its sort twin)
+ENV_ROWS = (
+    ("parity", None, None, None),
+    ("exact", ServingDial(mds="exact"), "serving exactMDS", None),
+    ("S=2048", ServingDial(mds="batched"), "serving S=2048", None),
+    ("S=2048/pack16", ServingDial(mds="batched", select="pack16"),
+     "serving S=2048/pack16", "S=2048"),
+    ("S=4096", ServingDial(mds="batched", schedule=(4096,)),
+     "serving S=4096", None),
+    ("S=4096/pack16", ServingDial(mds="batched", schedule=(4096,),
+                                  select="pack16"),
+     "serving S=4096/pack16", "S=4096"),
+    ("G=8192", ServingDial(mds="batched", schedule=()), "serving G=8192",
+     None),
+    ("G=8192/pack16", ServingDial(mds="batched", schedule=(),
+                                  select="pack16"),
+     "serving G=8192/pack16", "G=8192"),
+    ("hybrid", ServingDial(mds="hybrid"), None, None),
+)
+# the JAX window is its row's mean dF +- 2 standard deviations; a pack16
+# row within 0.3 pp of its sort twin (the JAX twins agree within 0.06 pp),
+# and a row's mean dF within as much of the JAX package's CPU reading
+ENV_SIGMAS, TWIN_PP, WITNESS_PP = 2.0, 0.3, 0.3
+# the kernels of the serving eval path (the load's fit adds the expansion)
+SERVING_EVAL_OPS = ("knn_packed", "gather_max", "nn_idx", "emd_bids")
+
+
+def launches_of(batch: dict, name: str):
+    """A kernel's launches a batch, an int where the batches agree."""
+    v = batch.get(name, 0)
+    return int(v) if float(v).is_integer() else round(v, 3)
+
+
+def set_dial(model, dial: ServingDial) -> None:
+    """Put a serving generator's refine passes on ``dial``."""
+    r = model.refine
+    r.mds = mds.resolve_impl(dial.mds, serving=True)
+    r.mds_g, r.mds_schedule, r.mds_tail = dial.g, dial.schedule, dial.tail
+    r.select = dial.select
+
+
+def serving_cli(work: str, tag: str, extra: list, config: str = EVAL_YAML):
+    """The evaluation CLI (``test.build`` and ``test.run``, in process) in
+    serving mode on the npz over ``config``'s split (flagship_e8_eval.yaml),
+    counts set to 0 just before the runner is built and read after its load
+    and after the evaluation: (runner, line, load's launches, the
+    evaluation's)."""
+    _lib.reset_counts()
+    runner = test_cli.build(["--config", config, "--weights", TRAINED_NPZ,
+                             "--workdir", os.path.join(work, tag),
+                             "--serving"] + extra)
+    torch.cuda.synchronize()
+    load = dict(_lib.LAUNCHES)
+    line = test_cli.run(runner)
+    torch.cuda.synchronize()
+    evals = {k: v - load[k] for k, v in _lib.LAUNCHES.items()}
+    if any(_lib.PLAIN_CALLS.values()):
+        fail(f"serving CLI {tag}: plain calls {dict(_lib.PLAIN_CALLS)}")
+    return runner, line, load, evals
+
+
+def compare_knn_packed(x, got, want):
+    """The packed kNN kernel against its plain version on trained inputs:
+    an index may differ only where the two candidates' keys (by the plain
+    version's distances) sit in the same or adjacent truncation bucket
+    (a near-tie, which a rounding of the bf16 product moves)."""
+    got, want = got.long(), want.long()
+    mism = got != want
+    if not bool(mism.any()):
+        return True, 0, "indices exact"
+    d = pairwise_sqdist_serving(x, x).contiguous()
+    bits = knn.packed_bits(x.shape[1])
+    key = lambda idx: d.gather(2, idx).view(torch.int32) >> bits
+    gap = (key(got) - key(want)).abs()[mism]
+    far = int((gap > 1).sum())
+    return far == 0, int(mism.sum()), (
+        f"{int(mism.sum())} index mismatches of {got.numel()}, {far} beyond "
+        f"adjacent key buckets")
+
+
+def check_trained_serving_kernels(model, partial) -> None:
+    """#1p and #5 on the trained clouds' own inputs (the hybrid forward of
+    the split's first batch): the packed kNN within its near-tie buckets
+    (mismatched slots counted), the continuation bit for bit; the kNN
+    queries flagged for the exact scan."""
+    calls: dict = {}
+    with swapped(**recording(calls)):
+        complete(model, partial)
+    mism = []
+    for i, (args, kw, out) in enumerate(calls["knn"]):
+        ok, n, msg = compare_knn_packed(args[0], out, plain_knn(*args, **kw))
+        mism.append(n)
+        ms = cuda_ms(lambda: knn.knn_idx(*args, **kw), reps=3)
+        log(f"  knn_packed call {i} {list(args[0].shape)} on trained inputs: "
+            f"{msg}; kernel {ms:.4f} ms")
+        if not ok:
+            fail(f"knn_packed call {i} on trained inputs: mismatches beyond "
+                 f"the near-tie buckets")
+    report_flagged(calls["knn"], "the trained serving forward's inputs")
+    for i, (args, kw, out) in enumerate(calls["mds_continue"]):
+        ok, err, msg = compare_exact(out, mds.mds_continue_plain(*args, **kw))
+        ms = cuda_ms(lambda: mds.mds_continue(*args, **kw), reps=3)
+        log(f"  mds_continue call {i} {list(args[0].shape)}, {args[4]} steps "
+            f"on trained inputs: {msg}; kernel {ms:.4f} ms")
+        if not ok:
+            fail(f"mds_continue call {i} on trained inputs differs from its "
+                 f"plain version")
+    PATHS["serving_trained_knn_mismatch"] = mism
+
+
+def nn_mean_one_pass_bf16(coarse, s: int):
+    """The serving mml estimate at calibration 1 as the JAX package's TPU
+    program computes it: its distance matmul at the TPU's default precision,
+    one bf16 pass (operands rounded to bf16, products summed in f32), the
+    norms in f32 (sparenet_tpu/ops/expansion_penalty.py:
+    mean_mst_length_estimate). A measuring device for the JAX fit, which
+    was taken on a TPU; no path of the port computes it."""
+    b, n, _ = coarse.shape
+    p = coarse.float().reshape(b * (n // s), s, 3)
+    p2 = (p * p).sum(-1)
+    pb = p.bfloat16().float()
+    d2 = p2[:, :, None] + p2[:, None, :] - 2.0 * torch.bmm(pb, pb.transpose(1, 2))
+    d2 = d2 + torch.eye(s, device=p.device) * 1e9
+    return d2.amin(-1).clamp_min(0.0).sqrt().mean(-1).reshape(b, n // s).mean(-1)
+
+
+@torch.no_grad()
+def calibrate_protocol(dev) -> tuple[float, float]:
+    """scripts/calibrate_mml.py's fit on the npz: the mean over the clouds
+    of Prim's mml over the NN-mean estimate, on the parity-mode coarse
+    clouds of RandomState(0)'s 32 partial clouds uniform in [-0.5, 0.5]^3;
+    (the port's, its estimate in f32; the same with the estimate's product
+    at one bf16 pass, as the TPU that took JAX_FIT ran it)."""
+    import numpy as np
+    rs = np.random.RandomState(CALIBRATE_SEED)
+    partial = torch.from_numpy(
+        (rs.rand(CALIBRATE_B, N_INPUT_POINTS, 3) - 0.5).astype(np.float32))
+    model = trained_model(dev)
+    coarse = model.decoder(model.encoder(partial.to(dev)))
+    s = model.refine.primitive_size
+    _, _, mml = expansion_penalty.expansion_penalty(coarse, s, 1.5)
+    ratio = float(calibration.fit_mml_ratio(coarse, s))
+    tpu = float((mml / nn_mean_one_pass_bf16(coarse, s)).mean())
+    del model
+    return ratio, tpu
+
+
+def main_serving_cli(dev) -> dict:
+    """Phase 26; returns a serving eval batch's launches by arm."""
+    release_memory("the serving CLI")
+    work = tempfile.mkdtemp(prefix="serve_cli_")
+    per_batch = {}
+    try:
+        for tag, extra, arm in (("default", [], "mds"),
+                                ("hybrid", ["--mds", "hybrid"], "mds_continue")):
+            runner, line, load, evals = serving_cli(work, tag, extra)
+            n = line["batches"]
+            ratio = runner.mml_calibration
+            log(f"  {tag}: mode {line['mode']}, dial {line['dial']}; the load "
+                f"launched {({k: v for k, v in load.items() if v})}; mml ratio "
+                f"{ratio:.4f} fitted {line['mml_fitted']} (band {BAND}); the "
+                f"evaluation launched "
+                f"{({k: v for k, v in evals.items() if v})} over {n} batches")
+            if load["expansion"] != 1 or not line["mml_fitted"]:
+                fail(f"serving CLI {tag}: the fit launched expansion "
+                     f"{load['expansion']} times, fitted {line['mml_fitted']}")
+            if not BAND[0] <= ratio <= BAND[1]:
+                fail(f"serving CLI {tag}: mml ratio {ratio:.4f} outside the "
+                     f"band {BAND}")
+            for name in SERVING_EVAL_OPS + (arm,):
+                if evals[name] == 0:
+                    fail(f"serving CLI {tag}: {name} was not launched")
+            other = "mds_continue" if arm == "mds" else "mds"
+            for name in ("knn", "expansion", other):
+                if evals[name]:
+                    fail(f"serving CLI {tag}: {name} launched {evals[name]} "
+                         f"times in serving evaluation")
+            want_arm = "exact" if tag == "default" else "hybrid"
+            if line["mode"] != "serving" or line["dial"]["arm"] != want_arm:
+                fail(f"serving CLI {tag}: line mode {line['mode']}, arm "
+                     f"{line['dial']['arm']}")
+            per_batch[tag] = {k: v / n for k, v in evals.items() if v}
+            sec = line["seconds"]
+            log(f"  {tag} eval epoch on {nvidia_smi()}: {line['n_clouds']} "
+                f"clouds, {line['clouds_per_s']:.2f} clouds/s; data "
+                f"{sec['data']:.3f} s, forward (with the validation losses) "
+                f"{sec['forward']:.3f} s, metrics {sec['metrics']:.3f} s; F "
+                f"{line['F-Score']:.4f}, CD x 1000 "
+                f"{line['ChamferDistance']:.4f}, EMD x 100 {line['EMD']:.4f} "
+                f"(parity, phase 22: {PATHS.get('eval_trained', {}).get('clouds_per_s', 0):.2f}"
+                f" clouds/s, F {PATHS.get('eval_trained', {}).get('F-Score', 0):.4f})")
+            PATHS[f"serving_cli_{tag}"] = dict(
+                clouds_per_s=line["clouds_per_s"], mml=ratio,
+                **{f"{k}_s": v for k, v in sec.items()},
+                **{k: line[k] for k in Metrics.names()})
+            if tag == "default":
+                fitted = ratio
+                _, _, _, data = runner.val_loader.first_batch()
+                partial = torch.from_numpy(data["partial_cloud"]).to(dev)
+                # the runner adds nothing to the fit: the same ratio again
+                m = runner.model
+                again = float(calibration.fit_mml_ratio(
+                    m.decoder(m.encoder(partial)), m.refine.primitive_size))
+                with open(WITNESS) as f:
+                    jax_fit = json.load(f)["fit"]["jax_cpu"]
+                log(f"  the fit again on the same batch's serving coarse "
+                    f"clouds: {again:.6f} (the runner's {ratio:.6f}); the "
+                    f"JAX package's fit on them (CPU, "
+                    f"scripts/port_jax_serving_witness.py): {jax_fit:.6f}, "
+                    f"limit +-{FIT_TOL}")
+                if again != ratio:
+                    fail("the runner's fitted ratio differs from the fit on "
+                         "the same batch")
+                if abs(ratio - jax_fit) > FIT_TOL:
+                    fail(f"the runner's fit {ratio:.6f} is beyond {FIT_TOL} "
+                         f"of the JAX package's {jax_fit:.6f}")
+                ds = SyntheticDataset(eval_config(), TEST)
+                data32 = collate([ds[i] for i in range(B_BENCH)])[3]
+                partial32 = torch.from_numpy(data32["partial_cloud"]).to(dev)
+                ms = {}
+                for a in SERVING_ARMS:
+                    set_dial(runner.model, ServingDial(mds=a))
+                    ms[a] = cuda_ms(lambda: complete(runner.model, partial32),
+                                    reps=3)
+                log(f"  B={B_BENCH} serving forward on trained clouds (the "
+                    f"split's first {B_BENCH}, ratio {fitted:.4f}) on "
+                    f"{nvidia_smi()}: " + ", ".join(
+                        f"{a} {ms[a]:.1f} ms ({B_BENCH / ms[a] * 1e3:.2f} "
+                        f"clouds/s; random weights, phase 20: "
+                        f"{PATHS.get(f'serving_{a}_b32_ms', 0):.1f} ms)"
+                        for a in SERVING_ARMS))
+                PATHS.update({f"serving_trained_{a}_b32_ms": v
+                              for a, v in ms.items()})
+            else:
+                check_trained_serving_kernels(runner.model, partial)
+            del runner
+            release_memory(f"the next serving CLI run")
+        proto, tpu = calibrate_protocol(dev)
+        log(f"  a reading: scripts/calibrate_mml.py's protocol "
+            f"({CALIBRATE_B} uniform partial clouds of RandomState("
+            f"{CALIBRATE_SEED}), parity coarse) on the npz: the port's ratio "
+            f"{proto:.4f}; with the estimate's product at one bf16 pass, as "
+            f"on the TPU that took the JAX fit {JAX_FIT}: {tpu:.4f}; the "
+            f"runner's fit on the split's first batch {fitted:.4f}")
+        PATHS["mml_fit"] = dict(runner=fitted, jax_cpu_same_clouds=jax_fit,
+                                calibrate_protocol=proto,
+                                calibrate_protocol_one_pass_bf16=tpu)
+        runner, line, load, evals = serving_cli(
+            work, "mml_set", [], run_yaml(os.path.basename(EVAL_YAML), work, {
+                "NETWORK": {"mml_calibration": JAX_FIT}}))
+        log(f"  NETWORK.mml_calibration {JAX_FIT}: the load launched "
+            f"{({k: v for k, v in load.items() if v})}, ratio "
+            f"{runner.mml_calibration} fitted {line['mml_fitted']}; F "
+            f"{line['F-Score']:.4f}, CD x 1000 {line['ChamferDistance']:.4f}")
+        if (any(load.values()) or evals["expansion"] or line["mml_fitted"]
+                or runner.mml_calibration != JAX_FIT):
+            fail("serving CLI with NETWORK.mml_calibration set: a fit ran or "
+                 "the set ratio did not reach the model")
+        del runner
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return per_batch
+
+
+def envelope_data(dev):
+    """The contract's clouds: Synthetic VAL, n_val 128, [8, 16, N, 3] on
+    the card (partial, gt)."""
+    cfg = eval_config()
+    cfg.DATASETS.synthetic.n_val = ENV_BATCHES * ENV_B
+    ds = SyntheticDataset(cfg, VAL)
+    items = collate([ds[i] for i in range(ENV_BATCHES * ENV_B)])[3]
+    return tuple(torch.from_numpy(items[k]).reshape(
+        ENV_BATCHES, ENV_B, -1, 3).to(dev) for k in ("partial_cloud", "gtcloud"))
+
+
+def select_agreement(counts: dict):
+    """Route the batched rounds' selection through a check: every "sort"
+    round is also picked by "bisect", whose set must equal sort's ("topk"
+    is the sort arm itself)."""
+    base = mds.select_smallest
+
+    def check(temp, take, select="sort"):
+        out = base(temp, take, select)
+        if select == "sort":
+            counts["rounds"] += 1
+            bis = mds.select_smallest_bisect(temp, take)
+            counts["bisect"] += not torch.equal(bis, out.sort(1).values)
+        return out
+    return patched((mds, "select_smallest", check))
+
+
+def envelope_rows(parity, serving, partial, gt, mml: float, counts: dict):
+    """Each contract row's per-batch means [batches, (F, CD, EMD)], the
+    serving rows at the calibration ``mml``."""
+    serving.refine.mml_calibration = mml
+    rows = {}
+    with select_agreement(counts):
+        for name, dial, _, _ in ENV_ROWS:
+            model = parity if dial is None else serving
+            if dial is not None:
+                set_dial(model, dial)
+            vals = [compute_all(complete(model, partial[i])[2], gt[i], ENV_EPS,
+                                ENV_ITERS).mean(1) for i in range(ENV_BATCHES)]
+            rows[name] = torch.stack([torch.from_numpy(v) for v in vals]).double()
+    return rows
+
+
+def envelope_table(rows: dict, jax_rows: dict, witness: dict) -> dict:
+    """Each row's means and paired dF against parity, beside the JAX
+    package's CPU reading of the row (``witness``; a pack16 row's is its
+    sort twin's) and its JAX (TPU) row's window. A row fails beyond
+    WITNESS_PP of its CPU reading, outside its window where the CPU reading
+    lies inside it, or, for pack16, beyond TWIN_PP of its sort twin; a
+    window that the CPU reading itself misses is a finding, printed."""
+    par_f = rows["parity"][:, 0]
+    moves, table, standing = {}, {}, []
+    for name, dial, jax_name, twin in ENV_ROWS:
+        r = rows[name]
+        m, sd = r.mean(0), r.std(0, unbiased=False)
+        rel = (r[:, 0] - par_f) / par_f * 100.0
+        moves[name] = float(rel.mean())
+        table[name] = dict(cd=float(m[1]), f=float(m[0]), emd=float(m[2]),
+                           df_mean=float(rel.mean()),
+                           df_std=float(rel.std(unbiased=False)),
+                           per_batch_df=[round(float(v), 3) for v in rel])
+        verdict = ""
+        if dial is not None:
+            cpu = witness[twin or name]["df_mean"]
+            table[name]["jax_cpu_df"] = cpu
+            verdict = (f"JAX (CPU) {cpu:+.2f}, {abs(moves[name] - cpu):.3f} pp "
+                       f"away (limit {WITNESS_PP})")
+            if abs(moves[name] - cpu) > WITNESS_PP:
+                fail(f"contract row {name}: dF {moves[name]:+.2f}% is beyond "
+                     f"{WITNESS_PP} pp of the JAX package's {cpu:+.2f}%")
+        if jax_name:
+            j = jax_rows[jax_name]
+            lo = j["f_move_pct_mean"] - ENV_SIGMAS * j["f_move_pct_std"]
+            hi = j["f_move_pct_mean"] + ENV_SIGMAS * j["f_move_pct_std"]
+            inside = lo <= moves[name] <= hi
+            binds = lo <= cpu <= hi
+            verdict += (f"; JAX (TPU) {j['f_move_pct_mean']:+.2f} +- "
+                        f"{j['f_move_pct_std']:.2f}, window [{lo:+.2f}, "
+                        f"{hi:+.2f}]: {'inside' if inside else 'OUTSIDE'}")
+            table[name].update(window=[lo, hi], inside=inside)
+            if not inside and binds:
+                fail(f"contract row {name}: dF {moves[name]:+.2f}% outside "
+                     f"the JAX window [{lo:+.2f}, {hi:+.2f}]")
+            if not inside:
+                standing.append(name)
+                verdict += (" (the JAX package's CPU reading is outside it "
+                            "too: a finding, not gated)")
+        if twin:
+            gap = abs(moves[name] - moves[twin])
+            verdict += f"; {gap:.3f} pp from {twin} (limit {TWIN_PP})"
+            if gap > TWIN_PP:
+                fail(f"contract row {name}: {gap:.3f} pp from its sort twin")
+        log(f"  [{name:14s}] CD x 1000 {m[1]:.4f} +- {sd[1]:.4f}, F "
+            f"{m[0]:.4f} +- {sd[0]:.4f}, EMD x 100 {m[2]:.4f} +- {sd[2]:.4f}"
+            + ("" if dial is None else
+               f"; dF {rel.mean():+.2f}% +- {rel.std(unbiased=False):.2f}% "
+               f"(per batch {' '.join(f'{v:+.1f}' for v in rel.tolist())}); "
+               + verdict))
+    if standing:
+        log(f"  outside their JAX (TPU) windows: {', '.join(standing)}")
+    return table
+
+
+def main_envelope(dev) -> None:
+    """Phase 27: serving's quality contract on the npz at the calibration
+    JAX_FIT, against the JAX package's CPU reading and the JAX (TPU)
+    envelope."""
+    release_memory("the serving contract")
+    with open(ENVELOPE) as f:
+        jax_rows = json.load(f)["rows"]
+    with open(WITNESS) as f:
+        witness = json.load(f)["contract"]
+    partial, gt = envelope_data(dev)
+    parity = trained_model(dev)
+    serving = build_generator(seed=0, device="cpu", serving=True)
+    serving.load_state_dict(parity.state_dict())
+    serving = serving.to(dev).eval()
+    counts = {"rounds": 0, "bisect": 0}
+    t = time.perf_counter()
+    rows = envelope_rows(parity, serving, partial, gt, JAX_FIT, counts)
+    log(f"  mml calibration {JAX_FIT}: {len(ENV_ROWS)} rows x {ENV_BATCHES} "
+        f"batches of {ENV_B} in {time.perf_counter() - t:.1f} s; parity F "
+        f"{float(rows['parity'][:, 0].mean()):.4f} (the JAX package's CPU "
+        f"reading {witness['parity']['f_mean']:.4f})")
+    PATHS["serving_contract"] = envelope_table(rows, jax_rows, witness)
+    log(f"  the batched rounds' selection: {counts['rounds']} sort rounds; "
+        f"bisect's set differs in {counts['bisect']}")
+    if counts["rounds"] == 0 or counts["bisect"]:
+        fail(f"bisect picks differ from sort: {counts}")
+    del parity, serving
+
+
 def main() -> int:
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
@@ -3263,6 +3721,14 @@ def main() -> int:
     log(f"phase 25: the SpareNet-GAN training CLI on the npz (sparenet_gan.yaml"
         f", Synthetic, B={B_GAN}, 2 steps, 8 classes)")
     gan_step_launches = main_gan_cli(g_rows, dev)
+    log("phase 26: the evaluation CLI in serving mode on the npz "
+        "(flagship_e8_eval.yaml, 8 batches of 16): the default arm, then "
+        "--mds hybrid, then NETWORK.mml_calibration set")
+    serve_batch = main_serving_cli(dev)
+    log(f"phase 27: serving's quality contract on the npz (Synthetic VAL, "
+        f"{ENV_BATCHES} batches of {ENV_B}) against the JAX envelope "
+        f"(docs/artifacts/r5/stage5/envelope_r5ckpt.json)")
+    main_envelope(dev)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -3318,6 +3784,9 @@ def main() -> int:
         # its --gan runs it (phase 25)
         kernels[-1]["launches_train_step"] = cli_step.get(name, 0)
         kernels[-1]["launches_gan_step"] = gan_step_launches.get(name, 0)
+        # a serving eval batch's launches as the CLI runs it (phase 26)
+        kernels[-1]["launches_serving_batch"] = {
+            tag: launches_of(batch, name) for tag, batch in serve_batch.items()}
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

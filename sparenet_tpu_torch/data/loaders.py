@@ -53,14 +53,24 @@ class DataLoader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def _batches(self):
+    def _order(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rs = np.random.RandomState(self._seed + self._epoch)
             rs.shuffle(order)
+        return order
+
+    def _batches(self):
+        order = self._order()
         self._epoch += 1
         for i in range(len(self)):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
+
+    def first_batch(self):
+        """The next pass's first batch, read in the calling thread; the
+        pass is not counted (its shuffle seed stays the next pass's)."""
+        idxs = self._order()[:self.batch_size]
+        return collate([self.dataset[i] for i in idxs])
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

@@ -10,17 +10,21 @@ CUDA kernel.
 from __future__ import annotations
 
 import math
+from dataclasses import asdict, dataclass
 
 import torch
 from torch import nn
 
+from ..ops import mds as _mds
+
 from .discriminator import (PatchDiscriminator, ProjectionD, SNConv, SNDense,
                             SNEmbed)
 from .layers import init_weights
-from .sparenet import (SpareNetDecode, SpareNetEncode, SpareNetGenerator,
-                       SpareNetRefine)
+from .sparenet import (MML_CALIBRATION, SpareNetDecode, SpareNetEncode,
+                       SpareNetGenerator, SpareNetRefine)
 
-__all__ = ["FLAGSHIP", "N_INPUT_POINTS", "build_generator", "complete",
+__all__ = ["FLAGSHIP", "N_INPUT_POINTS", "MML_CALIBRATION", "ServingDial",
+           "build_generator", "complete",
            "build_discriminator", "resolve_device", "set_parity_mode",
            "SpareNetGenerator", "SpareNetEncode", "SpareNetDecode",
            "SpareNetRefine", "ProjectionD", "PatchDiscriminator"]
@@ -33,6 +37,47 @@ FLAGSHIP = dict(num_points=16384, n_primitives=32, bottleneck_size=4096,
                 hide_size=4096, use_selayer=True, use_adain="share",
                 encode="Residualnet")
 N_INPUT_POINTS = 3000
+
+
+@dataclass(frozen=True)
+class ServingDial:
+    """Serving mode's switch and MDS dial, the counterpart of the JAX
+    package's environment (``SPARENET_FAST_MATH=1`` with
+    ``SPARENET_MDS_IMPL``, ``_BATCH_G``, ``_SCHEDULE``, ``_TAIL`` and
+    ``_SELECT``), at that environment's defaults: the MDS arm ``mds``
+    ("auto" = "exact", as the JAX package resolves it off the TPU;
+    "batched", "hybrid"), the batched rounds' fixed size ``g``, their
+    leading sizes ``schedule`` (empty: G alone), the hybrid's exact
+    ``tail`` and the rounds' selection arm ``select``."""
+
+    mds: str = "auto"
+    g: int = _mds.BATCH_G
+    schedule: tuple = _mds.SCHEDULE
+    tail: int = _mds.TAIL
+    select: str = "sort"
+
+    def __post_init__(self):
+        object.__setattr__(self, "schedule", tuple(int(v) for v in self.schedule))
+        _mds.resolve_impl(self.mds)
+        _mds.check_select(self.select)
+        if self.g < 1 or self.tail < 1 or any(v < 1 for v in self.schedule):
+            raise ValueError(f"serving dial: G {self.g}, schedule "
+                             f"{self.schedule} and tail {self.tail} must be "
+                             f">= 1")
+
+    def generator_kwargs(self) -> dict:
+        """``build_generator``'s keywords for serving mode on this dial."""
+        return dict(serving=True, mds=self.mds, mds_g=self.g,
+                    mds_schedule=self.schedule, mds_tail=self.tail,
+                    select=self.select)
+
+    def state(self) -> dict:
+        """The dial as the evaluation CLI's JSON line gives it: its fields,
+        the arm "auto" resolves to, and the JAX package's ``dial_state``
+        label of the rounds."""
+        return dict(asdict(self), schedule=list(self.schedule),
+                    arm=_mds.resolve_impl(self.mds, serving=True),
+                    **_mds.dial_state(self.g, self.schedule, self.select))
 
 
 def set_parity_mode() -> None:
@@ -53,8 +98,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_generator(*, seed: int = 0, device=None, serving: bool = False,
-                    mds: str = "auto", mml_calibration: float = 1.33,
-                    **config) -> SpareNetGenerator:
+                    mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
+                    select: str = "sort", **config) -> SpareNetGenerator:
     """The flagship generator (``FLAGSHIP``, overridable by keyword) in eval
     mode on ``device``, with the reference's initialisation drawn on the CPU
     from ``torch.Generator().manual_seed(seed)``.
@@ -63,15 +108,17 @@ def build_generator(*, seed: int = 0, device=None, serving: bool = False,
     default: ``SPARENET_FAST_MATH=1`` with bf16 matmuls) with the MDS arm
     ``mds`` ("auto" = "exact", as the reference resolves it off the TPU;
     "batched" or "hybrid") and the mml estimate's ``mml_calibration``; the
-    batched arms' G, schedule and tail default to
-    the reference's (``mds_g``, ``mds_schedule``, ``mds_tail`` override
-    them). The same parameters serve both modes. ``train_mds="batched"``
+    batched arms' G, schedule, tail and selection arm default to the
+    reference's (``mds_g``, ``mds_schedule``, ``mds_tail`` and ``select``
+    override them; ``ServingDial.generator_kwargs`` gives all of them).
+    The same parameters serve both modes. ``train_mds="batched"``
     puts the training forward's MDS on the batched arm (the JAX package's
     serving-aligned training); eval forwards keep exact greedy MDS."""
     dev = resolve_device(device)
     set_parity_mode()
     model = SpareNetGenerator(**{**FLAGSHIP, **config}, serving=serving,
-                              mds=mds, mml_calibration=mml_calibration)
+                              mds=mds, mml_calibration=mml_calibration,
+                              select=select)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

@@ -6,7 +6,9 @@ Parity mode by default; ``serving=True`` is the reference's serving mode
 graphs, bf16 activation chains (models/layers.py), the NN-mean mml estimate
 in place of the expansion penalty (``loss_mst`` = 0), and the MDS arm
 ``mds`` ("auto" = "exact" as off the TPU, "batched" or "hybrid"; ops/mds.py)
-returning its selected rows, the flag channel being index math. Serving applies in
+returning its selected rows, the flag channel being index math; the batched
+rounds pick by the selection arm ``select`` ("sort", "bisect", "topk" or
+"pack16"; ops/mds.py:select_smallest). Serving applies in
 eval mode only; a serving model in train mode runs the parity training
 path, as in the reference. ``train_mds`` is the MDS arm of the training
 forward: "exact" (greedy MDS, the reference's), or "batched" as the JAX
@@ -31,9 +33,12 @@ from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_apply,
                      serving_dtype)
 
 __all__ = ["SpareNetEncode", "SpareNetDecode", "SpareNetRefine",
-           "SpareNetGenerator"]
+           "SpareNetGenerator", "MML_CALIBRATION"]
 
 _DEC_BOTTLENECK = 1026  # GridDecoder width
+# the family's serving mml ratio, the reference's trained-weights fit
+# (sparenet_tpu/models/sparenet.py: SpareNetRefine.mml_calibration)
+MML_CALIBRATION = 1.33
 _EXPANSION_ALPHA = 1.5
 
 
@@ -110,14 +115,17 @@ class SpareNetRefine(nn.Module):
     models/sparenet.py:203-227): mml from the NN-mean estimate times
     ``mml_calibration`` (1.33, the reference's trained-weights fit;
     ``utils.calibration.autocalibrate_mml`` fits it to a model), loss_mst 0,
-    the MDS arm ``mds`` with its selected rows (G, schedule and tail as
-    ``mds_g``, ``mds_schedule``, ``mds_tail``), the flag channel idx >= N."""
+    the MDS arm ``mds`` with its selected rows (G, schedule, tail and the
+    rounds' selection arm as ``mds_g``, ``mds_schedule``, ``mds_tail``,
+    ``select``), the flag channel idx >= N. A batched training arm
+    (``train_mds``) takes the same G, schedule and selection arm."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
                  use_selayer: bool = False, serving: bool = False,
-                 mds: str = "auto", mml_calibration: float = 1.33,
+                 mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
-                 mds_tail: int = _mds.TAIL, train_mds: str = "exact"):
+                 mds_tail: int = _mds.TAIL, train_mds: str = "exact",
+                 select: str = "sort"):
         super().__init__()
         self.num_points = num_points
         self.primitive_size = num_points // n_primitives
@@ -127,6 +135,7 @@ class SpareNetRefine(nn.Module):
         self.mml_calibration = mml_calibration
         self.mds_g, self.mds_schedule, self.mds_tail = (
             mds_g, tuple(mds_schedule), mds_tail)
+        self.select = _mds.check_select(select)
         self.residual = PointNetRes(use_selayer, serving)
 
     def finish(self, base: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -148,7 +157,8 @@ class SpareNetRefine(nn.Module):
         if self.training and self.train_mds != "exact":
             idx, _ = _mds.minimum_density_sample_xyz(
                 xyz, self.num_points, mml, self.train_mds, g=self.mds_g,
-                schedule=self.mds_schedule, tail=self.mds_tail)
+                schedule=self.mds_schedule, tail=self.mds_tail,
+                select=self.select)
         else:
             idx = _mds.minimum_density_sample(xyz, self.num_points, mml)
         return self.finish(base, idx), dist.mean()
@@ -160,7 +170,8 @@ class SpareNetRefine(nn.Module):
             coarse, self.primitive_size, self.mml_calibration)
         idx, sel = _mds.minimum_density_sample_xyz(
             torch.cat([coarse, partial], 1), n, mml, self.mds, g=self.mds_g,
-            schedule=self.mds_schedule, tail=self.mds_tail)
+            schedule=self.mds_schedule, tail=self.mds_tail,
+            select=self.select)
         base = torch.cat([sel, (idx >= n).to(sel.dtype)[..., None]], -1)
         return base[..., :3] + self.residual(base), coarse.new_zeros(())
 
@@ -173,9 +184,10 @@ class SpareNetGenerator(nn.Module):
                  bottleneck_size: int = 4096, hide_size: int = 4096,
                  use_selayer: bool = False, use_adain: str = "share",
                  encode: str = "Residualnet", serving: bool = False,
-                 mds: str = "auto", mml_calibration: float = 1.33,
+                 mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
-                 mds_tail: int = _mds.TAIL, train_mds: str = "exact"):
+                 mds_tail: int = _mds.TAIL, train_mds: str = "exact",
+                 select: str = "sort"):
         super().__init__()
         if use_adain != "share" or encode != "Residualnet":
             raise NotImplementedError(
@@ -190,7 +202,7 @@ class SpareNetGenerator(nn.Module):
                                       bottleneck_size, use_selayer, serving)
         self.refine = SpareNetRefine(
             num_points, n_primitives, use_selayer, serving, mds,
-            mml_calibration, mds_g, mds_schedule, mds_tail, train_mds)
+            mml_calibration, mds_g, mds_schedule, mds_tail, train_mds, select)
 
     def forward(self, partial: torch.Tensor):
         coarse = self.decoder(self.encoder(partial))

@@ -25,7 +25,11 @@ Serving mode's arms (the reference's ``SPARENET_FAST_MATH=1`` dispatch,
   the G lowest densities, each followed by ONE density update summed over
   the round's picks in exp2 dot form; plain PyTorch (the reference has no
   Pallas kernel there), reduced in chunks of picks so the [B, N, picks]
-  tensor never exists whole;
+  tensor never exists whole. A round picks by one of the reference's
+  selection arms (``SELECTS``, the reference's _round_pick): "sort" (the
+  default) and "topk" (the same function) and "bisect" pick the same set,
+  bisect in index order; "pack16" a 15-bit rank that may part from them at
+  near-ties;
 - ``"hybrid"`` (``mds_hybrid``, the reference's _mds_hybrid): a batched
   prefix with G = 8192 and every bump applied, its picked lanes compacted
   out (stable), then an exact greedy tail of ``tail`` picks on the live
@@ -48,13 +52,17 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _lib
 from .common import check_input, is_cpu, sqdist3
 
 __all__ = ["minimum_density_sample", "mds_plain", "mds_partitioned",
            "cluster_size", "mds_floor", "STAGE", "gather_points",
-           "resolve_impl", "select_smallest", "mds_batched", "mds_hybrid",
+           "resolve_impl", "select_smallest", "select_smallest_sort",
+           "select_smallest_bisect", "select_smallest_pack16",
+           "check_select", "dial_state", "SELECTS",
+           "mds_batched", "mds_hybrid",
            "mds_continue", "mds_continue_plain", "mds_continue_partitioned",
            "continue_cluster_size", "mds_continue_floor",
            "minimum_density_sample_xyz",
@@ -66,8 +74,13 @@ _BIG = 1e9
 _LIVE_BELOW = 5e8
 _HEAVY_FROM = 8192  # points at index >= this get 2x density weight
 _TINY = torch.finfo(torch.float32).tiny  # smallest normal f32
+_SUBNORMAL_MAX = (2 ** 23 - 1) * 2.0 ** -149  # largest subnormal f32
 _L2E = 1.4426950408889634
 MDS_IMPLS = ("exact", "batched", "hybrid")
+# the batched rounds' selection arms (the reference's SPARENET_MDS_SELECT)
+SELECTS = ("sort", "bisect", "topk", "pack16")
+_BIG_BITS = 0x4E6E6B28   # the bit pattern of 1e9 (f32), the bisect's top
+_PACK_LANES = 1 << 15    # pack16's lane field: rows of fewer lanes only
 # the reference's serving defaults (SPARENET_MDS_BATCH_G, _SCHEDULE, _TAIL)
 BATCH_G, SCHEDULE, TAIL = 8192, (2048,), 2048
 # steps between the greedy kernel's lane compactions
@@ -279,7 +292,7 @@ def resolve_impl(impl: str = "auto", serving: bool = False) -> str:
     return impl
 
 
-def select_smallest(temp: torch.Tensor, take: int) -> torch.Tensor:
+def select_smallest_sort(temp: torch.Tensor, take: int) -> torch.Tensor:
     """The ``take`` lowest densities of each row of temp [B, N] (finite,
     >= 0): one stable sort of their int32 bit patterns with the index as
     payload, so ties go to the lower index (the reference's
@@ -289,21 +302,96 @@ def select_smallest(temp: torch.Tensor, take: int) -> torch.Tensor:
     return order[:, :take].to(torch.int32)
 
 
+def select_smallest_bisect(temp: torch.Tensor, take: int) -> torch.Tensor:
+    """The "bisect" arm (the reference's _select_smallest): the take-th
+    smallest bit pattern by 31 count passes of a binary search over the
+    int32 bit space up to bits(1e9), then the lanes below it and the
+    lowest-index lanes equal to it, compacted by a cumsum and a search ->
+    [B, take] int32 in ascending index order."""
+    b = temp.shape[0]
+    dev = temp.device
+    bits = temp.contiguous().view(torch.int32)
+    lo = torch.zeros((b,), dtype=torch.int32, device=dev)
+    hi = torch.full((b,), _BIG_BITS, dtype=torch.int32, device=dev)
+    for _ in range(31):
+        mid = lo + (hi - lo) // 2
+        ge = (bits <= mid[:, None]).sum(1) >= take
+        lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+    tau = lo[:, None]
+    lt = bits < tau
+    tie = bits == tau
+    need = take - lt.sum(1, keepdim=True)
+    sel = lt | (tie & (tie.cumsum(1) <= need))
+    csum = sel.cumsum(1)
+    targets = torch.arange(1, take + 1, dtype=csum.dtype, device=dev)
+    idx = torch.searchsorted(csum, targets.expand(b, take).contiguous())
+    return idx.to(torch.int32)
+
+
+def select_smallest_pack16(temp: torch.Tensor, take: int) -> torch.Tensor:
+    """The "pack16" arm (the reference's _select_smallest_pack16): one sort
+    of unique int32 keys, the 15-bit rank ``bits >> 17`` (logical: sign,
+    exponent and 6 mantissa bits) over the 15-bit lane index; picks may
+    differ from the exact arms only among densities within ~2^-7 of each
+    other. Rows of 2^15 lanes or more take the "sort" arm, as there ->
+    [B, take] int32 in ascending key order."""
+    n = temp.shape[1]
+    if n >= _PACK_LANES:
+        return select_smallest_sort(temp, take)
+    bits = temp.contiguous().view(torch.int32)
+    lane = torch.arange(n, dtype=torch.int32, device=temp.device)
+    key = (((bits >> 17) & (_PACK_LANES - 1)) << 15) | lane
+    return torch.sort(key, dim=1).values[:, :take] & (_PACK_LANES - 1)
+
+
+# "topk" is the reference's lax.top_k(-temp): ascending temp, ties to the
+# lower index, which for densities >= +0 is the stable sort of their bits
+_SELECT = {"sort": select_smallest_sort, "bisect": select_smallest_bisect,
+           "topk": select_smallest_sort, "pack16": select_smallest_pack16}
+
+
+def select_smallest(temp: torch.Tensor, take: int,
+                    select: str = "sort") -> torch.Tensor:
+    """One batched round's picks by the selection arm ``select`` (the
+    reference's _round_pick): "sort", "bisect" and "topk" pick the same set
+    (stable top-k, ties to the lower index), each in its reference arm's
+    order; "pack16" may differ at near-ties."""
+    return _SELECT[check_select(select)](temp, take)
+
+
+def check_select(select: str) -> str:
+    if select not in SELECTS:
+        raise ValueError(f"unknown MDS selection arm {select!r}; expected "
+                         f"one of {SELECTS}")
+    return select
+
+
+def dial_state(g: int = BATCH_G, schedule=SCHEDULE,
+               select: str = "sort") -> dict:
+    """The batched rounds' dial as the reference's dial_state labels it:
+    the round plan (the schedule, or the fixed G) and the selection arm."""
+    return {"rounds": list(schedule) or f"G={g}", "select": select}
+
+
 def _gather3(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def _bump(x, s, kde, bias):
     """sum over picks s [B, G, 3] of exp2(2 kde <x, s> + bias - kde |s|^2)
-    -> [B, N], reduced in chunks of _UPDATE_CHUNK picks."""
+    -> [B, N], reduced in chunks of _UPDATE_CHUNK picks. A term below the
+    smallest normal f32 adds 0, as in the reference's XLA programs, which
+    flush subnormals: at the flagship's temperatures most far lanes then
+    tie at exactly 0, and the lowest index takes them."""
     sk = (2.0 * kde[..., None]) * s                             # [B, G, 3]
     s2k = sqdist3(s) * kde                                      # [B, G]
     tot = None
     for c0 in range(0, s.shape[1], _UPDATE_CHUNK):
         c1 = c0 + _UPDATE_CHUNK
-        arg = (torch.bmm(x, sk[:, c0:c1].transpose(1, 2)) + bias[..., None]
-               - s2k[:, None, c0:c1])
-        part = torch.exp2(arg).sum(2)
+        term = torch.bmm(x, sk[:, c0:c1].transpose(1, 2))
+        term.add_(bias[..., None]).sub_(s2k[:, None, c0:c1]).exp2_()
+        # keep a term > the largest subnormal, i.e. >= the smallest normal
+        part = F.threshold_(term, _SUBNORMAL_MAX, 0.0).sum(2)
         tot = part if tot is None else tot + part
     return tot
 
@@ -340,11 +428,12 @@ def _round_sizes(npoint: int, g: int, schedule) -> list[int]:
 
 def mds_batched(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
                 g: int = BATCH_G, schedule=SCHEDULE, return_xyz: bool = False,
-                return_state: bool = False):
-    """Batch-greedy MDS (the reference's _mds_batched, "sort" selection):
-    pick 0 is point 0; then rounds of sizes ``schedule`` followed by G until
-    npoint picks, each round taking the lowest densities (ties to the lower
-    index) and, unless it is the last (or ``return_state``), adding the
+                return_state: bool = False, select: str = "sort"):
+    """Batch-greedy MDS (the reference's _mds_batched): pick 0 is point 0;
+    then rounds of sizes ``schedule`` followed by G until npoint picks, each
+    round taking the lowest densities by the selection arm ``select``
+    (``select_smallest``; ties to the lower index) and, unless it is the
+    last (or ``return_state``), adding the
     round's bumps w * exp2(2 kde <x, s> + bias - kde |s|^2) (kde = log2(e) /
     (5 mml^2), bias = log2(w) - kde |x|^2) and pinning its picks to 1e9.
     Returns idx [B, npoint] int32, then with ``return_xyz`` the selected
@@ -353,6 +442,7 @@ def mds_batched(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
     b, n, _ = xyz.shape
     if not 1 <= npoint <= n or g < 1:
         raise ValueError(f"mds_batched: npoint={npoint}, g={g}, N={n}")
+    check_select(select)
     x, kde, bias = batched_terms(xyz, mean_mst_length)
     temp = _bump(x, x[:, :1], kde, bias)
     temp[:, 0] = _BIG
@@ -363,7 +453,7 @@ def mds_batched(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
         out_xyz[:, :1] = xyz[:, :1]
     done = 1
     for take in _round_sizes(npoint, g, schedule):
-        c = select_smallest(temp, take)
+        c = select_smallest(temp, take, select)
         out[:, done:done + take] = c
         if return_xyz:
             out_xyz[:, done:done + take] = _gather3(xyz, c)
@@ -532,19 +622,21 @@ def compact_live(xyz: torch.Tensor, temp: torch.Tensor, nlive: int):
 
 
 def mds_hybrid(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
-               g: int = BATCH_G, tail: int = TAIL, return_xyz: bool = False):
+               g: int = BATCH_G, tail: int = TAIL, return_xyz: bool = False,
+               select: str = "sort"):
     """Batched prefix of npoint - tail picks (fixed G, no schedule, every
-    bump applied), its picked lanes compacted out, then ``tail`` exact
-    greedy picks on the live lanes (the reference's _mds_hybrid). Returns
-    idx [B, npoint] int32 (and, with ``return_xyz``, the selected rows)."""
+    bump applied, the selection arm ``select``), its picked lanes compacted
+    out, then ``tail`` exact greedy picks on the live lanes (the reference's
+    _mds_hybrid). Returns idx [B, npoint] int32 (and, with ``return_xyz``,
+    the selected rows)."""
     b, n, _ = xyz.shape
     tail = int(min(tail, npoint - 1))
     if tail <= 0:
         return mds_batched(xyz, npoint, mean_mst_length, g=g, schedule=(),
-                           return_xyz=return_xyz)
+                           return_xyz=return_xyz, select=select)
     npick = npoint - tail
     pref = mds_batched(xyz, npick, mean_mst_length, g=g, schedule=(),
-                       return_xyz=return_xyz, return_state=True)
+                       return_xyz=return_xyz, return_state=True, select=select)
     xyz_c, temp_c, orig = compact_live(xyz.detach(), pref[-1], n - npick)
     lanes = mds_continue(xyz_c, temp_c, orig, mean_mst_length, tail)
     out_tail = orig.gather(1, lanes.long())
@@ -557,17 +649,19 @@ def mds_hybrid(xyz: torch.Tensor, npoint: int, mean_mst_length: torch.Tensor,
 def minimum_density_sample_xyz(xyz: torch.Tensor, npoint: int,
                                mean_mst_length: torch.Tensor,
                                impl: str = "exact", g: int = BATCH_G,
-                               schedule=SCHEDULE, tail: int = TAIL):
+                               schedule=SCHEDULE, tail: int = TAIL,
+                               select: str = "sort"):
     """(idx [B, npoint] int32, the selected rows of xyz [B, npoint, 3]) by
-    the arm ``impl`` (see ``resolve_impl``; G and schedule drive the
-    batched rounds, G and tail the hybrid's). The batched arms assemble the
-    rows from the gathers their rounds make anyway."""
+    the arm ``impl`` (see ``resolve_impl``; G, schedule and the selection
+    arm ``select`` drive the batched rounds, G, select and tail the
+    hybrid's). The batched arms assemble the rows from the gathers their
+    rounds make anyway."""
     impl = resolve_impl(impl)
     if impl == "batched":
         return mds_batched(xyz, npoint, mean_mst_length, g=g,
-                           schedule=schedule, return_xyz=True)
+                           schedule=schedule, return_xyz=True, select=select)
     if impl == "hybrid":
         return mds_hybrid(xyz, npoint, mean_mst_length, g=g, tail=tail,
-                          return_xyz=True)
+                          return_xyz=True, select=select)
     idx = minimum_density_sample(xyz.contiguous(), npoint, mean_mst_length)
     return idx, gather_points(xyz.detach(), idx)

@@ -11,10 +11,16 @@ sqrt(1 - b2^t) where optax takes sqrt(nu / (1 - b2^t))). The learning rate
 is set on the optimizer before each step, as the reference feeds a
 per-epoch scalar.
 
-``BaseRunner(config, logger, device=None)`` builds the writers, the dataset
-(``data.data_init``), the models (``build_models``, a subclass's) and loads
-CONST.weights (``utils.checkpoint``, with the training state a subclass
-names in ``training_state``). ``runner()`` runs the epochs from
+``BaseRunner(config, logger, device=None, dial=None)`` builds the writers,
+the dataset (``data.data_init``), the models (``build_models``, a
+subclass's) and loads CONST.weights (``utils.checkpoint``, with the training
+state a subclass names in ``training_state``). ``dial`` (a
+``models.ServingDial``) switches serving mode on, as the JAX package's
+``SPARENET_FAST_MATH=1`` does: the eval forward runs serving mode on that
+dial, and the training forward stays in parity mode. In serving mode,
+``models_load`` then fits the mml ratio on the model's own coarse output
+for the first validation batch (``autocalibrate_mml``, the JAX package's
+_maybe_autocalibrate_mml). ``runner()`` runs the epochs from
 ``init_epoch + 1`` to TRAIN.n_epochs, each at ``lr_for_epoch``: ``train()``
 (a subclass's ``train_step`` a batch, its losses checked finite and logged
 every TRAIN.log_freq batches) then ``val()``. ``test()`` runs ``val()``
@@ -25,9 +31,7 @@ seconds are split into data (waiting for the loader and the copy to the
 device), step and val in ``train_seconds``; each validation batch's into
 data, forward (the eval forward and the validation losses) and metrics in
 ``seconds``, and its metric means are kept in ``batch_metrics``. There is no
-mesh and no multi-host yet (ROADMAP.md, queue 1 item 8). The JAX package's
-serving-mode mml self-calibration at load is not ported: parity mode, the
-only mode the runner builds, never reads its result.
+mesh and no multi-host yet (ROADMAP.md, queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import yaml
 from ..configs import AttrDict
 from ..data import data_init
 from ..models import resolve_device
+from ..utils import calibration
 from ..utils import checkpoint as ckpt
 from ..utils import visualizer as uv
 from ..utils.logging import writer_init
@@ -87,10 +92,12 @@ def _plain(node):
 class BaseRunner:
     """Training and evaluation lifecycle (runners/base_runner.py:23-355)."""
 
-    def __init__(self, config: AttrDict, logger, device=None):
+    def __init__(self, config: AttrDict, logger, device=None, dial=None):
         self.config = deepcopy(config)
         self.logger = logger
         self.device = resolve_device(device)
+        self.dial = dial
+        self.mml_fitted = False
         self.work_dir = self.config.DIR.out_path
         os.makedirs(self.work_dir, exist_ok=True)
         os.makedirs(self.config.DIR.checkpoints, exist_ok=True)
@@ -136,6 +143,41 @@ class BaseRunner:
     def models_load(self):
         self.init_epoch, self.best_metrics = ckpt.checkpoint_load(
             self.config, self.model, self.logger, self.training_state())
+        self.autocalibrate_mml()
+
+    @property
+    def mml_calibration(self) -> float:
+        """The serving mml ratio the eval forward uses."""
+        return self.model.refine.mml_calibration
+
+    def autocalibrate_mml(self):
+        """Serving mode's mml self-calibration (the JAX package's
+        BaseRunner._maybe_autocalibrate_mml): in serving mode, with
+        CONST.weights loaded, NETWORK.mml_calibration 0 and
+        TEST.mml_auto_calibrate on, fit the ratio on the model's own
+        coarse output for the first validation batch (utils/calibration.py,
+        the expansion kernel once) and let it replace the family default.
+        A fit outside ``calibration.BAND``, or not finite, keeps the
+        default with a warning."""
+        cfg = self.config
+        if (self.dial is None or not cfg.CONST.weights
+                or cfg.NETWORK.mml_calibration > 0
+                or not cfg.TEST.mml_auto_calibrate):
+            return
+        _, _, _, data = self.val_loader.first_batch()
+        default = self.mml_calibration
+        ratio, self.mml_fitted = calibration.autocalibrate_mml(
+            self.model, torch.from_numpy(data["partial_cloud"]))
+        if not self.mml_fitted:
+            self.logger.warning(
+                "Auto-calibrated mml ratio %r is outside the plausible "
+                "band [0.05, 50] — keeping the family default %.2f. "
+                "(Degenerate checkpoint? Set NETWORK.mml_calibration "
+                "to override explicitly.)" % (ratio, default))
+            return
+        self.logger.info(
+            "Auto-calibrated serving mml ratio on the first val batch: "
+            "%.4f (family default was %.2f)." % (ratio, default))
 
     def models_save(self):
         self.best_metrics = ckpt.checkpoint_save(
@@ -307,15 +349,24 @@ class BaseRunner:
         self.train_writer.close()
         self.val_writer.close()
 
+    def mode(self) -> dict:
+        """The eval forward's mode: "parity" or "serving", the serving dial
+        (``ServingDial.state``: the resolved MDS arm among it), the mml
+        ratio and whether it was fitted at load."""
+        return dict(mode="parity" if self.dial is None else "serving",
+                    dial=None if self.dial is None else self.dial.state(),
+                    mml_calibration=self.mml_calibration,
+                    mml_fitted=self.mml_fitted)
+
     def summary(self) -> dict:
-        """The split's per-metric means, its clouds and the seconds by
-        part: the evaluation CLI's last line."""
+        """The split's per-metric means, its clouds, the seconds by part
+        and the mode: the evaluation CLI's last line."""
         out = dict(zip(Metrics.names(), self.test_metrics.avg()))
         n = self.test_metrics.count(0)
         total = sum(self.seconds.values())
         out.update(n_clouds=n, batches=len(self.batch_metrics),
                    seconds=dict(self.seconds, total=total),
-                   clouds_per_s=n / total if total else 0.0)
+                   clouds_per_s=n / total if total else 0.0, **self.mode())
         return out
 
     def train_summary(self) -> dict:

@@ -12,14 +12,17 @@ tensors on the device. Like the other entry points it needs a card unless
 the model was built with ``device="cpu"``.
 
 ``sparenetRunner`` is ``runners.base.BaseRunner`` with the generator and its
-Adam built from the config (``build_models``; TRAIN.serving_aligned puts the
-training forward's MDS on the batched arm, as the JAX package's
-``define_G(train=True)`` does, and validation keeps exact greedy MDS), its
+Adam built from the config (``build_models``, as the JAX package's
+``define_G``: NETWORK.mml_calibration when it is > 0, else the family's
+1.33; TRAIN.serving_aligned puts the training forward's MDS on the batched
+arm, as ``define_G(train=True)`` does; with a serving dial the eval forward
+runs serving mode on it, and the training forward parity), its
 ``train_step`` (a batch copied to the device, then ``train_step`` above at
 the epoch's lr; losses into ``loss`` and the CoarseLoss/RefineLoss meters)
-and its ``val_step``: the eval forward, the validation losses of coarse and
-refine (Chamfer or EMD by NETWORK.metric, as ``_val_impl``) and
-``utils.metrics.compute_all`` at TEST.emd_eps / emd_iters.
+and its ``val_step``: the eval forward (serving mode with a dial), the
+validation losses of coarse and refine (Chamfer or EMD by NETWORK.metric, as
+``_val_impl``) and ``utils.metrics.compute_all`` at TEST.emd_eps /
+emd_iters, in fp32 in either mode.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from time import perf_counter
 import torch
 
 from ..configs import model_names
-from ..models import build_generator, complete, resolve_device, set_parity_mode
+from ..models import (MML_CALIBRATION, build_generator, complete,
+                      resolve_device, set_parity_mode)
 from ..ops import chamfer, emd
 from ..utils.metrics import Metrics, compute_all
 from .base import BaseRunner, make_optimizer, set_lr
@@ -119,8 +123,8 @@ def _sync(device: torch.device) -> None:
 class sparenetRunner(BaseRunner):
     """The reference's class name, which the runner registry keys."""
 
-    def __init__(self, config, logger, device=None):
-        super().__init__(config, logger, device)
+    def __init__(self, config, logger, device=None, dial=None):
+        super().__init__(config, logger, device, dial)
         self.losses = AverageMeter(["CoarseLoss", "RefineLoss"])
         self.test_losses = AverageMeter(["CoarseLoss", "RefineLoss"])
         self.test_metrics = AverageMeter(Metrics.names())
@@ -131,21 +135,25 @@ class sparenetRunner(BaseRunner):
         self.test_metrics = AverageMeter(Metrics.names())
 
     def build_models(self):
-        """The generator (define_G's SpareNet: bottleneck and hide 4096),
-        initialised from CONST.seed, and its Adam. The steps put it in
-        train mode, the eval forward in eval mode."""
+        """The generator (define_G's SpareNet: bottleneck and hide 4096,
+        NETWORK.mml_calibration when it is > 0, serving mode on the dial
+        where there is one), initialised from CONST.seed, and its Adam. The
+        steps put it in train mode, the eval forward in eval mode."""
         cfg = self.config
         if cfg.NETWORK.model_type != model_names.MODEL_SPARENET:
             raise ValueError(f"sparenetRunner builds SpareNet, not "
                              f"{cfg.NETWORK.model_type!r}")
         self.step_config = train_config(cfg)
+        mml = float(cfg.NETWORK.mml_calibration)
+        serving = {} if self.dial is None else self.dial.generator_kwargs()
         self.model = build_generator(
             seed=cfg.CONST.seed, device=self.device,
             num_points=cfg.DATASET.n_outpoints, bottleneck_size=4096,
             hide_size=4096, n_primitives=cfg.NETWORK.n_primitives,
             use_selayer=cfg.NETWORK.use_selayer,
             use_adain=cfg.NETWORK.use_adain, encode=cfg.NETWORK.encode,
-            train_mds="batched" if cfg.TRAIN.serving_aligned else "exact")
+            train_mds="batched" if cfg.TRAIN.serving_aligned else "exact",
+            mml_calibration=mml if mml > 0 else MML_CALIBRATION, **serving)
         self.optimizer = make_optimizer(self.model, self.step_config)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info("Parameters in net_G: %d." % n_params)

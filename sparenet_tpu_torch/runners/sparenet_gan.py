@@ -34,7 +34,9 @@ returns.
 radius from RENDER.radius_list with a ``torch.Generator`` seeded from
 CONST.seed (the JAX package draws it with Python's unseeded
 ``random.sample``), and the dropout masks come from a second one; both are
-kept in the checkpoint with the whole GAN (``training_state``).
+kept in the checkpoint with the whole GAN (``training_state``). A serving
+dial reaches the generator as in ``sparenetRunner``: validation then runs
+serving mode, and the GAN step parity.
 """
 
 from __future__ import annotations
@@ -163,8 +165,8 @@ class sparenetGANRunner(sparenetRunner):
     LOSSES = ("CoarseLoss", "RefineLoss", "errG", "errG_D", "DisRealLoss",
               "DisFakeLoss")
 
-    def __init__(self, config, logger, device=None):
-        super().__init__(config, logger, device)
+    def __init__(self, config, logger, device=None, dial=None):
+        super().__init__(config, logger, device, dial)
         self.losses = AverageMeter(list(self.LOSSES))
         self.radii: list[float] = []
 

@@ -3,17 +3,31 @@ the JAX package).
 
     python -m sparenet_tpu_torch.test --weights CKPT [--config YAML]
         [--dataset Synthetic] [--workdir DIR] [--device cpu]
+        [--serving [--mds {auto,exact,batched,hybrid}] [--mds-g G]
+         [--mds-schedule S1,S2,...] [--mds-tail T]
+         [--mds-select {sort,bisect,topk,pack16}]]
 
 CKPT is a checkpoint of the port (``.pth``, utils/checkpoint.py) or the JAX
 package's bf16 archive (``.npz``). The config defaults to the port's copy of
 the model's shipped yaml (``configs/sparenet.yaml``, with ``--gan``
 ``configs/sparenet_gan.yaml``). It runs on the card
-unless ``--device cpu`` is given. The table of per-category metrics goes to
+unless ``--device cpu`` is given. ``--serving`` evaluates in serving mode
+(the JAX package's ``SPARENET_FAST_MATH=1``) on the MDS dial the other
+flags set (the counterparts of ``SPARENET_MDS_IMPL``, ``_BATCH_G``,
+``_SCHEDULE`` (an empty value: fixed G), ``_TAIL`` and ``_SELECT``, with
+their defaults; ``models.ServingDial``); a dial flag without ``--serving`` is
+an error. In serving mode the runner fits the mml ratio at load
+(``runners.base.BaseRunner.autocalibrate_mml``). The table of per-category
+metrics goes to
 stdout and to DIR/logs/<stamp>/test.txt; the last line printed is one JSON
 object: the split's mean F-Score, ChamferDistance (x 1000) and EMD (x 100),
 its clouds and batches, the seconds spent on data, forward and metrics,
-and the evaluation's kernel launches and plain-version calls by op (on the
-card every op launches its kernel; on the CPU each runs its plain version).
+the mode ("parity" or "serving"), the serving dial with the MDS arm it
+resolves to, the mml ratio and whether it was fitted,
+and the kernel launches and plain-version calls by op of the load (the mml
+fit) and the evaluation (on the card every op launches its kernel; on the
+CPU each runs its plain version). ``build(argv)`` gives the loaded runner
+and ``run(runner)`` that line, for callers in process.
 Only SpareNet (with or without ``--gan``) and TEST.mode "default" are
 ported yet.
 """
@@ -30,6 +44,42 @@ from .configs import cfg_from_file, cfg_update, model_names, shipped_yaml
 MODELS = {"sparenet": model_names.MODEL_SPARENET,
           "atlasnet": model_names.MODEL_ATLASNET,
           "msn": model_names.MODEL_MSN, "grnet": model_names.MODEL_GRNET}
+# the dial flags and their ServingDial fields
+DIAL_FLAGS = {"mds": "mds", "mds_g": "g", "mds_schedule": "schedule",
+              "mds_tail": "tail", "mds_select": "select"}
+
+
+def add_serving_args(parser: argparse.ArgumentParser) -> None:
+    """``--serving`` and the MDS dial's flags (each left unset: the JAX
+    package's default)."""
+    parser.add_argument("--serving", action="store_true",
+                        help="serving mode (SPARENET_FAST_MATH=1)")
+    parser.add_argument("--mds", choices=["auto", "exact", "batched",
+                                          "hybrid"])
+    parser.add_argument("--mds-g", type=int)
+    parser.add_argument("--mds-schedule", type=str,
+                        help="comma ints; empty: the fixed G alone")
+    parser.add_argument("--mds-tail", type=int)
+    parser.add_argument("--mds-select", choices=["sort", "bisect", "topk",
+                                                 "pack16"])
+
+
+def serving_dial(args):
+    """The ``models.ServingDial`` the flags ask for, None without
+    ``--serving``."""
+    flags = {f: getattr(args, f) for f in DIAL_FLAGS
+             if getattr(args, f) is not None}
+    if not args.serving:
+        if flags:
+            raise ValueError(", ".join("--" + f.replace("_", "-") for f in flags)
+                             + " set the serving MDS dial: they need --serving")
+        return None
+    given = {DIAL_FLAGS[f]: v for f, v in flags.items()}
+    if "schedule" in given:
+        given["schedule"] = tuple(int(v) for v in given["schedule"].split(",")
+                                  if v.strip())
+    from .models import ServingDial
+    return ServingDial(**given)
 
 
 def get_args_from_command_line(argv=None):
@@ -47,17 +97,20 @@ def get_args_from_command_line(argv=None):
     parser.add_argument("--test_mode", type=str, default="default",
                         choices=["default", "vis", "render", "kitti"])
     parser.add_argument("--dataset", type=str, default=None)
+    add_serving_args(parser)
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> int:
+def build(argv=None):
+    """The runner the command line asks for, built and loaded (in serving
+    mode the mml ratio is fitted there)."""
     args = get_args_from_command_line(argv)
 
-    from .ops import _lib
     from .runners import runner_class
     from .utils.logging import set_logger
 
     runner_cls = runner_class(MODELS[args.model], args.gan)
+    dial = serving_dial(args)
     if args.test_mode != "default":
         raise NotImplementedError(
             f"--test_mode {args.test_mode}: the plots, depth maps and KITTI "
@@ -71,14 +124,28 @@ def main(argv=None) -> int:
         cfg.DATASET.test_dataset = args.dataset
 
     logger = set_logger(os.path.join(cfg.DIR.logs, "log.txt"))
-    runner = runner_cls(cfg, logger, device=args.device)
-    _lib.reset_counts()
+    return runner_cls(cfg, logger, device=args.device, dial=dial)
+
+
+def run(runner) -> dict:
+    """Evaluate ``runner`` over its split; the CLI's last line (the kernel
+    and plain-version counts as they stand: ``main`` sets them to 0 before
+    the runner is built, so they hold the load's mml fit too)."""
+    from .ops import _lib
+
     runner.test()
     line = runner.summary()
     line.update(device=str(runner.device),
                 launches={k: v for k, v in _lib.LAUNCHES.items() if v},
                 plain_calls={k: v for k, v in _lib.PLAIN_CALLS.items() if v})
-    print(json.dumps(line), flush=True)
+    return line
+
+
+def main(argv=None) -> int:
+    from .ops import _lib
+
+    _lib.reset_counts()
+    print(json.dumps(run(build(argv))), flush=True)
     return 0
 
 

@@ -4,6 +4,8 @@ the JAX package).
     python -m sparenet_tpu_torch.train [--model sparenet] [--gan]
         [--config YAML] [--weights CKPT] [--workdir DIR] [--dataset Synthetic]
         [--epochs N] [--batch-size B] [--device cpu]
+        [--serving [--mds ...] [--mds-g G] [--mds-schedule S1,...]
+         [--mds-tail T] [--mds-select ...]]
 
 The config defaults to the port's copy of the model's shipped yaml
 (``configs/sparenet.yaml``, with ``--gan`` ``configs/sparenet_gan.yaml``).
@@ -13,10 +15,16 @@ or the JAX package's bf16 archive (``.npz``, loaded as epoch 1: its weights,
 with the optimizers fresh). Epochs run from the checkpoint's epoch + 1 to
 ``--epochs`` (TRAIN.n_epochs), each followed by validation and a checkpoint
 on improvement or every TRAIN.save_freq epochs, under DIR. It runs on the
-card unless ``--device cpu`` is given. The last line printed is one JSON
+card unless ``--device cpu`` is given. ``--serving`` and the MDS dial's flags
+are the evaluation CLI's (``test.py``): validation then runs serving mode on
+that dial, as the root train.py's does under ``SPARENET_FAST_MATH=1``, with
+the mml ratio fitted at load where a checkpoint is given; training stays in
+parity mode (TRAIN.serving_aligned puts its MDS on the batched arm of the
+same dial). The last line printed is one JSON
 object: the epochs run, each one's lr and mean losses, the best metrics, the
 clouds trained and the training seconds by part (data, step, val) with the
-clouds a second of data and step time, and the run's kernel launches and
+clouds a second of data and step time, the mode, dial and mml ratio as the
+evaluation CLI gives them, and the run's kernel launches and
 plain-version calls by op (on the card every op launches its kernel; on the
 CPU each runs its plain version). Only SpareNet, with or without the GAN,
 is ported yet.
@@ -30,7 +38,7 @@ import os
 import sys
 
 from .configs import cfg_from_file, cfg_update, shipped_yaml
-from .test import MODELS
+from .test import MODELS, add_serving_args, serving_dial
 
 
 def get_args_from_command_line(argv=None):
@@ -50,6 +58,7 @@ def get_args_from_command_line(argv=None):
                         help="DATASET.{train,test}_dataset (e.g. Synthetic)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=None)
+    add_serving_args(parser)
     return parser.parse_args(argv)
 
 
@@ -61,6 +70,7 @@ def build(argv=None):
     from .utils.logging import set_logger
 
     runner_cls = runner_class(MODELS[args.model], args.gan)
+    dial = serving_dial(args)
     yaml_path = args.config or shipped_yaml(args.model, args.gan)
     cfg = cfg_from_file(yaml_path)
     cfg_update(cfg, weights=args.weights, workdir=args.workdir)
@@ -73,7 +83,7 @@ def build(argv=None):
         cfg.TRAIN.batch_size = args.batch_size
     logger = set_logger(os.path.join(cfg.DIR.logs, "log.txt"))
     logger.info("Use config: %s" % yaml_path)
-    return runner_cls(cfg, logger, device=args.device)
+    return runner_cls(cfg, logger, device=args.device, dial=dial)
 
 
 def run(runner) -> dict:
@@ -84,7 +94,7 @@ def run(runner) -> dict:
     _lib.reset_counts()
     runner.runner()
     line = runner.train_summary()
-    line.update(device=str(runner.device),
+    line.update(device=str(runner.device), **runner.mode(),
                 launches={k: v for k, v in _lib.LAUNCHES.items() if v},
                 plain_calls={k: v for k, v in _lib.PLAIN_CALLS.items() if v})
     return line

@@ -7,16 +7,27 @@ nearest-neighbour distance (``ops.expansion_penalty.
 mean_mst_length_estimate``). The ratio depends on the coarse cloud's
 distribution, so it is fitted on the model's own coarse output:
 ``fit_mml_ratio`` runs the exact Prim's once (the expansion kernel on the
-card) and ``autocalibrate_mml`` sets the fitted ratio on a built generator.
+card) and ``autocalibrate_mml`` fits it on a built generator's coarse
+output and sets it there if it lies inside ``BAND``. The runners fit at
+checkpoint load in serving mode (``runners.base.BaseRunner.
+autocalibrate_mml``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..ops.expansion_penalty import expansion_penalty, mean_mst_length_estimate
 
-__all__ = ["fit_mml_ratio", "autocalibrate_mml"]
+__all__ = ["fit_mml_ratio", "autocalibrate_mml", "BAND"]
+
+# the plausible ratios (the JAX package's _maybe_autocalibrate_mml): fits
+# span about 1.1 (converged SpareNet) to 5.7 (MSN); a collapsed coarse cloud
+# gives about 0 and non-finite activations NaN, which would zero or poison
+# the MDS temperature t = 5 mml^2
+BAND = (0.05, 50.0)
 
 
 @torch.no_grad()
@@ -30,10 +41,11 @@ def fit_mml_ratio(coarse: torch.Tensor, primitive_size: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def autocalibrate_mml(model, partial: torch.Tensor) -> float:
-    """Fit the ratio on ``model``'s coarse output for one batch of partial
-    clouds [B, N_in, 3] (on the model's device, eval mode) and set it as
-    the model's serving calibration; returns it."""
+def autocalibrate_mml(model, partial: torch.Tensor) -> tuple[float, bool]:
+    """Fit the ratio on ``model``'s coarse output (eval mode, in the mode it
+    was built with) for one batch of partial clouds [B, N_in, 3], moved to
+    the model's device, and set it as the model's serving calibration if it
+    is finite and inside ``BAND``: (the fitted ratio, whether it was set)."""
     dev = next(model.parameters()).device
     was_training = model.training
     model.eval()
@@ -43,5 +55,7 @@ def autocalibrate_mml(model, partial: torch.Tensor) -> float:
         ratio = float(fit_mml_ratio(coarse, model.refine.primitive_size))
     finally:
         model.train(was_training)
-    model.refine.mml_calibration = ratio
-    return ratio
+    fitted = math.isfinite(ratio) and BAND[0] <= ratio <= BAND[1]
+    if fitted:
+        model.refine.mml_calibration = ratio
+    return ratio, fitted

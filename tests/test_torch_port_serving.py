@@ -12,6 +12,8 @@ would take the exact XLA selection) and its MDS globals set to toy rounds
 
 import jax
 import jax.numpy as jnp
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,7 @@ from sparenet_tpu.ops.expansion_penalty import \
 from sparenet_tpu.ops.pallas.knn_pallas import knn_self_pallas
 from sparenet_tpu_torch import models as port_models
 from sparenet_tpu_torch.ops import mds as port_mds
-from sparenet_tpu_torch.utils.calibration import (autocalibrate_mml,
+from sparenet_tpu_torch.utils.calibration import (BAND, autocalibrate_mml,
                                                   fit_mml_ratio)
 from sparenet_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -202,15 +204,18 @@ def test_serving_arms_and_defaults():
 
 def test_autocalibrate_sets_the_fitted_ratio(case):
     """autocalibrate_mml fits the ratio on the model's own coarse output
-    (rtol 1e-6 against fit_mml_ratio on that coarse) and sets it."""
+    (rtol 1e-6 against fit_mml_ratio on that coarse) and, inside the
+    plausible band, sets it."""
     model = port_models.build_generator(device="cpu", serving=True, seed=5,
                                         **CONFIG)
     model.load_state_dict(case["sd"], strict=True)
     partial = torch.from_numpy(case["partial"])
-    ratio = autocalibrate_mml(model, partial)
+    before = model.refine.mml_calibration
+    ratio, fitted = autocalibrate_mml(model, partial)
     with torch.no_grad():
         coarse = model.decoder(model.encoder(partial))
-    assert model.refine.mml_calibration == ratio
+    assert fitted == (math.isfinite(ratio) and BAND[0] <= ratio <= BAND[1])
+    assert model.refine.mml_calibration == (ratio if fitted else before)
     np.testing.assert_allclose(ratio, float(fit_mml_ratio(coarse, S)),
                                rtol=1e-6)
     assert not model.training
