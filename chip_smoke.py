@@ -215,7 +215,44 @@ Phases, each printing a flushed line with its elapsed seconds:
      sigma (docs/artifacts/r5/stage5/envelope_r5ckpt.json) where the JAX
      package's CPU reading is inside it too (a window that reading misses
      is printed as a finding), each pack16 row within 0.3 pp of its sort
-     twin; bisect picks sort's set in every round.
+     twin; bisect picks sort's set in every round;
+ 28. MSN and AtlasNet (``models.define_G`` on msn.yaml and atlasnet.yaml:
+     3000 -> 16384 points, 32 primitives, bottleneck and PointNetfeat's hide
+     1024) from seed 17 with jittered BatchNorm statistics, parity mode: at
+     B=2 on numpy-seeded partials and grids, each weight tensor's sha256
+     and the forwards against the JAX package's on the CPU
+     (docs/artifacts/port/jax_msn_atlasnet_witness.npz, scripts/
+     port_jax_msn_witness.py): AtlasNet's cloud and MSN's coarse cloud
+     elementwise (atol 3e-6, rtol 1e-4), MSN's mml and loss_mst on the
+     witness's coarse cloud (rtol 1e-4; loss_mst free-running a reading),
+     its MDS on the witness's cloud and mml against the JAX picks (a
+     divergence only at a near-tie), its refine anchored on the witness's
+     cloud and picks elementwise and free-running by Chamfer <= 1e-4;
+     launches a forward (MSN: expansion 1, MDS 1; AtlasNet none; no plain
+     call), MSN's expansion and MDS calls bit for bit against their plain
+     versions; B=32 forwards by CUDA events (3 after a warm-up, grids drawn
+     on the host) with peak memory and one profiled forward; MSN's serving
+     forward at B=32 in the exact arm (MDS 1) and the hybrid arm (the
+     continuation 1);
+ 29. one training step of each family at B=32 (EMD, Adam;
+     ``runners.msn.train_step``, ``runners.atlasnet.train_step``):
+     launches (MSN: bids 100, expansion 1, MDS 1; AtlasNet: bids 50; no
+     plain call); against a plain step on the card replaying its MDS picks
+     and auction assignments, both in deterministic mode (loss and every
+     gradient leaf); the step's expansion call whole, its MDS and first
+     bids call (every bidder) on their first 2 clouds and its last 3 bids
+     calls whole, bit for bit against their plain versions; 3 timed steps,
+     peak memory, one profiled step;
+ 30. the CLIs with ``--model msn`` and ``atlasnet`` on their yamls
+     (Synthetic, 2 steps at B=32, validation over 32 clouds at B=16): a
+     step's launches as phase 29's, no plain call, one checkpoint; the
+     runner resumed from it holds the generator, Adam and the grid
+     generator bit for bit; the evaluation CLI on the checkpoint reads the
+     training run's validation metrics (relative 1e-5), a batch's launches
+     (bids 150 for MSN, 100 for AtlasNet, NN 2, MSN's MDS 1 and expansion
+     1); ``--serving`` for MSN: the fit at load launches the expansion once
+     and lies in [0.05, 50], a batch launches MDS once; clouds/s and
+     seconds by part.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -234,6 +271,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import hashlib
 import json
 import math
 import os
@@ -250,6 +288,7 @@ import time
 # PyTorch's default workspace on Hopper, so the default mode is unchanged.
 os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from sparenet_tpu_torch import test as test_cli
@@ -259,7 +298,8 @@ from sparenet_tpu_torch.data import (TEST, VAL, SyntheticDataset, collate,
                                      data_init)
 from sparenet_tpu_torch.models import (N_INPUT_POINTS, ServingDial,
                                        build_discriminator, build_generator,
-                                       complete, set_parity_mode)
+                                       MSN_MML_CALIBRATION, complete, define_G,
+                                       set_parity_mode)
 from sparenet_tpu_torch.ops import _lib
 from sparenet_tpu_torch.ops import chamfer as chamfer_op
 from sparenet_tpu_torch.ops import p2i as p2i_op
@@ -269,7 +309,10 @@ from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
                                            pairwise_sqdist_graph_seq,
                                            pairwise_sqdist_serving,
                                            slice_plan, sqdist3)
+from sparenet_tpu_torch.models.sparenet import flagged_base
+from sparenet_tpu_torch.runners import atlasnet as atlas_runner
 from sparenet_tpu_torch.runners import base as train_base
+from sparenet_tpu_torch.runners import msn as msn_runner
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
 from sparenet_tpu_torch.runners import get_runner
@@ -279,6 +322,7 @@ from sparenet_tpu_torch.utils.logging import set_logger
 from sparenet_tpu_torch.utils import calibration
 from sparenet_tpu_torch.utils.calibration import BAND
 from sparenet_tpu_torch.utils.metrics import Metrics, compute_all, emd_metric
+from sparenet_tpu_torch.utils.weights import reference_state_dict
 
 T0 = time.perf_counter()
 TIME_LIMIT_S = 1150          # the whole script, build included
@@ -1333,16 +1377,16 @@ def run_step(model, opt, partial, gt):
     return [float(v) for v in loss], grads
 
 
-def step_gaps(a, b):
+def step_gaps(a, b, zero_grad=ZERO_GRAD):
     """(loss rel gap, largest relative-L2 gap of a gradient leaf, largest
-    norm of a ZERO_GRAD leaf's gap, name of the worst leaf)."""
+    norm of a ``zero_grad`` leaf's gap, name of the worst leaf)."""
     (la, ga), (lb, gb) = a, b
     loss = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(la, lb))
     rel, zero, worst = 0.0, 0.0, ""
     assert ga.keys() == gb.keys()
     for name in ga:
         d = float((ga[name] - gb[name]).double().norm())
-        if name in ZERO_GRAD:
+        if name in zero_grad:
             zero = max(zero, d)
             continue
         r = d / max(float(gb[name].double().norm()), 1e-30)
@@ -3310,7 +3354,6 @@ def calibrate_protocol(dev) -> tuple[float, float]:
     clouds of RandomState(0)'s 32 partial clouds uniform in [-0.5, 0.5]^3;
     (the port's, its estimate in f32; the same with the estimate's product
     at one bf16 pass, as the TPU that took JAX_FIT ran it)."""
-    import numpy as np
     rs = np.random.RandomState(CALIBRATE_SEED)
     partial = torch.from_numpy(
         (rs.rand(CALIBRATE_B, N_INPUT_POINTS, 3) - 0.5).astype(np.float32))
@@ -3573,6 +3616,480 @@ def main_envelope(dev) -> None:
     del parity, serving
 
 
+# ---------------------------------------------------------------------------
+# MSN and AtlasNet (phases 28-30)
+# ---------------------------------------------------------------------------
+
+# scripts/port_jax_msn_witness.py: the JAX package's forwards of both families
+# at full width on the CPU, from the weights ``witness_model`` builds
+MSN_WITNESS = os.path.join(ROOT, "docs", "artifacts", "port",
+                           "jax_msn_atlasnet_witness.npz")
+WITNESS_SEED, WITNESS_B = 17, 2
+FAMILIES = ("atlasnet", "msn")
+FAMILY_NAME = {"atlasnet": "AtlasNet", "msn": "MSN"}
+
+
+def family_config(family: str):
+    """The port's copy of the family's shipped yaml (16384 points, 32
+    primitives, B=32, EMD)."""
+    return cfg_from_file(os.path.join(CONFIG_DIR, f"{family}.yaml"))
+
+
+def witness_model(family: str, dev, dial=None):
+    """The family at full width (``define_G`` on its yaml), initialised on
+    the CPU from WITNESS_SEED with jittered BatchNorm statistics (phase 3's
+    recipe; the initialisation's own statistics fold each primitive to
+    within 3e-5 of a point), on ``dev`` in eval mode."""
+    model = define_G(family_config(family), seed=WITNESS_SEED, device="cpu",
+                     dial=dial)
+    jitter_bn_stats(model, torch.Generator().manual_seed(WITNESS_SEED + 1))
+    return model.to(dev).eval()
+
+
+def witness_inputs(batch: int = WITNESS_B):
+    """numpy-seeded partial clouds [B, 3000, 3] in [-0.5, 0.5) and grids
+    [32, B, 512, 2] in [0, 1)."""
+    rs = np.random.RandomState(WITNESS_SEED)
+    partial = (rs.rand(batch, N_INPUT_POINTS, 3) - 0.5).astype(np.float32)
+    grids = rs.rand(N_PRIMS, batch, PRIM_S, 2).astype(np.float32)
+    return partial, grids
+
+
+def weight_checksums(model) -> dict:
+    """sha256 (first 16 hex digits) of each tensor of the model's
+    reference-layout state_dict, by key."""
+    return {k: hashlib.sha256(v.contiguous().numpy().tobytes()).hexdigest()[:16]
+            for k, v in sorted(reference_state_dict(model).items())}
+
+
+B_FAMILY = atlas_runner.CONFIG["batch_size"]   # 32, msn.yaml and atlasnet.yaml
+FAMILY_STEP = {"atlasnet": atlas_runner.train_step,
+               "msn": msn_runner.train_step}
+# launches of an eval forward and of a training step (EMD: 50 bids rounds a
+# reconstruction loss at the loss's protocol)
+FAMILY_FORWARD = {"atlasnet": {}, "msn": {"expansion": 1, "mds": 1}}
+FAMILY_STEP_LAUNCHES = {"atlasnet": {"emd_bids": 50},
+                        "msn": {"emd_bids": 100, "expansion": 1, "mds": 1}}
+# Gradients that are exactly 0 in exact arithmetic (tests/
+# test_torch_msn_atlasnet_train.py): biases ahead of a train-mode BatchNorm,
+# and the BatchNorm biases before a max-pool whose shift the next one removes
+FAMILY_ZERO_GRAD = ({"encoder.linear.bias", "encoder.feat_extractor.bn3.bias",
+                     "res.bn3.bias"}
+                    | {f"encoder.feat_extractor.conv{i}.bias" for i in (1, 2, 3)}
+                    | {f"decoder.conv{i}.bias" for i in (1, 2, 3)}
+                    | {f"res.conv{i}.bias" for i in range(1, 7)})
+# the CLIs' run: 2 training steps at B=32, validation over 32 clouds at B=16
+FAMILY_CLI_RUN = {"TRAIN": {"save_freq": 1}, "TEST": {"batch_size": 16},
+                  "DATASETS": {"synthetic": {"n_train": 2 * B_FAMILY,
+                                             "n_val": 32}}}
+# a kernel's calls held to its plain version on a training step's inputs:
+# MDS on its first clouds (the plain greedy loop takes seconds a call), the
+# bids' first call (every bidder) on its first clouds and its last calls
+# (the fewest bidders) whole
+STEP_HELD_CLOUDS, BIDS_LAST_HELD = 2, 3
+
+
+def launch_counts(fn):
+    """(fn(), launches by op, plain calls by op): the counts set to 0 just
+    before and read just after."""
+    _lib.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in _lib.LAUNCHES.items() if v},
+            {k: v for k, v in _lib.PLAIN_CALLS.items() if v})
+
+
+def check_launches(what: str, launches: dict, plain: dict, want: dict) -> None:
+    log(f"  {what}: launches {launches}, plain calls {plain}")
+    if launches != want or plain:
+        fail(f"{what}: launches {launches} (expected {want}), plain calls "
+             f"{plain}")
+
+
+def hold(what: str, got, want, atol=CONTRACT_ATOL, rtol=CONTRACT_RTOL) -> float:
+    """got (a card tensor) against want (numpy) elementwise; the max abs
+    error."""
+    got, want = got.detach().float().cpu(), torch.as_tensor(np.asarray(want))
+    err = float((got - want).abs().max())
+    ok = got.shape == want.shape and bool(torch.allclose(got, want, atol=atol,
+                                                         rtol=rtol))
+    log(f"  {what}: max abs err {err:.3e} (atol {atol:g}, rtol {rtol:g})"
+        + ("" if ok else ": FAILS"))
+    if not ok:
+        fail(f"{what} differs from the witness")
+    return err
+
+
+def first_clouds(args, c: int):
+    """The call's tensor arguments cut to their first c clouds (the
+    kernels of these paths treat each cloud on its own)."""
+    b = args[0].shape[0]
+    return tuple(a[:c] if isinstance(a, torch.Tensor) and a.dim()
+                 and a.shape[0] == b else a for a in args)
+
+
+def hold_kernels(calls: dict, held: dict, what: str) -> None:
+    """Each held call (``held``: name -> [(call index, clouds or None)])
+    against the plain version on the same inputs, every output bit for bit;
+    the kernel's ms on the whole call by CUDA events beside the plain one's
+    on what was held."""
+    for name, picks in held.items():
+        for i, c in picks:
+            args, kw, out = calls[name][i]
+            cut = args if c is None else first_clouds(args, c)
+            t0 = time.perf_counter()
+            want = PLAIN[name](*cut, **kw)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            got = out if c is None else tuple(
+                o[:c] for o in (out if isinstance(out, tuple) else (out,)))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            ms = cuda_ms(lambda: KERNEL[name](*args, **kw), reps=3)
+            log(f"  {name} call {i} of {len(calls[name])} of the {what}, "
+                f"{list(args[0].shape)}"
+                + ("" if c is None else f", held on its first {c} clouds")
+                + f": bit for bit {exact}; kernel {ms:.3f} ms, plain "
+                f"{pms:.1f} ms")
+            if not exact:
+                fail(f"{name} call {i} of the {what}: kernel differs from the "
+                     f"plain version")
+
+
+@torch.no_grad()
+def main_family_eval(dev) -> dict:
+    """Phase 28; returns the launches of each family's forward (MSN's
+    serving arms as ``msn_serving_<arm>``)."""
+    release_memory("the MSN and AtlasNet forwards")
+    out: dict = {}
+    if not os.path.exists(MSN_WITNESS):
+        fail(f"{MSN_WITNESS} is missing (scripts/port_jax_msn_witness.py)")
+        return out
+    w = np.load(MSN_WITNESS)
+    partial_np, grids_np = witness_inputs()
+    partial = torch.from_numpy(partial_np).to(dev)
+    grids = torch.from_numpy(grids_np).to(dev)
+    gen = torch.Generator().manual_seed(28)
+    partial32 = (torch.rand(B_FAMILY, N_INPUT_POINTS, 3, generator=gen)
+                 - 0.5).to(dev)
+    for family in FAMILIES:
+        model = witness_model(family, dev)
+        want_sums = json.loads(str(w[f"{family}_checksums"]))
+        sums = weight_checksums(model)
+        bad = [k for k in want_sums if sums.get(k) != want_sums[k]]
+        if bad or sums.keys() != want_sums.keys():
+            fail(f"{family}: {len(bad)} of {len(want_sums)} weight tensors "
+                 f"differ from the witness's (e.g. {bad[:3]}): this torch "
+                 f"({torch.__version__}) draws other numbers from seed "
+                 f"{WITNESS_SEED}, so the witness does not apply")
+            continue
+        n_par = sum(p.numel() for p in model.parameters())
+        log(f"  {family}: {n_par} parameters; its {len(sums)} weight tensors "
+            f"equal the witness's by sha256")
+        calls: dict = {}
+        with swapped(**recording(calls)):
+            res, launches, plain = launch_counts(
+                lambda: complete(model, partial, grids=grids))
+        check_launches(f"{family} forward, B={WITNESS_B}", launches, plain,
+                       FAMILY_FORWARD[family])
+        out[family] = launches
+        if family == "atlasnet":
+            hold("AtlasNet's cloud against the witness", res, w["atlasnet_out"])
+        else:
+            coarse, refine, loss_mst = res
+            hold("MSN's coarse cloud against the witness", coarse,
+                 w["msn_coarse"])
+            jc = torch.from_numpy(w["msn_coarse"]).to(dev)
+            dist, _, mml = expansion_penalty.expansion_penalty(jc, PRIM_S, 1.5)
+            hold("MSN's mml (#3) on the witness's coarse cloud", mml,
+                 w["msn_mml"], atol=0.0)
+            hold("MSN's loss_mst on the witness's coarse cloud", dist.mean(),
+                 w["msn_loss_mst"], atol=0.0)
+            # free-running, a reading: the coarse clouds' 1e-7 differences
+            # are 1e-3 of the edges of these folds (a primitive spans
+            # 1e-4), and the charged edges' sum follows
+            log(f"  MSN's loss_mst free-running: {float(loss_mst)!r} against "
+                f"the witness's {float(w['msn_loss_mst'])!r}, relative gap "
+                f"{abs(float(loss_mst) / float(w['msn_loss_mst']) - 1):.3e}")
+            base = flagged_base(jc, partial)
+            wm = torch.from_numpy(w["msn_mml"]).to(dev)
+            w_idx = torch.from_numpy(w["msn_idx"]).to(dev)
+            idx = mds.minimum_density_sample(base[..., :3].contiguous(), N_OUT,
+                                             wm)
+            ok, _, msg = compare_mds(base[..., :3], wm, idx, w_idx)
+            log(f"  MSN's MDS (#4) on the witness's coarse cloud and mml "
+                f"against the JAX package's picks: {msg}")
+            if not ok:
+                fail("MSN's MDS picks part from the JAX package's at a step "
+                     "that is no near-tie")
+            hold("MSN's refine anchored on the witness's coarse cloud and "
+                 "picks", model.finish(base, w_idx), w["msn_refine"])
+            cd = chamfer(refine, torch.from_numpy(w["msn_refine"]).to(dev))
+            log(f"  MSN's refine free-running: Chamfer {cd:.3e} against the "
+                f"witness (limit {CONTRACT_CHAMFER:g})")
+            if not cd <= CONTRACT_CHAMFER:
+                fail(f"MSN's free-running refine: Chamfer {cd:.3e}")
+            hold_kernels(calls, {"expansion": [(0, None)], "mds": [(0, None)]},
+                         f"MSN forward at B={WITNESS_B}")
+
+        def run():
+            return complete(model, partial32,
+                            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {family} forward, B={B_FAMILY}, parity (grids drawn on the "
+            f"host a forward, as the runners draw them): {ms:.1f} ms, "
+            f"{B_FAMILY / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} "
+            f"GiB, on {nvidia_smi()}")
+        PATHS[f"{family}_b32_ms"] = ms
+        PATHS[f"{family}_b32_peak_gib"] = peak
+        profile_step(lambda: (run(), torch.cuda.synchronize()), B_FAMILY)
+        del model
+
+    for arm in ("exact", "hybrid"):
+        model = witness_model("msn", dev, dial=ServingDial(mds=arm))
+
+        def run():
+            return complete(model, partial32,
+                            generator=torch.Generator().manual_seed(0))
+        run()
+        res, launches, plain = launch_counts(run)
+        want = {"exact": {"mds": 1}, "hybrid": {"mds_continue": 1}}[arm]
+        check_launches(f"MSN serving forward, {arm} arm, B={B_FAMILY}",
+                       launches, plain, want)
+        if float(res[2]) != 0.0 or not bool(torch.isfinite(res[1]).all()):
+            fail(f"MSN serving ({arm}): loss_mst {float(res[2])} or a "
+                 f"non-finite refine")
+        ms = cuda_ms(run, reps=3, warmup=0)
+        log(f"  MSN serving forward, {arm} arm (mml {MSN_MML_CALIBRATION}), "
+            f"B={B_FAMILY}: {ms:.1f} ms, {B_FAMILY / (ms / 1e3):.2f} clouds/s")
+        PATHS[f"msn_serving_{arm}_b32_ms"] = ms
+        out[f"msn_serving_{arm}"] = launches
+        del model
+    return out
+
+
+def family_model(family: str, state: dict, dev):
+    """A model of the family holding ``state`` on the card, and a new Adam
+    over it."""
+    model = define_G(family_config(family), seed=WITNESS_SEED, device="cpu")
+    model.load_state_dict(state)
+    model = model.to(dev)
+    return model, train_base.make_optimizer(model, atlas_runner.CONFIG)
+
+
+def family_step(family: str, state: dict, partial, gt, dev):
+    """One training step of a fresh model holding ``state`` on grids from a
+    generator seeded 5: (losses, gradients by name)."""
+    model, opt = family_model(family, state, dev)
+    loss = FAMILY_STEP[family](model, opt, partial, gt,
+                               atlas_runner.CONFIG["learning_rate"],
+                               torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    return ([float(v) for v in loss],
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def main_family_train(dev) -> dict:
+    """Phase 29; returns each family's step launches."""
+    out: dict = {}
+    partial, gt = (t.to(dev) for t in train_batch(
+        torch.Generator().manual_seed(29), B_FAMILY))
+    for family in FAMILIES:
+        release_memory(f"the {family} training step")
+        state = snapshot(witness_model(family, "cpu"))
+        calls: dict = {}
+        assigns: list = []
+        auction = emd.auction_assign
+
+        def keep(*a, **k):
+            assigns.append(auction(*a, **k))
+            return assigns[-1]
+        with deterministic():
+            with swapped(**recording(calls)), patched(
+                    (emd, "auction_assign", keep)):
+                kern, launches, plain = launch_counts(
+                    lambda: family_step(family, state, partial, gt, dev))
+            check_launches(f"{family} training step, B={B_FAMILY}", launches,
+                           plain, FAMILY_STEP_LAUNCHES[family])
+            out[family] = launches
+            fixed = ({"mds": replay(calls["mds"])} if family == "msn" else {})
+            it = iter(assigns)
+            with swapped(**dict(PLAIN, **fixed)), patched(
+                    (emd, "auction_assign", lambda *a, **k: next(it))):
+                p = family_step(family, state, partial, gt, dev)
+        loss, rel, zero, worst = step_gaps(kern, p, FAMILY_ZERO_GRAD)
+        log(f"  {family}: kernel step vs plain step (MDS picks and auction "
+            f"assignments replayed), both deterministic: loss {kern[0]} vs "
+            f"{p[0]}, loss rel gap {loss:.3e} (limit {STEP_LOSS_RTOL:g}), "
+            f"gradient leaf relative-L2 gap {rel:.3e} ({worst}; limit "
+            f"{STEP_GRAD_REL:g}), zero-gradient leaves {zero:.3e} (limit "
+            f"{STEP_ZERO_ABS:g})")
+        if loss > STEP_LOSS_RTOL or rel > STEP_GRAD_REL or zero > STEP_ZERO_ABS:
+            fail(f"the {family} kernel step differs from the anchored plain "
+                 f"step")
+        n_bids = len(calls["emd_bids"])
+        held = {"emd_bids": [(0, STEP_HELD_CLOUDS)] + [
+            (i, None) for i in range(n_bids - BIDS_LAST_HELD, n_bids)]}
+        if family == "msn":
+            held.update(expansion=[(0, None)], mds=[(0, STEP_HELD_CLOUDS)])
+        hold_kernels(calls, held, f"{family} training step")
+        del calls, assigns
+
+        model, opt = family_model(family, state, dev)
+        lr = atlas_runner.CONFIG["learning_rate"]
+        gens = [torch.Generator().manual_seed(i) for i in range(4)]
+
+        def run(i):
+            FAMILY_STEP[family](model, opt, partial, gt, lr, gens[i])
+        run(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = step_times(run, 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = sorted(times)[1]
+        log(f"  {family} training step, B={B_FAMILY} (EMD, Adam): "
+            f"{[round(t, 1) for t in times]} ms, median {ms:.1f} ms, "
+            f"{B_FAMILY / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} "
+            f"GiB, on {nvidia_smi()}")
+        PATHS[f"{family}_train_b32_ms"] = ms
+        PATHS[f"{family}_train_b32_peak_gib"] = peak
+        profile_step(lambda: (run(0), torch.cuda.synchronize()), B_FAMILY)
+        del model, opt
+    return out
+
+
+def main_family_cli(dev) -> dict:
+    """Phase 30; returns a validation batch's launches of each family's
+    evaluation CLI (and MSN's with --serving)."""
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="family_cli_")
+    try:
+        for family in FAMILIES:
+            release_memory(f"the {family} CLIs")
+            path = run_yaml(f"{family}.yaml", work, FAMILY_CLI_RUN)
+            args = ["--model", family, "--config", path, "--dataset",
+                    "Synthetic"]
+            first = train_cli.build(args + ["--workdir",
+                                            os.path.join(work, family, "a"),
+                                            "--epochs", "1"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            epochs: list = []
+            with training_launches(epochs):
+                line = train_cli.run(first)
+                torch.cuda.synchronize()
+                launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            steps = len(first.train_loader)
+            check_cli_line(line, launches, plain,
+                           tuple(FAMILY_STEP_LAUNCHES[family]) + ("nn_idx",),
+                           f"{family} training CLI")
+            step = {k: v for k, v in per_step(epochs, steps).items() if v}
+            if step != FAMILY_STEP_LAUNCHES[family]:
+                fail(f"{family} training CLI: a step's launches {step}, "
+                     f"expected {FAMILY_STEP_LAUNCHES[family]}")
+            sec = line["seconds"]
+            log(f"  {family} training epoch on {nvidia_smi()}: "
+                f"{line['clouds_trained']} clouds in {steps} steps of "
+                f"{B_FAMILY}, {line['clouds_per_s']:.2f} clouds/s over data "
+                f"and step time; seconds: data {sec['data']:.3f}, step "
+                f"{sec['step']:.3f}, val {sec['val']:.3f} (32 clouds at B=16, "
+                f"metrics and the checkpoint included); peak memory "
+                f"{peak:.2f} GiB; a step's launches {step}")
+            PATHS[f"{family}_train_cli"] = dict(
+                clouds_per_s=line["clouds_per_s"], peak_gib=peak,
+                **{f"{k}_s": v for k, v in sec.items()})
+            names = checkpoints(first)
+            if len(names) != 1:
+                fail(f"{family} training CLI: {len(names)} checkpoints")
+                continue
+            ckpt = os.path.join(first.config.DIR.checkpoints, names[0])
+            second = train_cli.build(args + [
+                "--workdir", os.path.join(work, family, "b"), "--epochs", "2",
+                "--weights", ckpt])
+            n = same_state(f"{family} resumed generator",
+                           second.model.state_dict(), first.model.state_dict())
+            n += same_state(f"{family} resumed Adam",
+                            adam_state(second.optimizer),
+                            adam_state(first.optimizer))
+            n += same_state(f"{family} resumed grid generator",
+                            {"rng": second.grid_generator.get_state()},
+                            {"rng": first.grid_generator.get_state()})
+            log(f"  {family}: the resumed runner holds the epoch-1 run's "
+                f"generator, Adam and grid generator bit for bit ({n} "
+                f"tensors), init_epoch {second.init_epoch}")
+            if second.init_epoch != 1:
+                fail(f"{family}: resumed at epoch {second.init_epoch}")
+            best = line["best_metrics"]
+            del first, second
+            release_memory(f"the {family} evaluation CLI")
+
+            modes = [("parity", [])] + ([("serving", ["--serving"])]
+                                        if family == "msn" else [])
+            for mode, extra in modes:
+                _lib.reset_counts()
+                runner = test_cli.build(args + extra + [
+                    "--weights", ckpt, "--workdir",
+                    os.path.join(work, family, mode)])
+                torch.cuda.synchronize()
+                load = {k: v for k, v in _lib.LAUNCHES.items() if v}
+                _lib.reset_counts()
+                tline = test_cli.run(runner)
+                launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+                plain = {k: v for k, v in _lib.PLAIN_CALLS.items() if v}
+                batches = tline["batches"]
+                batch = {k: v / batches for k, v in launches.items()}
+                sec = tline["seconds"]
+                log(f"  {family} evaluation CLI ({mode}) on the checkpoint: "
+                    f"F {tline['F-Score']:.4f}, CD x 1000 "
+                    f"{tline['ChamferDistance']:.4f}, EMD x 100 "
+                    f"{tline['EMD']:.4f}; {tline['n_clouds']} clouds, "
+                    f"{tline['clouds_per_s']:.2f} clouds/s (data "
+                    f"{sec['data']:.3f} s, forward {sec['forward']:.3f} s, "
+                    f"metrics {sec['metrics']:.3f} s); the load's launches "
+                    f"{load}; a batch's launches {batch}, plain calls {plain}"
+                    + (f"; mml {tline['mml_calibration']:.4f} fitted "
+                       f"{tline['mml_fitted']}" if family == "msn" else ""))
+                PATHS[f"{family}_eval_cli_{mode}"] = dict(
+                    clouds_per_s=tline["clouds_per_s"],
+                    **{f"{k}_s": v for k, v in sec.items()})
+                out[f"{family}_{mode}"] = batch
+                want_batch = {"emd_bids": 150 if family == "msn" else 100,
+                              "nn_idx": 2}
+                if family == "msn":
+                    want_batch["mds"] = 1
+                    if mode == "parity":
+                        want_batch["expansion"] = 1
+                if plain or batch != want_batch:
+                    fail(f"{family} evaluation CLI ({mode}): a batch's "
+                         f"launches {batch} (expected {want_batch}), plain "
+                         f"{plain}")
+                if mode == "serving":
+                    if load != {"expansion": 1} or not tline["mml_fitted"]:
+                        fail(f"MSN --serving: the load launched {load}, "
+                             f"fitted {tline['mml_fitted']}")
+                    if not BAND[0] <= tline["mml_calibration"] <= BAND[1]:
+                        fail(f"MSN --serving: the fit "
+                             f"{tline['mml_calibration']} lies outside {BAND}")
+                else:
+                    gaps = {k: abs(tline[k] / v - 1) if v else abs(tline[k])
+                            for k, v in best.items()}
+                    log(f"  against the training run's validation of the "
+                        f"same weights: relative gaps {gaps}")
+                    if max(gaps.values()) > 1e-5:
+                        fail(f"{family} evaluation CLI reads other metrics "
+                             f"than the training run's validation: {gaps}")
+                del runner
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
@@ -3729,6 +4246,16 @@ def main() -> int:
         f"{ENV_BATCHES} batches of {ENV_B}) against the JAX envelope "
         f"(docs/artifacts/r5/stage5/envelope_r5ckpt.json)")
     main_envelope(dev)
+    log(f"phase 28: MSN and AtlasNet eval forwards at full width against the "
+        f"JAX witness (B={WITNESS_B}), B={B_FAMILY} throughput, MSN serving")
+    family_forward = main_family_eval(dev)
+    log(f"phase 29: MSN and AtlasNet training steps at B={B_FAMILY} against "
+        f"plain steps replaying their MDS picks and auction assignments")
+    family_steps = main_family_train(dev)
+    log("phase 30: the training and evaluation CLIs with --model msn and "
+        "atlasnet (Synthetic, 2 steps at B=32, validation over 32 clouds at "
+        "B=16), MSN's --serving")
+    family_batches = main_family_cli(dev)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -3787,6 +4314,17 @@ def main() -> int:
         # a serving eval batch's launches as the CLI runs it (phase 26)
         kernels[-1]["launches_serving_batch"] = {
             tag: launches_of(batch, name) for tag, batch in serve_batch.items()}
+        # MSN's and AtlasNet's paths (phases 28-30): a forward (MSN's serving
+        # arms too), a training step, an evaluation CLI batch
+        kernels[-1]["launches_families"] = {
+            "msn_forward": family_forward.get("msn", {}).get(name, 0),
+            **{f"msn_serving_{arm}": family_forward.get(
+                f"msn_serving_{arm}", {}).get(name, 0)
+               for arm in ("exact", "hybrid")},
+            **{f"{f}_step": family_steps.get(f, {}).get(name, 0)
+               for f in FAMILIES},
+            **{f"{k}_eval_batch": v.get(name, 0)
+               for k, v in family_batches.items()}}
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

@@ -1,5 +1,6 @@
-"""Entry points: build the flagship SpareNet generator and complete clouds;
-build the SpareNet-GAN discriminator.
+"""Entry points: build the flagship SpareNet generator, or any ported
+family's generator from a run's config (``define_G``: SpareNet, AtlasNet,
+MSN), and complete clouds; build the SpareNet-GAN discriminator.
 
 Both run on the card unless the caller asks for the CPU: with no ``device``
 they use ``cuda`` and raise where there is none. On the CPU every op runs its
@@ -17,17 +18,21 @@ from torch import nn
 
 from ..ops import mds as _mds
 
+from ..configs import model_names
+from .atlasnet import AtlasNet, PointEncoder
 from .discriminator import (PatchDiscriminator, ProjectionD, SNConv, SNDense,
                             SNEmbed)
 from .layers import init_weights
+from .msn import MSN, MSN_MML_CALIBRATION
 from .sparenet import (MML_CALIBRATION, SpareNetDecode, SpareNetEncode,
                        SpareNetGenerator, SpareNetRefine)
 
-__all__ = ["FLAGSHIP", "N_INPUT_POINTS", "MML_CALIBRATION", "ServingDial",
-           "build_generator", "complete",
-           "build_discriminator", "resolve_device", "set_parity_mode",
-           "SpareNetGenerator", "SpareNetEncode", "SpareNetDecode",
-           "SpareNetRefine", "ProjectionD", "PatchDiscriminator"]
+__all__ = ["FLAGSHIP", "N_INPUT_POINTS", "MML_CALIBRATION",
+           "MSN_MML_CALIBRATION", "ServingDial", "build_generator", "define_G",
+           "complete", "build_discriminator", "resolve_device",
+           "set_parity_mode", "SpareNetGenerator", "SpareNetEncode",
+           "SpareNetDecode", "SpareNetRefine", "AtlasNet", "PointEncoder",
+           "MSN", "ProjectionD", "PatchDiscriminator"]
 
 # The flagship configuration: sparenet_tpu/configs/sparenet.yaml (NETWORK:
 # n_primitives 32, encode Residualnet, use_adain share, use_selayer true;
@@ -115,26 +120,72 @@ def build_generator(*, seed: int = 0, device=None, serving: bool = False,
     puts the training forward's MDS on the batched arm (the JAX package's
     serving-aligned training); eval forwards keep exact greedy MDS."""
     dev = resolve_device(device)
-    set_parity_mode()
     model = SpareNetGenerator(**{**FLAGSHIP, **config}, serving=serving,
                               mds=mds, mml_calibration=mml_calibration,
                               select=select)
+    return _initialised(model, seed, dev)
+
+
+def _initialised(model: nn.Module, seed: int, dev: torch.device) -> nn.Module:
+    """``model`` with the reference's initialisation drawn on the CPU from
+    ``torch.Generator().manual_seed(seed)``, on ``dev``, in eval mode."""
+    set_parity_mode()
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 
 
+def define_G(cfg, *, seed: int | None = None, device=None,
+             dial: ServingDial | None = None) -> nn.Module:
+    """The generator of cfg.NETWORK.model_type (the JAX package's define_G:
+    SpareNet with bottleneck and hide 4096; AtlasNet and MSN with bottleneck
+    1024 and PointNetfeat's hide 1024), DATASET.n_outpoints points and
+    NETWORK.n_primitives primitives, in eval mode on ``device``, initialised
+    as ``build_generator`` does from ``seed`` (default CONST.seed).
+    NETWORK.mml_calibration > 0 replaces the family's serving mml ratio;
+    TRAIN.serving_aligned puts the training forward's MDS on the batched
+    arm; ``dial`` (a ``ServingDial``) builds serving mode on that dial."""
+    net = cfg.NETWORK
+    mt = net.model_type
+    seed = cfg.CONST.seed if seed is None else seed
+    mml = float(net.mml_calibration)
+    common = dict(num_points=cfg.DATASET.n_outpoints,
+                  n_primitives=net.n_primitives)
+    serving = {} if dial is None else dial.generator_kwargs()
+    train_mds = "batched" if cfg.TRAIN.serving_aligned else "exact"
+    if mt == model_names.MODEL_SPARENET:
+        return build_generator(
+            seed=seed, device=device, bottleneck_size=4096, hide_size=4096,
+            use_selayer=net.use_selayer, use_adain=net.use_adain,
+            encode=net.encode, train_mds=train_mds,
+            mml_calibration=mml if mml > 0 else MML_CALIBRATION, **common,
+            **serving)
+    dev = resolve_device(device)
+    if mt == model_names.MODEL_ATLASNET:
+        model = AtlasNet(bottleneck_size=1024, serving=dial is not None,
+                         **common)
+    elif mt == model_names.MODEL_MSN:
+        model = MSN(bottleneck_size=1024, train_mds=train_mds,
+                    mml_calibration=mml if mml > 0 else MSN_MML_CALIBRATION,
+                    **common, **serving)
+    else:
+        raise ValueError(f"define_G: no generator for model type {mt!r}")
+    return _initialised(model, seed, dev)
+
+
 @torch.no_grad()
-def complete(model: SpareNetGenerator, partial: torch.Tensor):
-    """Eval forward on the model's device: partial [B, N_in, 3] ->
-    (coarse, middle, refine [B, num_points, 3], loss_mst), in the mode the
-    model was built with (loss_mst is 0 in serving mode)."""
+def complete(model: nn.Module, partial: torch.Tensor, **kw):
+    """Eval forward on the model's device: partial [B, N_in, 3] -> the
+    model's outputs, in the mode it was built with: SpareNet's (coarse,
+    middle, refine [B, num_points, 3], loss_mst), MSN's (coarse, refine,
+    loss_mst), AtlasNet's cloud; loss_mst is 0 in serving mode. ``kw``
+    reaches the model (AtlasNet's and MSN's ``grids`` or ``generator``)."""
     set_parity_mode()
     dev = next(model.parameters()).device
     resolve_device(dev)
     if partial.dim() != 3 or partial.shape[-1] != 3:
         raise ValueError(f"partial must be [B, N, 3], got {tuple(partial.shape)}")
     x = partial.to(device=dev, dtype=torch.float32).contiguous()
-    return model.eval()(x)
+    return model.eval()(x, **kw)
 
 
 @torch.no_grad()

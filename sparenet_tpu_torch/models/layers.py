@@ -8,8 +8,9 @@ in that layout (see ``sparenet_tpu_torch.utils.weights``) loads with
 ``load_state_dict(strict=True)``. The 1x1 convolutions run as ``F.linear``
 over the channel axis, never as cuDNN convolutions.
 
-The 32 per-primitive folding decoders are one ``GridDecoderStack`` with
-stacked weights [P, out, in] and batched products; a load hook stacks the
+The 32 per-primitive folding decoders are one module with stacked weights
+[P, out, in] and batched products (``GridDecoderStack`` for SpareNet,
+``PointGenConStack`` for AtlasNet and MSN); a load hook stacks the
 reference's per-primitive keys.
 
 Serving mode (eval with ``serving=True``, the reference's
@@ -30,6 +31,7 @@ running update 0.9 * running + 0.1 * statistic with that biased variance.
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -40,10 +42,10 @@ from ..ops import edge_gather, gather, knn
 
 __all__ = [
     "serving_dtype", "dense", "product_bf16", "conv1x1", "bn_eval", "bn_affine", "bn_apply", "bn_train_stats",
-    "external_stats_affine", "SELayer", "EdgeConvResFeat",
+    "external_stats_affine", "SELayer", "EdgeConvResFeat", "PointNetfeat",
     "adaptive_instance_norm", "grid_decoder_adain_sizes", "num_adain_params",
     "split_adain_params", "StackedLinear", "StackedBatchNorm", "StackedSE",
-    "GridDecoderStack", "PointNetRes", "grid_generation", "init_weights",
+    "GridDecoderStack", "PointGenConStack", "PointNetRes", "grid_generation", "init_weights",
 ]
 
 
@@ -276,6 +278,32 @@ class EdgeConvResFeat(nn.Module):
         return torch.cat([xc.amax(1).float(), xc.float().mean(1)], dim=-1)
 
 
+class PointNetfeat(nn.Module):
+    """PointNet global feature (the reference's PointNetfeat, SE off): x
+    [B, N, 3] -> [B, hide_size] by 1x1 convs 3 -> 64 -> 128 -> hide_size,
+    each with BatchNorm (ReLU after the first two), then a max over the
+    points. In serving mode the products run at bf16 precision
+    (``product_bf16``)."""
+
+    def __init__(self, hide_size: int = 1024, serving: bool = False):
+        super().__init__()
+        self.serving = serving
+        for i, (cin, cout) in enumerate(((3, 64), (64, 128), (128, hide_size)),
+                                        start=1):
+            setattr(self, f"conv{i}", nn.Conv1d(cin, cout, 1))
+            setattr(self, f"bn{i}", nn.BatchNorm1d(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        on = serving_dtype(self) is not None
+        for i in (1, 2, 3):
+            conv = getattr(self, f"conv{i}")
+            x = bn_apply(getattr(self, f"bn{i}"),
+                         product_bf16(x, conv.weight[..., 0], conv.bias, on=on))
+            if i < 3:
+                x = F.relu(x)
+        return x.amax(1)
+
+
 # ---------------------------------------------------------------------------
 # AdaIN
 # ---------------------------------------------------------------------------
@@ -401,21 +429,73 @@ class StackedSE(nn.Module):
         return x * y[:, :, None, :]
 
 
-class GridDecoderStack(nn.Module):
+class _PrimitiveStack(nn.Module):
+    """Base of the stacked per-primitive decoders. Their state-dict keys are
+    the reference's per-primitive layout with the primitive index folded
+    into a leading axis: ``conv1.weight`` [P, out, in] stands for the
+    reference's ``reference_key`` with p and name filled in (conv weights
+    [out, in, 1]). ``load_state_dict`` takes either layout (a pre-hook
+    stacks the reference's); ``reference_state`` gives the reference's, with
+    the tensors the reference registers but never uses (``unused_reference``,
+    each primitive's) at their defaults."""
+
+    reference_key = "{p}.{name}"
+
+    def __init__(self, n_primitives: int):
+        super().__init__()
+        self.n_primitives = n_primitives
+        self._register_load_state_dict_pre_hook(self._stack_reference_keys)
+
+    def unused_reference(self) -> dict:
+        """One primitive's registered-but-unused reference tensors by name:
+        its BatchNorms' step counts."""
+        return {f"bn{i}.num_batches_tracked": torch.zeros((), dtype=torch.int64)
+                for i in (1, 2, 3)}
+
+    def _key(self, prefix: str, p: int, name: str) -> str:
+        return prefix + self.reference_key.format(p=p, name=name)
+
+    def _stack_reference_keys(self, state_dict, prefix, *args):
+        if self._key(prefix, 0, "conv1.weight") not in state_dict:
+            return
+        for name, t in list(self.named_parameters()) + list(self.named_buffers()):
+            keys = [self._key(prefix, p, name) for p in range(self.n_primitives)]
+            if all(k in state_dict for k in keys):
+                state_dict[prefix + name] = torch.stack(
+                    [torch.as_tensor(state_dict.pop(k)).reshape(t.shape[1:])
+                     for k in keys])
+        for p in range(self.n_primitives):
+            for name in self.unused_reference():
+                state_dict.pop(self._key(prefix, p, name), None)
+
+    def reference_state(self, prefix: str) -> dict:
+        """This stack's tensors under ``prefix`` in the reference's layout,
+        as CPU tensors."""
+        out = {}
+        for name, v in self.state_dict().items():
+            v = v.detach().cpu()
+            conv = re.fullmatch(r"conv\d\.weight", name) is not None
+            for p in range(self.n_primitives):
+                out[self._key(prefix, p, name)] = (v[p, ..., None] if conv
+                                                   else v[p]).clone()
+        for p in range(self.n_primitives):
+            for name, t in self.unused_reference().items():
+                out[self._key(prefix, p, name)] = t.clone()
+        return out
+
+
+class GridDecoderStack(_PrimitiveStack):
     """P AdaIN-modulated folding decoders (non-SIREN GridDecoder) with
     stacked weights: grid [S, 2] and shared AdaIN params [B, A] ->
     [P, B, S, 3]. Per layer: conv -> AdaIN -> BN -> (SE) -> relu; then
-    conv4 + tanh.
+    conv4 + tanh. Reference keys ``{p}.dec.<name>`` (``_PrimitiveStack``);
+    AdaIN's dummy running statistics are registered-but-unused there."""
 
-    State-dict keys are the reference's per-primitive layout with the
-    primitive index folded into a leading axis: ``conv1.weight`` [P, out, in]
-    stands for ``{p}.dec.conv1.weight`` [out, in, 1]. ``load_state_dict``
-    takes either; the hook below stacks the reference layout."""
+    reference_key = "{p}.dec.{name}"
 
     def __init__(self, n_primitives: int, bottleneck_size: int = 1026,
                  use_selayer: bool = False, serving: bool = False):
-        super().__init__()
-        self.n_primitives = n_primitives
+        super().__init__(n_primitives)
         self.serving = serving
         self.sizes = grid_decoder_adain_sizes(bottleneck_size)
         chans = (2,) + self.sizes
@@ -429,24 +509,13 @@ class GridDecoderStack(nn.Module):
                         StackedSE(n_primitives, chans[i + 1]))
         self.conv4 = StackedLinear(n_primitives, self.sizes[-1], 3)
         self.use_selayer = use_selayer
-        self._register_load_state_dict_pre_hook(self._stack_reference_keys)
 
-    def _stack_reference_keys(self, state_dict, prefix, *args):
-        if prefix + "0.dec.conv1.weight" not in state_dict:
-            return
-        for name, t in list(self.named_parameters()) + list(self.named_buffers()):
-            keys = [f"{prefix}{p}.dec.{name}" for p in range(self.n_primitives)]
-            if all(k in state_dict for k in keys):
-                state_dict[prefix + name] = torch.stack(
-                    [torch.as_tensor(state_dict.pop(k)).reshape(t.shape[1:])
-                     for k in keys])
-        # registered-but-unused reference tensors with no counterpart here:
-        # BatchNorm step counts and AdaIN's dummy running stats
-        for p in range(self.n_primitives):
-            for i in (1, 2, 3):
-                for k in (f"bn{i}.num_batches_tracked",
-                          f"adain{i}.running_mean", f"adain{i}.running_var"):
-                    state_dict.pop(f"{prefix}{p}.dec.{k}", None)
+    def unused_reference(self) -> dict:
+        out = super().unused_reference()
+        for i, nf in enumerate(self.sizes, 1):
+            out[f"adain{i}.running_mean"] = torch.zeros(nf)
+            out[f"adain{i}.running_var"] = torch.ones(nf)
+        return out
 
     def forward(self, grid: torch.Tensor, adain_params: torch.Tensor):
         b = adain_params.shape[0]
@@ -460,6 +529,62 @@ class GridDecoderStack(nn.Module):
             if self.use_selayer:
                 x = getattr(self, f"se{i}")(x, serving=dt is not None)
             x = F.relu(x)
+        return torch.tanh(self.conv4(x, dt)).float()
+
+
+class PointGenConStack(_PrimitiveStack):
+    """P folding decoders without AdaIN (the reference's PointGenCon, which
+    AtlasNet and MSN run once a primitive and the JAX package vmaps), with
+    stacked weights: grids [P, B, S, 2] and style [B, D] -> [P, B, S, 3].
+    Each maps concat(grid, style) [B, S, D + 2] through 1x1 convs
+    D + 2 -> D + 2 -> (D + 2) / 2 -> (D + 2) / 4 with BatchNorm and ReLU,
+    then a conv to 3 and tanh. The first conv's product is split: the style
+    columns once a (primitive, sample), the two grid columns a point; the
+    same sum, without the [P, B, S, D + 2] input. In serving mode the chain
+    runs in bf16 as flax's dtype=bfloat16 does (``dense``). Reference keys
+    ``{p}.<name>`` (``_PrimitiveStack``)."""
+
+    def __init__(self, n_primitives: int, bottleneck_size: int = 1026,
+                 serving: bool = False):
+        super().__init__(n_primitives)
+        self.serving = serving
+        bs = bottleneck_size
+        chans = (bs, bs, bs // 2, bs // 4, 3)
+        for i in range(4):
+            setattr(self, f"conv{i + 1}",
+                    StackedLinear(n_primitives, chans[i], chans[i + 1]))
+        for i in range(3):
+            setattr(self, f"bn{i + 1}",
+                    StackedBatchNorm(n_primitives, chans[i + 1]))
+
+    def _first(self, grids: torch.Tensor, style: torch.Tensor, dt):
+        """conv1 of concat(grid, style): [P, B, S, D + 2]-wide input never
+        built. In bf16 (flax's Dense(dtype=bf16)): the products of the bf16
+        operands accumulated in f32, rounded to bf16 once, the bias added in
+        bf16."""
+        w, bias = self.conv1.weight, self.conv1.bias       # [P, C, D + 2]
+        p, b, s, _ = grids.shape
+        c = w.shape[1]
+        wg, ws = w[..., :2].transpose(1, 2), w[..., 2:].transpose(1, 2)
+        x = style.expand(p, -1, -1)                         # [P, B, D]
+        g = grids.reshape(p * b, s, 2)
+        wg = wg[:, None].expand(-1, b, -1, -1).reshape(p * b, 2, c)
+        if dt is None:
+            per_sample = torch.baddbmm(bias[:, None, :], x, ws)   # [P, B, C]
+            return torch.baddbmm(per_sample.reshape(p * b, 1, c), g,
+                                 wg).reshape(p, b, s, c)
+
+        def r(t):
+            return t.to(dt).float()
+        per_sample = torch.bmm(r(x), r(ws)).reshape(p * b, 1, c)
+        y = torch.baddbmm(per_sample, r(g), r(wg)).to(dt)
+        return y.reshape(p, b, s, c) + bias[:, None, None, :].to(dt)
+
+    def forward(self, grids: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        dt = serving_dtype(self)
+        x = F.relu(self.bn1(self._first(grids, style, dt)))
+        x = F.relu(self.bn2(self.conv2(x, dt)))
+        x = F.relu(self.bn3(self.conv3(x, dt)))
         return torch.tanh(self.conv4(x, dt)).float()
 
 

@@ -32,8 +32,8 @@ from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_apply,
                      grid_generation, num_adain_params, product_bf16,
                      serving_dtype)
 
-__all__ = ["SpareNetEncode", "SpareNetDecode", "SpareNetRefine",
-           "SpareNetGenerator", "MML_CALIBRATION"]
+__all__ = ["SpareNetEncode", "SpareNetDecode", "Resampler", "SpareNetRefine",
+           "SpareNetGenerator", "flagged_base", "MML_CALIBRATION"]
 
 _DEC_BOTTLENECK = 1026  # GridDecoder width
 # the family's serving mml ratio, the reference's trained-weights fit
@@ -107,26 +107,27 @@ def flagged_base(coarse: torch.Tensor, partial: torch.Tensor) -> torch.Tensor:
                       torch.cat([partial, ones], -1)], 1)
 
 
-class SpareNetRefine(nn.Module):
-    """Expansion penalty -> MDS resample of coarse + partial -> residual
-    delta. One module serves both refine passes, as in the reference.
+class Resampler:
+    """The resample-and-refine step of SpareNet's refine passes and MSN,
+    as a mixin of those modules: expansion penalty -> MDS resample of coarse
+    + partial -> a residual delta (the subclass's ``delta``).
 
     Serving branch (eval with ``serving``; the reference's
-    models/sparenet.py:203-227): mml from the NN-mean estimate times
-    ``mml_calibration`` (1.33, the reference's trained-weights fit;
-    ``utils.calibration.autocalibrate_mml`` fits it to a model), loss_mst 0,
-    the MDS arm ``mds`` with its selected rows (G, schedule, tail and the
-    rounds' selection arm as ``mds_g``, ``mds_schedule``, ``mds_tail``,
-    ``select``), the flag channel idx >= N. A batched training arm
-    (``train_mds``) takes the same G, schedule and selection arm."""
+    models/sparenet.py:203-227 and models/msn.py:71-90): mml from the
+    NN-mean estimate times ``mml_calibration`` (the family's trained-weights
+    fit; ``utils.calibration.autocalibrate_mml`` fits it to a model),
+    loss_mst 0, the MDS arm ``mds`` with its selected rows (G, schedule,
+    tail and the rounds' selection arm as ``mds_g``, ``mds_schedule``,
+    ``mds_tail``, ``select``), the flag channel idx >= N. A batched
+    training arm (``train_mds``) takes the same G, schedule and selection
+    arm. A module with this mixin is its model's ``resampler``: the
+    calibration reads ``primitive_size`` and sets ``mml_calibration``
+    there."""
 
-    def __init__(self, num_points: int = 16384, n_primitives: int = 32,
-                 use_selayer: bool = False, serving: bool = False,
-                 mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
-                 mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
-                 mds_tail: int = _mds.TAIL, train_mds: str = "exact",
-                 select: str = "sort"):
-        super().__init__()
+    def init_resampler(self, num_points: int, n_primitives: int,
+                       serving: bool, mds: str, mml_calibration: float,
+                       mds_g: int, mds_schedule, mds_tail: int,
+                       train_mds: str, select: str) -> None:
         self.num_points = num_points
         self.primitive_size = num_points // n_primitives
         self.serving = serving
@@ -136,15 +137,18 @@ class SpareNetRefine(nn.Module):
         self.mds_g, self.mds_schedule, self.mds_tail = (
             mds_g, tuple(mds_schedule), mds_tail)
         self.select = _mds.check_select(select)
-        self.residual = PointNetRes(use_selayer, serving)
+
+    def delta(self, base: torch.Tensor) -> torch.Tensor:
+        """The residual net: base [B, N, 4] -> delta [B, N, 3]."""
+        raise NotImplementedError
 
     def finish(self, base: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Gather the MDS picks idx [B, N] of base [B, N + N_in, 4] and add
         the residual net's delta: -> refined [B, N, 3]."""
         picked = _mds.gather_points(base, idx)
-        return picked[..., :3] + self.residual(picked)
+        return picked[..., :3] + self.delta(picked)
 
-    def forward(self, coarse: torch.Tensor, partial: torch.Tensor):
+    def resample_refine(self, coarse: torch.Tensor, partial: torch.Tensor):
         """coarse [B, N, 3], partial [B, N_in, 3] -> (refined, loss_mst).
         Gradient reaches coarse through the expansion penalty's backward and
         through the gathered points; the MDS picks carry none."""
@@ -173,7 +177,32 @@ class SpareNetRefine(nn.Module):
             schedule=self.mds_schedule, tail=self.mds_tail,
             select=self.select)
         base = torch.cat([sel, (idx >= n).to(sel.dtype)[..., None]], -1)
-        return base[..., :3] + self.residual(base), coarse.new_zeros(())
+        return base[..., :3] + self.delta(base), coarse.new_zeros(())
+
+
+class SpareNetRefine(Resampler, nn.Module):
+    """Expansion penalty -> MDS resample of coarse + partial -> residual
+    delta (``Resampler``, its residual net ``residual``). One module serves
+    both refine passes, as in the reference; ``mml_calibration`` defaults
+    to 1.33, the reference's trained-weights fit."""
+
+    def __init__(self, num_points: int = 16384, n_primitives: int = 32,
+                 use_selayer: bool = False, serving: bool = False,
+                 mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
+                 mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
+                 mds_tail: int = _mds.TAIL, train_mds: str = "exact",
+                 select: str = "sort"):
+        nn.Module.__init__(self)
+        self.init_resampler(num_points, n_primitives, serving, mds,
+                            mml_calibration, mds_g, mds_schedule, mds_tail,
+                            train_mds, select)
+        self.residual = PointNetRes(use_selayer, serving)
+
+    def delta(self, base: torch.Tensor) -> torch.Tensor:
+        return self.residual(base)
+
+    def forward(self, coarse: torch.Tensor, partial: torch.Tensor):
+        return self.resample_refine(coarse, partial)
 
 
 class SpareNetGenerator(nn.Module):
@@ -204,8 +233,18 @@ class SpareNetGenerator(nn.Module):
             num_points, n_primitives, use_selayer, serving, mds,
             mml_calibration, mds_g, mds_schedule, mds_tail, train_mds, select)
 
+    @property
+    def resampler(self) -> SpareNetRefine:
+        return self.refine
+
+    def coarse_cloud(self, partial: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """partial [B, N_in, 3] -> the coarse cloud [B, num_points, 3]
+        (``generator`` is unused: SpareNet's folding grid is fixed)."""
+        return self.decoder(self.encoder(partial))
+
     def forward(self, partial: torch.Tensor):
-        coarse = self.decoder(self.encoder(partial))
+        coarse = self.coarse_cloud(partial)
         middle, loss_mst = self.refine(coarse, partial)
         refine, _ = self.refine(middle, partial)
         return coarse, middle, refine, loss_mst

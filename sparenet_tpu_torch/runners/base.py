@@ -146,9 +146,11 @@ class BaseRunner:
         self.autocalibrate_mml()
 
     @property
-    def mml_calibration(self) -> float:
-        """The serving mml ratio the eval forward uses."""
-        return self.model.refine.mml_calibration
+    def mml_calibration(self) -> float | None:
+        """The serving mml ratio the eval forward uses (None for a family
+        without one: AtlasNet)."""
+        resampler = self.model.resampler
+        return None if resampler is None else resampler.mml_calibration
 
     def autocalibrate_mml(self):
         """Serving mode's mml self-calibration (the JAX package's
@@ -156,11 +158,13 @@ class BaseRunner:
         CONST.weights loaded, NETWORK.mml_calibration 0 and
         TEST.mml_auto_calibrate on, fit the ratio on the model's own
         coarse output for the first validation batch (utils/calibration.py,
-        the expansion kernel once) and let it replace the family default.
-        A fit outside ``calibration.BAND``, or not finite, keeps the
-        default with a warning."""
+        the expansion kernel once) and let it replace the family default;
+        a family without the knob (AtlasNet) fits nothing. A fit outside
+        ``calibration.BAND``, or not finite, keeps the default with a
+        warning."""
         cfg = self.config
         if (self.dial is None or not cfg.CONST.weights
+                or self.model.resampler is None
                 or cfg.NETWORK.mml_calibration > 0
                 or not cfg.TEST.mml_auto_calibrate):
             return

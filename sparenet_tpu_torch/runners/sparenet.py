@@ -12,8 +12,8 @@ tensors on the device. Like the other entry points it needs a card unless
 the model was built with ``device="cpu"``.
 
 ``sparenetRunner`` is ``runners.base.BaseRunner`` with the generator and its
-Adam built from the config (``build_models``, as the JAX package's
-``define_G``: NETWORK.mml_calibration when it is > 0, else the family's
+Adam built from the config (``build_models``: ``models.define_G``, as the
+JAX package's: NETWORK.mml_calibration when it is > 0, else the family's
 1.33; TRAIN.serving_aligned puts the training forward's MDS on the batched
 arm, as ``define_G(train=True)`` does; with a serving dial the eval forward
 runs serving mode on it, and the training forward parity), its
@@ -32,15 +32,14 @@ from time import perf_counter
 import torch
 
 from ..configs import model_names
-from ..models import (MML_CALIBRATION, build_generator, complete,
-                      resolve_device, set_parity_mode)
+from ..models import complete, define_G, resolve_device, set_parity_mode
 from ..ops import chamfer, emd
 from ..utils.metrics import Metrics, compute_all
 from .base import BaseRunner, make_optimizer, set_lr
 from .misc import AverageMeter
 
-__all__ = ["CONFIG", "train_config", "completion_loss", "train_step",
-           "sparenetRunner"]
+__all__ = ["CONFIG", "train_config", "reconstruction", "completion_loss",
+           "train_step", "sparenetRunner"]
 
 # the loss's EMD protocol, which the reference fixes
 # (sparenet_tpu/runners/sparenet.py:completion_loss)
@@ -66,22 +65,27 @@ def train_config(cfg) -> dict:
                 emd_eps=EMD_EPS, emd_iters=EMD_ITERS)
 
 
+def reconstruction(pred, gt, metric="emd", emd_eps=EMD_EPS,
+                   emd_iters=EMD_ITERS):
+    """One cloud's reconstruction loss against gt: the EMD form
+    mean(sqrt(dist)) of the auction at (emd_eps, emd_iters), or the chamfer
+    form mean(d1) + mean(d2) (the JAX package's _single_loss)."""
+    if metric == "chamfer":
+        return chamfer.chamfer_distance(pred, gt)
+    if metric == "emd":
+        dist, _ = emd.emd_auction(pred, gt, emd_eps, emd_iters)
+        return dist.sqrt().mean()
+    raise ValueError(f"unknown training metric {metric!r}")
+
+
 def completion_loss(coarse, middle, refine, expansion, gt, metric="emd",
                     use_consist_loss=True, emd_eps=EMD_EPS,
                     emd_iters=EMD_ITERS):
-    """(total, coarse_loss, refine_loss): EMD form mean(sqrt(dist)) or
-    chamfer form mean(d1) + mean(d2) for each of coarse, middle and refine,
-    + 0.1 * the expansion penalty, + 0.5 * mean(d1) of the one-sided
-    consistency Chamfer of refine against gt."""
-    if metric == "chamfer":
-        def rec(a):
-            return chamfer.chamfer_distance(a, gt)
-    elif metric == "emd":
-        def rec(a):
-            dist, _ = emd.emd_auction(a, gt, emd_eps, emd_iters)
-            return dist.sqrt().mean()
-    else:
-        raise ValueError(f"unknown training metric {metric!r}")
+    """(total, coarse_loss, refine_loss): ``reconstruction`` of each of
+    coarse, middle and refine, + 0.1 * the expansion penalty, + 0.5 *
+    mean(d1) of the one-sided consistency Chamfer of refine against gt."""
+    def rec(a):
+        return reconstruction(a, gt, metric, emd_eps, emd_iters)
     coarse_loss, middle_loss, refine_loss = rec(coarse), rec(middle), rec(refine)
     loss = coarse_loss + middle_loss + refine_loss + expansion * 0.1
     if use_consist_loss:
@@ -90,19 +94,26 @@ def completion_loss(coarse, middle, refine, expansion, gt, metric="emd",
     return loss, coarse_loss, refine_loss
 
 
-def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               partial: torch.Tensor, gt: torch.Tensor, lr: float,
-               cfg: dict | None = None):
-    """One training step; see the module docstring."""
-    cfg = CONFIG if cfg is None else cfg
+def step_inputs(model: torch.nn.Module, partial: torch.Tensor,
+                gt: torch.Tensor):
+    """A step's clouds as f32 on the model's device (parity mode set, the
+    device checked, each [B, N, 3])."""
     set_parity_mode()
     dev = next(model.parameters()).device
     resolve_device(dev)
     for name, t in (("partial", partial), ("gt", gt)):
         if t.dim() != 3 or t.shape[-1] != 3:
             raise ValueError(f"{name} must be [B, N, 3], got {tuple(t.shape)}")
-    x = partial.to(device=dev, dtype=torch.float32).contiguous()
-    y = gt.to(device=dev, dtype=torch.float32).contiguous()
+    return (partial.to(device=dev, dtype=torch.float32).contiguous(),
+            gt.to(device=dev, dtype=torch.float32).contiguous())
+
+
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               partial: torch.Tensor, gt: torch.Tensor, lr: float,
+               cfg: dict | None = None):
+    """One training step; see the module docstring."""
+    cfg = CONFIG if cfg is None else cfg
+    x, y = step_inputs(model, partial, gt)
     model.train()
     optimizer.zero_grad(set_to_none=True)
     coarse, middle, refine, loss_mst = model(x)
@@ -123,6 +134,8 @@ def _sync(device: torch.device) -> None:
 class sparenetRunner(BaseRunner):
     """The reference's class name, which the runner registry keys."""
 
+    model_type = model_names.MODEL_SPARENET
+
     def __init__(self, config, logger, device=None, dial=None):
         super().__init__(config, logger, device, dial)
         self.losses = AverageMeter(["CoarseLoss", "RefineLoss"])
@@ -135,25 +148,16 @@ class sparenetRunner(BaseRunner):
         self.test_metrics = AverageMeter(Metrics.names())
 
     def build_models(self):
-        """The generator (define_G's SpareNet: bottleneck and hide 4096,
+        """The generator (``models.define_G`` of the runner's model type:
         NETWORK.mml_calibration when it is > 0, serving mode on the dial
         where there is one), initialised from CONST.seed, and its Adam. The
         steps put it in train mode, the eval forward in eval mode."""
         cfg = self.config
-        if cfg.NETWORK.model_type != model_names.MODEL_SPARENET:
-            raise ValueError(f"sparenetRunner builds SpareNet, not "
-                             f"{cfg.NETWORK.model_type!r}")
+        if cfg.NETWORK.model_type != self.model_type:
+            raise ValueError(f"{type(self).__name__} builds {self.model_type}"
+                             f", not {cfg.NETWORK.model_type!r}")
         self.step_config = train_config(cfg)
-        mml = float(cfg.NETWORK.mml_calibration)
-        serving = {} if self.dial is None else self.dial.generator_kwargs()
-        self.model = build_generator(
-            seed=cfg.CONST.seed, device=self.device,
-            num_points=cfg.DATASET.n_outpoints, bottleneck_size=4096,
-            hide_size=4096, n_primitives=cfg.NETWORK.n_primitives,
-            use_selayer=cfg.NETWORK.use_selayer,
-            use_adain=cfg.NETWORK.use_adain, encode=cfg.NETWORK.encode,
-            train_mds="batched" if cfg.TRAIN.serving_aligned else "exact",
-            mml_calibration=mml if mml > 0 else MML_CALIBRATION, **serving)
+        self.model = define_G(cfg, device=self.device, dial=self.dial)
         self.optimizer = make_optimizer(self.model, self.step_config)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info("Parameters in net_G: %d." % n_params)
@@ -180,17 +184,17 @@ class sparenetRunner(BaseRunner):
                      "rec_loss": float(loss)}
         self.losses.update([c_l, r_l])
 
+    def rec(self, pred, gt):
+        """A validation loss: ``reconstruction`` by NETWORK.metric (EMD at
+        the loss's protocol, else Chamfer), as ``_val_impl`` takes it."""
+        metric = "emd" if self.config.NETWORK.metric == "emd" else "chamfer"
+        return reconstruction(pred, gt, metric)
+
     def _val_impl(self, partial, gt):
-        """(refine, coarse loss, refine loss) of one batch."""
+        """(refine, the validation losses: coarse and refine) of one
+        batch."""
         coarse, _, refine, _ = complete(self.model, partial)
-        if self.config.NETWORK.metric == "emd":
-            def rec(a):
-                dist, _ = emd.emd_auction(a, gt, EMD_EPS, EMD_ITERS)
-                return dist.sqrt().mean()
-        else:
-            def rec(a):
-                return chamfer.chamfer_distance(a, gt)
-        return refine, rec(coarse), rec(refine)
+        return refine, [self.rec(coarse, gt), self.rec(refine, gt)]
 
     @torch.no_grad()
     def val_step(self, items):
@@ -201,8 +205,8 @@ class sparenetRunner(BaseRunner):
         gt = torch.from_numpy(data["gtcloud"]).to(dev)
         _sync(dev)
         t1 = perf_counter()
-        refine, c_l, r_l = self._val_impl(partial, gt)
-        self.test_losses.update([float(c_l) * 1000, float(r_l) * 1000])
+        refine, losses = self._val_impl(partial, gt)
+        self.test_losses.update([float(v) * 1000 for v in losses])
         t2 = perf_counter()
         self.ptcloud = refine
         vals = compute_all(refine, gt, eps=float(self.config.TEST.emd_eps),

@@ -1,7 +1,8 @@
 """Evaluation CLI of the port (counterpart of the root test.py, which runs
 the JAX package).
 
-    python -m sparenet_tpu_torch.test --weights CKPT [--config YAML]
+    python -m sparenet_tpu_torch.test --weights CKPT
+        [--model sparenet|msn|atlasnet] [--config YAML]
         [--dataset Synthetic] [--workdir DIR] [--device cpu]
         [--serving [--mds {auto,exact,batched,hybrid}] [--mds-g G]
          [--mds-schedule S1,S2,...] [--mds-tail T]
@@ -9,7 +10,7 @@ the JAX package).
 
 CKPT is a checkpoint of the port (``.pth``, utils/checkpoint.py) or the JAX
 package's bf16 archive (``.npz``). The config defaults to the port's copy of
-the model's shipped yaml (``configs/sparenet.yaml``, with ``--gan``
+the model's shipped yaml (``configs/<model>.yaml``, with ``--gan``
 ``configs/sparenet_gan.yaml``). It runs on the card
 unless ``--device cpu`` is given. ``--serving`` evaluates in serving mode
 (the JAX package's ``SPARENET_FAST_MATH=1``) on the MDS dial the other
@@ -17,7 +18,8 @@ flags set (the counterparts of ``SPARENET_MDS_IMPL``, ``_BATCH_G``,
 ``_SCHEDULE`` (an empty value: fixed G), ``_TAIL`` and ``_SELECT``, with
 their defaults; ``models.ServingDial``); a dial flag without ``--serving`` is
 an error. In serving mode the runner fits the mml ratio at load
-(``runners.base.BaseRunner.autocalibrate_mml``). The table of per-category
+(``runners.base.BaseRunner.autocalibrate_mml``; SpareNet and MSN: AtlasNet
+has no MDS, and its serving mode is the decoders' bf16 chain). The table of per-category
 metrics goes to
 stdout and to DIR/logs/<stamp>/test.txt; the last line printed is one JSON
 object: the split's mean F-Score, ChamferDistance (x 1000) and EMD (x 100),
@@ -28,8 +30,9 @@ and the kernel launches and plain-version calls by op of the load (the mml
 fit) and the evaluation (on the card every op launches its kernel; on the
 CPU each runs its plain version). ``build(argv)`` gives the loaded runner
 and ``run(runner)`` that line, for callers in process.
-Only SpareNet (with or without ``--gan``) and TEST.mode "default" are
-ported yet.
+SpareNet (with or without ``--gan``), MSN and AtlasNet, and TEST.mode
+"default", are ported; GRNet is not yet. MSN's and AtlasNet's grids are
+seeded by the batch's index, as the JAX package seeds PRNGKey(model_idx).
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Training CLI of the port (counterpart of the root train.py, which runs
 the JAX package).
 
-    python -m sparenet_tpu_torch.train [--model sparenet] [--gan]
+    python -m sparenet_tpu_torch.train [--model sparenet|msn|atlasnet] [--gan]
         [--config YAML] [--weights CKPT] [--workdir DIR] [--dataset Synthetic]
         [--epochs N] [--batch-size B] [--device cpu]
         [--serving [--mds ...] [--mds-g G] [--mds-schedule S1,...]
          [--mds-tail T] [--mds-select ...]]
 
 The config defaults to the port's copy of the model's shipped yaml
-(``configs/sparenet.yaml``, with ``--gan`` ``configs/sparenet_gan.yaml``).
+(``configs/<model>.yaml``, with ``--gan`` ``configs/sparenet_gan.yaml``).
 CKPT resumes a run: a checkpoint of the port (``.pth``, its epoch and, where
 it holds them, the optimizers, the discriminator and the step generators)
 or the JAX package's bf16 archive (``.npz``, loaded as epoch 1: its weights,
@@ -26,8 +26,10 @@ clouds trained and the training seconds by part (data, step, val) with the
 clouds a second of data and step time, the mode, dial and mml ratio as the
 evaluation CLI gives them, and the run's kernel launches and
 plain-version calls by op (on the card every op launches its kernel; on the
-CPU each runs its plain version). Only SpareNet, with or without the GAN,
-is ported yet.
+CPU each runs its plain version). SpareNet (with or without the GAN), MSN
+and AtlasNet are ported; GRNet is not yet. MSN and AtlasNet fold grids that
+a generator seeded from CONST.seed draws each step; the checkpoint keeps its
+state, so a resumed run draws what the run it resumes would have drawn.
 """
 
 from __future__ import annotations

@@ -10,7 +10,11 @@ distribution, so it is fitted on the model's own coarse output:
 card) and ``autocalibrate_mml`` fits it on a built generator's coarse
 output and sets it there if it lies inside ``BAND``. The runners fit at
 checkpoint load in serving mode (``runners.base.BaseRunner.
-autocalibrate_mml``).
+autocalibrate_mml``). A model exposes what the fit needs the same way in
+every family that has the knob (SpareNet, MSN): ``coarse_cloud(partial,
+generator=)`` and its ``resampler``, which holds ``primitive_size`` and
+``mml_calibration``; MSN's grids come from a generator seeded 0, as the JAX
+package's fit draws them from PRNGKey(0).
 """
 
 from __future__ import annotations
@@ -46,16 +50,19 @@ def autocalibrate_mml(model, partial: torch.Tensor) -> tuple[float, bool]:
     was built with) for one batch of partial clouds [B, N_in, 3], moved to
     the model's device, and set it as the model's serving calibration if it
     is finite and inside ``BAND``: (the fitted ratio, whether it was set)."""
+    resampler = model.resampler
+    if resampler is None:
+        raise ValueError(f"{type(model).__name__} has no mml calibration")
     dev = next(model.parameters()).device
     was_training = model.training
     model.eval()
     try:
         x = partial.to(device=dev, dtype=torch.float32).contiguous()
-        coarse = model.decoder(model.encoder(x))
-        ratio = float(fit_mml_ratio(coarse, model.refine.primitive_size))
+        coarse = model.coarse_cloud(x, generator=torch.Generator().manual_seed(0))
+        ratio = float(fit_mml_ratio(coarse, resampler.primitive_size))
     finally:
         model.train(was_training)
     fitted = math.isfinite(ratio) and BAND[0] <= ratio <= BAND[1]
     if fitted:
-        model.refine.mml_calibration = ratio
+        resampler.mml_calibration = ratio
     return ratio, fitted

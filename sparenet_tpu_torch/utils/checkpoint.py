@@ -88,7 +88,8 @@ def checkpoint_load(cfg, model: torch.nn.Module, logger=None,
     if path.endswith(".npz"):
         payload = {"net_G": state_dict_from_jax(
             load_npz(path), use_selayer=cfg.NETWORK.use_selayer,
-            n_primitives=cfg.NETWORK.n_primitives)}
+            n_primitives=cfg.NETWORK.n_primitives,
+            model_type=cfg.NETWORK.model_type)}
         epoch, best = 1, None
     else:
         payload = torch.load(path, map_location="cpu", weights_only=True)

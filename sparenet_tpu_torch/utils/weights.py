@@ -1,16 +1,19 @@
 """JAX-package weights -> the port's state_dict (counterpart of
-sparenet_tpu/utils/torch_import.py: _to_torch, netG_rules, export_netG_state_dict).
+sparenet_tpu/utils/torch_import.py: _to_torch, netG_rules, atlasnet_rules,
+msn_rules and the export_*_state_dict functions).
 
-``state_dict_from_jax(variables)`` takes the JAX package's SpareNetGenerator
-variables as a nested dict of numpy arrays (``{"params": ..., "batch_stats":
-...}``) and returns a state_dict in the original reference's net_G layout,
-which the port's ``SpareNetGenerator.load_state_dict(strict=True)`` takes
-whole. The rule table is this module's own copy, for the ported
+``state_dict_from_jax(variables, model_type=...)`` takes the JAX package's
+generator variables (SpareNetGenerator, AtlasNet or MSN) as a nested dict of
+numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns a
+state_dict in the original reference's layout of that model, which the
+port's model takes whole with ``load_state_dict(strict=True)``. The rule
+tables are this module's own copies, SpareNet's for the ported
 configuration (``use_adain="share"``, ``encode="Residualnet"``).
 
 ``reference_state_dict(model)`` goes the other way for the port's own
-generator: its state_dict in that same reference layout (the port keeps the
-per-primitive decoder weights stacked), which the port's checkpoints hold.
+generators: the state_dict in that same reference layout (the port keeps
+the per-primitive decoder weights stacked), which the port's checkpoints
+hold.
 
 ``disc_state_dict_from_jax(params, batch_stats, spectral)`` does the same
 for the JAX package's discriminator (``ProjectionD`` or
@@ -19,14 +22,13 @@ for the JAX package's discriminator (``ProjectionD`` or
 
 from __future__ import annotations
 
-import re
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["netG_rules", "state_dict_from_jax", "reference_state_dict",
-           "disc_state_dict_from_jax"]
+__all__ = ["netG_rules", "atlasnet_rules", "msn_rules", "state_dict_from_jax",
+           "reference_state_dict", "disc_state_dict_from_jax"]
 
 _DEC_BOTTLENECK = 1026
 
@@ -100,7 +102,13 @@ def netG_rules(use_selayer: bool = True) -> _Rules:
         if use_selayer:
             r.se(froot + (f"SELayer_{i}",), f"{troot}.se{i + 1}", True)
 
-    froot, troot = ("refine", "PointNetRes_0"), "refine.residual"
+    _pointnet_res_rules(r, ("refine", "PointNetRes_0"), "refine.residual",
+                        use_selayer)
+    return r
+
+
+def _pointnet_res_rules(r: _Rules, froot, troot, use_selayer: bool) -> None:
+    """PointNetRes (its bn7 is registered but unused)."""
     for i in range(7):
         r.dense(froot + (f"Conv1d_{i}",), f"{troot}.conv{i + 1}",
                 kind="conv1d_w")
@@ -109,6 +117,31 @@ def netG_rules(use_selayer: bool = True) -> _Rules:
     if use_selayer:
         for j, i in enumerate((1, 2, 4, 5, 6)):  # PointNetRes has no se3
             r.se(froot + (f"SELayer_{j}",), f"{troot}.se{i}")
+
+
+def atlasnet_rules() -> _Rules:
+    """AtlasNet: PointEncoder (PointNetfeat, hide 1024, no SE) and the
+    PointGenCon decoders (the JAX package's vmap, one a primitive)."""
+    r = _Rules()
+    f, t = ("PointEncoder_0", "PointNetfeat_0"), "encoder.feat_extractor"
+    for i in range(3):
+        r.dense(f + (f"Conv1d_{i}",), f"{t}.conv{i + 1}", kind="conv1d_w")
+        r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
+    r.dense(("PointEncoder_0", "Linear_0"), "encoder.linear")
+    r.bn(("PointEncoder_0", "BatchNorm_0"), "encoder.bn")
+    for i in range(4):
+        r.dense(("VmapPointGenCon_0", f"Conv1d_{i}"), f"decoder.{{p}}.conv{i + 1}",
+                True, kind="conv1d_w")
+    for i in range(3):
+        r.bn(("VmapPointGenCon_0", f"BatchNorm_{i}"), f"decoder.{{p}}.bn{i + 1}",
+             True)
+    return r
+
+
+def msn_rules() -> _Rules:
+    """MSN: AtlasNet's and the residual net under ``res`` (no SE)."""
+    r = atlasnet_rules()
+    _pointnet_res_rules(r, ("PointNetRes_0",), "res", use_selayer=False)
     return r
 
 
@@ -118,15 +151,25 @@ def _get(tree: dict, path: tuple):
     return tree
 
 
+_SPARENET, _ATLASNET, _MSN = "SpareNet", "AtlasNet", "MSN"
+
+
 def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
-                        n_primitives: int = 32) -> dict[str, torch.Tensor]:
-    """JAX SpareNetGenerator variables -> reference-layout state_dict of
+                        n_primitives: int = 32,
+                        model_type: str = _SPARENET) -> dict[str, torch.Tensor]:
+    """JAX generator variables of ``model_type`` ("SpareNet", "AtlasNet" or
+    "MSN"; ``use_selayer`` is SpareNet's) -> reference-layout state_dict of
     CPU float32 tensors, including the reference's registered-but-unused
-    tensors at their defaults (top-level conv1, refine.residual.bn7, the
-    AdaIN dummy running stats, every BatchNorm's num_batches_tracked)."""
+    tensors at their defaults (every BatchNorm's num_batches_tracked; for
+    SpareNet the top-level conv1, refine.residual.bn7 and the AdaIN dummy
+    running stats; for MSN res.bn7)."""
+    rules = {_SPARENET: lambda: netG_rules(use_selayer),
+             _ATLASNET: atlasnet_rules, _MSN: msn_rules}
+    if model_type not in rules:
+        raise ValueError(f"state_dict_from_jax: no rules for {model_type!r}")
     sd: dict[str, np.ndarray] = {}
     bn_prefixes: list[str] = []
-    for col, fpath, tkey, kind, stacked in netG_rules(use_selayer).entries:
+    for col, fpath, tkey, kind, stacked in rules[model_type]().entries:
         v = np.asarray(_get(variables[col], fpath), np.float32)
         if stacked:
             for p in range(n_primitives):
@@ -143,14 +186,19 @@ def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
         sd[f"{prefix}.running_mean"] = np.zeros(nf, np.float32)
         sd[f"{prefix}.running_var"] = np.ones(nf, np.float32)
 
-    sd["conv1.weight"] = np.zeros((64, 3, 1), np.float32)
-    sd["conv1.bias"] = np.zeros(64, np.float32)
-    dummy_bn("refine.residual.bn7", 3)
-    bn_prefixes.append("refine.residual.bn7")
-    b = _DEC_BOTTLENECK
-    for p in range(n_primitives):
-        for i, nf in enumerate((b, b // 2, b // 4)):
-            dummy_bn(f"decoder.decoder.{p}.dec.adain{i + 1}", nf, affine=False)
+    if model_type == _MSN:
+        dummy_bn("res.bn7", 3)
+        bn_prefixes.append("res.bn7")
+    if model_type == _SPARENET:
+        sd["conv1.weight"] = np.zeros((64, 3, 1), np.float32)
+        sd["conv1.bias"] = np.zeros(64, np.float32)
+        dummy_bn("refine.residual.bn7", 3)
+        bn_prefixes.append("refine.residual.bn7")
+        b = _DEC_BOTTLENECK
+        for p in range(n_primitives):
+            for i, nf in enumerate((b, b // 2, b // 4)):
+                dummy_bn(f"decoder.decoder.{p}.dec.adain{i + 1}", nf,
+                         affine=False)
     for prefix in bn_prefixes:
         for key in {prefix.format(p=p) for p in range(n_primitives)}:
             sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -158,33 +206,21 @@ def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
 
 
 def reference_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """A SpareNetGenerator's state_dict in the reference's net_G layout, the
-    layout ``state_dict_from_jax`` gives, as CPU tensors: the decoder
-    stack's [P, ...] tensors split into ``decoder.decoder.{p}.dec.<name>``
-    (conv weights [out, in, 1]), with the reference's registered-but-unused
-    tensors of each primitive added at their defaults (BatchNorm step counts
-    0, AdaIN's dummy running statistics). ``load_state_dict`` stacks them
-    back."""
-    prefix = "decoder.decoder."
-    stack = model.decoder.decoder
+    """A generator's state_dict in the reference's layout, the layout
+    ``state_dict_from_jax`` gives, as CPU tensors: each stacked decoder's
+    [P, ...] tensors split into the reference's per-primitive keys, with its
+    registered-but-unused tensors added at their defaults (its
+    ``reference_state``: SpareNet's ``decoder.decoder.{p}.dec.<name>``,
+    AtlasNet's and MSN's ``decoder.{p}.<name>``). ``load_state_dict`` stacks
+    them back."""
+    stacks = [(name + ".", m) for name, m in model.named_modules()
+              if hasattr(m, "reference_state")]
     out: dict[str, torch.Tensor] = {}
     for key, v in model.state_dict().items():
-        v = v.detach().cpu()
-        if not key.startswith(prefix):
-            out[key] = v.clone()
-            continue
-        name = key[len(prefix):]
-        conv = re.fullmatch(r"conv\d\.weight", name) is not None
-        for p in range(stack.n_primitives):
-            out[f"{prefix}{p}.dec.{name}"] = (v[p, ..., None] if conv
-                                              else v[p]).clone()
-    for p in range(stack.n_primitives):
-        for i, nf in enumerate(stack.sizes):
-            dec = f"{prefix}{p}.dec"
-            out[f"{dec}.bn{i + 1}.num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.int64)
-            out[f"{dec}.adain{i + 1}.running_mean"] = torch.zeros(nf)
-            out[f"{dec}.adain{i + 1}.running_var"] = torch.ones(nf)
+        if not any(key.startswith(prefix) for prefix, _ in stacks):
+            out[key] = v.detach().cpu().clone()
+    for prefix, stack in stacks:
+        out.update(stack.reference_state(prefix))
     return out
 
 

@@ -114,7 +114,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(toy, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,err,match", [
     (["--test_mode", "render"], NotImplementedError, "queue 1 item 3"),
-    (["--model", "msn"], NotImplementedError, "queue 1 item 4"),
     (["--model", "grnet"], NotImplementedError, "queue 1 item 5"),
     (["--test_mode", "vis"], NotImplementedError, "queue 1 item 3"),
     (["--dataset", "ShapeNet"], NotImplementedError, "queue 1 item 3"),
@@ -123,6 +122,63 @@ def test_cli_names_what_is_not_ported(toy, tmp_path, args, err, match):
     with pytest.raises(err, match=match):
         cli.main(["--weights", toy["weights"], "--config", toy["yaml"],
                   "--workdir", str(tmp_path), "--device", "cpu"] + args)
+
+
+MSN_YAML = """\
+DATASET: {train_dataset: Synthetic, test_dataset: Synthetic, n_outpoints: 128}
+CONST: {num_workers: 2, n_input_points: 64}
+NETWORK: {n_primitives: 4, model_type: MSN, metric: chamfer}
+TEST: {metric_name: ChamferDistance, batch_size: 2}
+DATASETS: {synthetic: {n_train: 2, n_val: 4}}
+"""
+
+
+def test_cli_evaluates_msn_in_serving_mode(tmp_path, capsys):
+    """``--model msn --serving`` on a checkpoint of a seeded MSN with
+    jittered BatchNorm statistics (``toy``'s recipe): the runner fits the mml
+    ratio at load (the expansion's plain version once, on the first batch's
+    coarse clouds folded on grids seeded 0), inside ``BAND`` and equal to
+    ``autocalibrate_mml`` on a serving model loaded from the checkpoint; the
+    split evaluates in serving mode, exact arm (MDS once a batch, no
+    expansion), to finite metrics."""
+    from sparenet_tpu_torch.models import ServingDial, define_G
+    from sparenet_tpu_torch.utils.calibration import BAND, autocalibrate_mml
+
+    path = tmp_path / "msn.yaml"
+    path.write_text(MSN_YAML)
+    cfg = cfg_from_file(str(path))
+    cfg.DIR.checkpoints = str(tmp_path / "given")
+    model = define_G(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.6 - 0.3)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    checkpoint_save(cfg, 1, Metrics("ChamferDistance", [0.0, 1e4, 1e4]), None,
+                    model)
+    weights = os.path.join(cfg.DIR.checkpoints, "ckpt-best.pth")
+    _lib.reset_counts()
+    assert cli.main(["--model", "msn", "--serving", "--weights", weights,
+                     "--config", str(path), "--workdir", str(tmp_path / "w"),
+                     "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["mode"] == "serving" and line["mml_fitted"]
+    assert line["dial"]["arm"] == "exact" and line["n_clouds"] == 4
+    assert BAND[0] <= line["mml_calibration"] <= BAND[1]
+    assert line["plain_calls"]["expansion"] == 1
+    assert line["plain_calls"]["mds"] == 2 and line["launches"] == {}
+    assert all(np.isfinite(line[k]) for k in Metrics.names())
+    runner = get_runner(cfg)
+    assert runner.__name__ == "msnRunner"
+    fresh = define_G(cfg, device="cpu", dial=ServingDial())
+    fresh.load_state_dict(torch.load(weights, weights_only=True)["net_G"])
+    from sparenet_tpu_torch.data import data_init
+    _, val = data_init(cfg)
+    _, _, _, data = val.first_batch()
+    ratio, fitted = autocalibrate_mml(fresh, torch.from_numpy(data["partial_cloud"]))
+    assert fitted and ratio == line["mml_calibration"]
 
 
 def test_get_runner():

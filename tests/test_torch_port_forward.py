@@ -218,7 +218,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'utils.metrics', 'utils.ckpt_npz', 'utils.checkpoint',"
         " 'utils.logging', 'utils.visualizer', 'runners.misc',"
         " 'runners.base', 'runners.sparenet', 'test', 'train',"
-        " 'utils.profiler'):\n"
+        " 'utils.profiler', 'models.msn', 'models.atlasnet', 'runners.msn',"
+        " 'runners.atlasnet'):\n"
         "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"
