@@ -253,6 +253,41 @@ Phases, each printing a flushed line with its elapsed seconds:
      1); ``--serving`` for MSN: the fit at load launches the expansion once
      and lies in [0.05, 50], a batch launches MDS once; clouds/s and
      seconds by part.
+ 31. GRNet (``models.define_G`` on grnet.yaml: 3000 input points, a 64^3
+     grid, 2048 sampled and 16384 dense points) from seed 17 with jittered
+     BatchNorm statistics, parity mode: each weight tensor's sha256 and, at
+     B=2 on numpy-seeded partials with the witness's sample passed, sparse
+     against the JAX package's on the CPU elementwise (atol 3e-6, rtol
+     1e-4; docs/artifacts/port/jax_grnet_witness.npz, scripts/
+     port_jax_grnet_witness.py), dense so decoded from the witness's sparse
+     cloud, and from its own wherever a sparse point lies in the witness's
+     cubic-feature cells (a point within rounding of a cell face may fall
+     on the other side); the gridding reverse points a sample against the
+     witness's count (within 8: voxels near the 1e-6 threshold); no kernel
+     launched; gridding
+     and gridding reverse on the card against the CPU on the same inputs
+     within the contract, the cubic gathers bit for bit; the free-running
+     dense cloud's Chamfer to the anchored one (a reading); B=32 forwards by
+     CUDA events (3 after a warm-up) with peak memory and one profiled
+     forward (device time by op group: cuDNN's 3D convolutions, the
+     gridding scatter, the cubic and sample gathers, the sample's sort, the
+     fc GEMMs); the NN #6 on the sparse loss's shapes (B=32, 2048 against
+     16384 points and back) bit for bit against its plain version;
+ 32. one GRNet training step at B=32 (``runners.grnet.train_step``: sparse
+     Chamfer, dense EMD, Adam): launches (#6 2, #8 50, no plain call);
+     against a plain step on the card replaying its NN picks and auction
+     assignments, both in deterministic mode (loss and every gradient
+     leaf); the NN calls whole, the first bids call on its first 2 clouds
+     and the last 3 whole, bit for bit against their plain versions; 3
+     timed steps, peak memory, one profiled step by op group;
+ 33. the CLIs with ``--model grnet`` on grnet.yaml (Synthetic, 2 steps at
+     B=32, validation over 32 clouds at B=16): a step's launches as phase
+     32's, no plain call, one checkpoint; the runner resumed from it holds
+     the generator, Adam and the sample's generator (``rng_sample``) bit
+     for bit; the evaluation CLI on the checkpoint reads the training run's
+     validation metrics (relative 1e-3: cuDNN's 3D convolutions may add
+     with atomics), and twice in deterministic mode to equal metrics, a
+     batch launching #6 4 and #8 100; clouds/s and seconds by part.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -305,13 +340,17 @@ from sparenet_tpu_torch.ops import chamfer as chamfer_op
 from sparenet_tpu_torch.ops import p2i as p2i_op
 from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
+from sparenet_tpu_torch.ops import cubic_feature_sampling as cubic_op
+from sparenet_tpu_torch.ops import gridding as gridding_op
 from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
                                            pairwise_sqdist_graph_seq,
                                            pairwise_sqdist_serving,
                                            slice_plan, sqdist3)
+from sparenet_tpu_torch.models import grnet as grnet_model
 from sparenet_tpu_torch.models.sparenet import flagged_base
 from sparenet_tpu_torch.runners import atlasnet as atlas_runner
 from sparenet_tpu_torch.runners import base as train_base
+from sparenet_tpu_torch.runners import grnet as grnet_runner
 from sparenet_tpu_torch.runners import msn as msn_runner
 from sparenet_tpu_torch.renderer import ComputeDepthMaps, transform_points
 from sparenet_tpu_torch.runners import sparenet as train_runner
@@ -3626,7 +3665,6 @@ MSN_WITNESS = os.path.join(ROOT, "docs", "artifacts", "port",
                            "jax_msn_atlasnet_witness.npz")
 WITNESS_SEED, WITNESS_B = 17, 2
 FAMILIES = ("atlasnet", "msn")
-FAMILY_NAME = {"atlasnet": "AtlasNet", "msn": "MSN"}
 
 
 def family_config(family: str):
@@ -3639,7 +3677,8 @@ def witness_model(family: str, dev, dial=None):
     """The family at full width (``define_G`` on its yaml), initialised on
     the CPU from WITNESS_SEED with jittered BatchNorm statistics (phase 3's
     recipe; the initialisation's own statistics fold each primitive to
-    within 3e-5 of a point), on ``dev`` in eval mode."""
+    within 3e-5 of a point), on ``dev`` in eval mode. GRNet's too (phase
+    31)."""
     model = define_G(family_config(family), seed=WITNESS_SEED, device="cpu",
                      dial=dial)
     jitter_bn_stats(model, torch.Generator().manual_seed(WITNESS_SEED + 1))
@@ -3664,20 +3703,42 @@ def weight_checksums(model) -> dict:
 
 B_FAMILY = atlas_runner.CONFIG["batch_size"]   # 32, msn.yaml and atlasnet.yaml
 FAMILY_STEP = {"atlasnet": atlas_runner.train_step,
-               "msn": msn_runner.train_step}
+               "msn": msn_runner.train_step, "grnet": grnet_runner.train_step}
 # launches of an eval forward and of a training step (EMD: 50 bids rounds a
-# reconstruction loss at the loss's protocol)
+# reconstruction loss at the loss's protocol; GRNet's sparse Chamfer, the NN
+# both ways)
 FAMILY_FORWARD = {"atlasnet": {}, "msn": {"expansion": 1, "mds": 1}}
 FAMILY_STEP_LAUNCHES = {"atlasnet": {"emd_bids": 50},
-                        "msn": {"emd_bids": 100, "expansion": 1, "mds": 1}}
+                        "msn": {"emd_bids": 100, "expansion": 1, "mds": 1},
+                        "grnet": {"nn_idx": 2, "emd_bids": 50}}
+# a validation batch's launches in the evaluation CLI (parity): the EMD
+# validation losses at the loss's protocol and the metrics' auction, the NN
+# both ways for the metrics (and GRNet's sparse loss), MSN's refine
+FAMILY_EVAL_BATCH = {"atlasnet": {"emd_bids": 100, "nn_idx": 2},
+                     "msn": {"emd_bids": 150, "nn_idx": 2, "mds": 1,
+                             "expansion": 1},
+                     "grnet": {"emd_bids": 100, "nn_idx": 4}}
 # Gradients that are exactly 0 in exact arithmetic (tests/
-# test_torch_msn_atlasnet_train.py): biases ahead of a train-mode BatchNorm,
-# and the BatchNorm biases before a max-pool whose shift the next one removes
+# test_torch_msn_atlasnet_train.py, test_torch_grnet_train.py): biases ahead
+# of a train-mode BatchNorm, and the BatchNorm biases before a max-pool
+# whose shift the next one removes
 FAMILY_ZERO_GRAD = ({"encoder.linear.bias", "encoder.feat_extractor.bn3.bias",
                      "res.bn3.bias"}
                     | {f"encoder.feat_extractor.conv{i}.bias" for i in (1, 2, 3)}
                     | {f"decoder.conv{i}.bias" for i in (1, 2, 3)}
-                    | {f"res.conv{i}.bias" for i in range(1, 7)})
+                    | {f"res.conv{i}.bias" for i in range(1, 7)}
+                    | {f"conv{i}.0.bias" for i in (1, 2, 3, 4)})
+# GRNet's evaluation is reproducible only in deterministic mode: cuDNN's
+# algorithms for its 3D (transposed) convolutions may add with atomics, and
+# the auction and the F-Score threshold carry the last bits into the
+# metrics; so phase 33 holds the evaluation CLI to the training run's
+# validation within this relative gap, and two evaluations in deterministic
+# mode to each other exactly (the other families, bit for bit, within 1e-5)
+FAMILY_RUN_TO_RUN = {"grnet": 1e-3}
+# the ops whose kernel outputs a family's plain step replays (phases 29 and
+# 32) and the kernel calls held to their plain versions on a step's inputs
+# beside the bids' (name -> [(call index, clouds or None)])
+FAMILY_REPLAYED = {"atlasnet": (), "msn": ("mds",), "grnet": ("nn_idx",)}
 # the CLIs' run: 2 training steps at B=32, validation over 32 clouds at B=16
 FAMILY_CLI_RUN = {"TRAIN": {"save_freq": 1}, "TEST": {"batch_size": 16},
                   "DATASETS": {"synthetic": {"n_train": 2 * B_FAMILY,
@@ -3894,12 +3955,13 @@ def family_step(family: str, state: dict, partial, gt, dev):
              if p.grad is not None})
 
 
-def main_family_train(dev) -> dict:
-    """Phase 29; returns each family's step launches."""
+def main_family_train(dev, families=FAMILIES) -> dict:
+    """Phase 29 (and 32 with ``families`` ("grnet",)); returns each
+    family's step launches."""
     out: dict = {}
     partial, gt = (t.to(dev) for t in train_batch(
         torch.Generator().manual_seed(29), B_FAMILY))
-    for family in FAMILIES:
+    for family in families:
         release_memory(f"the {family} training step")
         state = snapshot(witness_model(family, "cpu"))
         calls: dict = {}
@@ -3917,14 +3979,16 @@ def main_family_train(dev) -> dict:
             check_launches(f"{family} training step, B={B_FAMILY}", launches,
                            plain, FAMILY_STEP_LAUNCHES[family])
             out[family] = launches
-            fixed = ({"mds": replay(calls["mds"])} if family == "msn" else {})
+            fixed = {op: replay(calls[op]) for op in FAMILY_REPLAYED[family]}
             it = iter(assigns)
             with swapped(**dict(PLAIN, **fixed)), patched(
                     (emd, "auction_assign", lambda *a, **k: next(it))):
                 p = family_step(family, state, partial, gt, dev)
         loss, rel, zero, worst = step_gaps(kern, p, FAMILY_ZERO_GRAD)
-        log(f"  {family}: kernel step vs plain step (MDS picks and auction "
-            f"assignments replayed), both deterministic: loss {kern[0]} vs "
+        log(f"  {family}: kernel step vs plain step ("
+            + "".join(f"{op} outputs, " for op in FAMILY_REPLAYED[family])
+            + f"auction assignments replayed), both deterministic: loss "
+            f"{kern[0]} vs "
             f"{p[0]}, loss rel gap {loss:.3e} (limit {STEP_LOSS_RTOL:g}), "
             f"gradient leaf relative-L2 gap {rel:.3e} ({worst}; limit "
             f"{STEP_GRAD_REL:g}), zero-gradient leaves {zero:.3e} (limit "
@@ -3937,6 +4001,8 @@ def main_family_train(dev) -> dict:
             (i, None) for i in range(n_bids - BIDS_LAST_HELD, n_bids)]}
         if family == "msn":
             held.update(expansion=[(0, None)], mds=[(0, STEP_HELD_CLOUDS)])
+        if family == "grnet":
+            held.update(nn_idx=[(0, None), (1, None)])
         hold_kernels(calls, held, f"{family} training step")
         del calls, assigns
 
@@ -3958,18 +4024,24 @@ def main_family_train(dev) -> dict:
             f"GiB, on {nvidia_smi()}")
         PATHS[f"{family}_train_b32_ms"] = ms
         PATHS[f"{family}_train_b32_peak_gib"] = peak
-        profile_step(lambda: (run(0), torch.cuda.synchronize()), B_FAMILY)
+        if family == "grnet":
+            PATHS["grnet_train_b32_shares"] = profile_ops(
+                lambda: (run(0), torch.cuda.synchronize()), B_FAMILY,
+                "GRNet training step")
+        else:
+            profile_step(lambda: (run(0), torch.cuda.synchronize()), B_FAMILY)
         del model, opt
     return out
 
 
-def main_family_cli(dev) -> dict:
-    """Phase 30; returns a validation batch's launches of each family's
-    evaluation CLI (and MSN's with --serving)."""
+def main_family_cli(dev, families=FAMILIES) -> dict:
+    """Phase 30 (and 33 with ``families`` ("grnet",)); returns a validation
+    batch's launches of each family's evaluation CLI (and MSN's with
+    --serving)."""
     out: dict = {}
     work = tempfile.mkdtemp(prefix="family_cli_")
     try:
-        for family in FAMILIES:
+        for family in families:
             release_memory(f"the {family} CLIs")
             path = run_yaml(f"{family}.yaml", work, FAMILY_CLI_RUN)
             args = ["--model", family, "--config", path, "--dataset",
@@ -4017,12 +4089,12 @@ def main_family_cli(dev) -> dict:
             n += same_state(f"{family} resumed Adam",
                             adam_state(second.optimizer),
                             adam_state(first.optimizer))
-            n += same_state(f"{family} resumed grid generator",
-                            {"rng": second.grid_generator.get_state()},
-                            {"rng": first.grid_generator.get_state()})
+            n += same_state(f"{family} resumed step generator",
+                            {"rng": second.step_generator.get_state()},
+                            {"rng": first.step_generator.get_state()})
             log(f"  {family}: the resumed runner holds the epoch-1 run's "
-                f"generator, Adam and grid generator bit for bit ({n} "
-                f"tensors), init_epoch {second.init_epoch}")
+                f"generator, Adam and step generator ({first.RNG_KEY}) bit "
+                f"for bit ({n} tensors), init_epoch {second.init_epoch}")
             if second.init_epoch != 1:
                 fail(f"{family}: resumed at epoch {second.init_epoch}")
             best = line["best_metrics"]
@@ -4059,12 +4131,9 @@ def main_family_cli(dev) -> dict:
                     clouds_per_s=tline["clouds_per_s"],
                     **{f"{k}_s": v for k, v in sec.items()})
                 out[f"{family}_{mode}"] = batch
-                want_batch = {"emd_bids": 150 if family == "msn" else 100,
-                              "nn_idx": 2}
-                if family == "msn":
-                    want_batch["mds"] = 1
-                    if mode == "parity":
-                        want_batch["expansion"] = 1
+                want_batch = dict(FAMILY_EVAL_BATCH[family])
+                if mode == "serving":
+                    del want_batch["expansion"]
                 if plain or batch != want_batch:
                     fail(f"{family} evaluation CLI ({mode}): a batch's "
                          f"launches {batch} (expected {want_batch}), plain "
@@ -4077,17 +4146,266 @@ def main_family_cli(dev) -> dict:
                         fail(f"MSN --serving: the fit "
                              f"{tline['mml_calibration']} lies outside {BAND}")
                 else:
+                    limit = FAMILY_RUN_TO_RUN.get(family, 1e-5)
                     gaps = {k: abs(tline[k] / v - 1) if v else abs(tline[k])
                             for k, v in best.items()}
                     log(f"  against the training run's validation of the "
-                        f"same weights: relative gaps {gaps}")
-                    if max(gaps.values()) > 1e-5:
+                        f"same weights: relative gaps {gaps} (limit {limit:g})")
+                    if max(gaps.values()) > limit:
                         fail(f"{family} evaluation CLI reads other metrics "
                              f"than the training run's validation: {gaps}")
                 del runner
+            if family in FAMILY_RUN_TO_RUN:
+                with deterministic():
+                    det = [test_cli.run(test_cli.build(args + [
+                        "--weights", ckpt, "--workdir",
+                        os.path.join(work, family, f"det{i}")]))
+                        for i in range(2)]
+                same = all(det[0][k] == det[1][k] for k in Metrics.names())
+                log(f"  {family} evaluation CLI twice in deterministic mode: "
+                    f"metrics equal {same} ({[det[0][k] for k in Metrics.names()]}"
+                    f"; {det[0]['clouds_per_s']:.2f} clouds/s)")
+                if not same:
+                    fail(f"{family}: two deterministic evaluations differ")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# GRNet (phases 31-33)
+# ---------------------------------------------------------------------------
+
+# scripts/port_jax_grnet_witness.py: the JAX package's GRNet eval forward at
+# full width on the CPU, from the weights ``witness_model("grnet", ...)``
+# builds, its sample drawn from PRNGKey(GRNET_SAMPLE_KEY)
+GRNET_WITNESS = os.path.join(ROOT, "docs", "artifacts", "port",
+                             "jax_grnet_witness.npz")
+GRNET_SAMPLE_KEY = 31
+# gridding reverse points (voxels whose 8 weights sum to 1e-6 or more) may
+# part between the card and the witness where a sum lies within rounding of
+# that threshold: a voxel's weights are ReLU outputs of up to 2 whose
+# rounding is about 1e-7, and some 46,000 voxels a sample weigh between
+# 1e-6 and 1e-5 (the witness's inputs); a sample's count parted by 1 in the
+# CPU and H100 runs made for this slice
+GRNET_VALID_SLACK = 8
+# GRNet's ops (XLA in the JAX package, stock PyTorch in the port) as its
+# module calls them, and the functions themselves
+GRNET_OPS = {"gridding": gridding_op.gridding,
+             "gridding_reverse": gridding_op.gridding_reverse,
+             "cubic_feature_sampling": cubic_op.cubic_feature_sampling}
+
+
+def grnet_op_calls(calls: dict):
+    """``patched`` targets: GRNet's ops in its module, each call's (args,
+    output) cloned into calls[name]."""
+    def wrap(name, fn):
+        def rec(*args):
+            out = fn(*args)
+            calls.setdefault(name, []).append((_clone(args), _clone(out)))
+            return out
+        return rec
+    return [(grnet_model, n, wrap(n, fn)) for n, fn in GRNET_OPS.items()]
+
+
+def hold_grnet_ops(calls: dict) -> None:
+    """Each recorded op call on the card against the same function on the
+    CPU on the same inputs: the gridding scatter (the card's atomics add in
+    another order) and the reverse within the contract, the cubic gathers
+    bit for bit."""
+    for name, fn in GRNET_OPS.items():
+        for i, (args, out) in enumerate(calls.get(name, [])):
+            cpu = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                       for a in args))
+            got = out.cpu()
+            err = float((got - cpu).abs().max())
+            ok = (torch.equal(got, cpu) if name == "cubic_feature_sampling"
+                  else bool(torch.allclose(got, cpu, atol=CONTRACT_ATOL,
+                                           rtol=CONTRACT_RTOL)))
+            log(f"  {name} call {i}, {list(args[0].shape)} -> "
+                f"{list(out.shape)}: card against CPU max abs err {err:.3e} "
+                + ("(bit for bit)" if name == "cubic_feature_sampling"
+                   else f"(atol {CONTRACT_ATOL:g}, rtol {CONTRACT_RTOL:g})")
+                + ("" if ok else ": FAILS"))
+            if not ok:
+                fail(f"GRNet's {name} on the card differs from the CPU's")
+
+
+def grnet_cell_splits(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """[B, n] bool: where sparse points a and b fall in different cells of
+    one of the cubic features' volumes (32^3, 16^3, 8^3: floor(p s/2 +
+    s/2)); there the features, and the 8 dense points, may part."""
+    return np.any([np.any(np.floor(a * h + h) != np.floor(b * h + h), -1)
+                   for h in (16.0, 8.0, 4.0)], 0)
+
+
+def grnet_op_group(key: str) -> str:
+    """The group of an op (torch.profiler's key) of a GRNet step."""
+    if "convolution" in key:
+        return "conv3d (cuDNN)"
+    if "max_pool3d" in key or key == "aten::scatter_":
+        return "max-pool and its backward"
+    if key in ("aten::_index_put_impl_", "aten::index_put_", "aten::index"):
+        return "gridding scatter and its backward"
+    if key in ("aten::index_select", "aten::index_add_"):
+        return "cubic and sample gathers"
+    if "sort" in key:
+        return "sample sort"
+    if key in ("aten::addmm", "aten::mm", "aten::bmm"):
+        return "fc (cuBLAS)"
+    if "foreach" in key or "adam" in key.lower():
+        return "Adam"
+    return "other (BatchNorm, gridding reverse, losses, elementwise)"
+
+
+def profile_ops(run, b: int, what: str) -> dict:
+    """One profiled ``run()`` (synchronised): device ms by op group (each
+    op's own kernels), the port's kernels by name, the forward's time in
+    each of GRNet's ops (``GRNET_OPS``, a profiler range around each call),
+    the busy share of the wall time; returns the shares of busy by
+    group."""
+    def body():
+        t = time.perf_counter()
+        run()
+        return (time.perf_counter() - t) * 1e3
+
+    def ranged(name, fn):
+        def call(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return call
+    with patched(*((grnet_model, n, ranged(n, fn))
+                   for n, fn in GRNET_OPS.items())):
+        prof, wall_ms = profiled(body, cpu=True)
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    ranges = {e.key: e.device_time_total / 1e3 for e in avgs
+              if e.key in GRNET_OPS}
+    busy = sum(e.self_device_time_total for e in avgs
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy:
+        fail(f"the profiler saw no device time in the {what}")
+        return {}
+    groups: dict = {}
+    for e in avgs:
+        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+            g = grnet_op_group(e.key)
+            groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    for g, pats in (("nn_idx (#6)", ("nn_split_kernel", "nn_merge_kernel")),
+                    ("emd_bids (#8)", ("bids_kernel", "bids_merge_kernel"))):
+        ms = sum(e.self_device_time_total for e in avgs
+                 if e.device_type == DeviceType.CUDA
+                 and any(p in e.key for p in pats)) / 1e3
+        if ms:
+            groups[g] = ms
+    rest = busy - sum(groups.values())
+    if rest > 1e-3:
+        groups["outside any op"] = rest
+    log(f"  profile, {what}, B={b}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:48s} {ms:9.2f} ms  {100 * ms / busy:5.1f}% of busy")
+    log("    forward, within each op's calls: " + ", ".join(
+        f"{n} {ms:.2f} ms" for n, ms in ranges.items()))
+    return {g: ms / busy for g, ms in groups.items()}
+
+
+@torch.no_grad()
+def main_grnet_eval(dev) -> dict:
+    """Phase 31; returns a forward's launches."""
+    release_memory("the GRNet forwards")
+    if not os.path.exists(GRNET_WITNESS):
+        fail(f"{GRNET_WITNESS} is missing (scripts/port_jax_grnet_witness.py)")
+        return {}
+    w = np.load(GRNET_WITNESS)
+    model = witness_model("grnet", dev)
+    want_sums = json.loads(str(w["checksums"]))
+    sums = weight_checksums(model)
+    bad = [k for k in want_sums if sums.get(k) != want_sums[k]]
+    if bad or sums.keys() != want_sums.keys():
+        fail(f"grnet: {len(bad)} of {len(want_sums)} weight tensors differ "
+             f"from the witness's (e.g. {bad[:3]}): this torch "
+             f"({torch.__version__}) draws other numbers from seed "
+             f"{WITNESS_SEED}, so the witness does not apply")
+        return {}
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"  GRNet: {n_par} parameters; its {len(sums)} weight tensors equal "
+        f"the witness's by sha256")
+    partial = torch.from_numpy(witness_inputs()[0]).to(dev)
+    picks = torch.from_numpy(w["idx"]).to(dev)
+    calls: dict = {}
+    with patched(*grnet_op_calls(calls)):
+        (sparse, dense), launches, plain = launch_counts(
+            lambda: complete(model, partial, sample_idx=picks))
+    check_launches(f"GRNet forward, B={WITNESS_B}, on the witness's picks",
+                   launches, plain, {})
+    hold("GRNet's sparse cloud on the witness's picks", sparse, w["sparse"])
+    _, volumes = model.candidates(partial)
+    hold("GRNet's dense cloud decoded from the witness's sparse cloud",
+         model.decode(torch.from_numpy(w["sparse"]).to(dev), volumes),
+         w["dense"])
+    split = grnet_cell_splits(sparse.cpu().numpy(), w["sparse"])
+    off = ~np.isclose(dense.cpu().numpy(), w["dense"], atol=CONTRACT_ATOL,
+                      rtol=CONTRACT_RTOL).reshape(*split.shape, -1).any(-1)
+    log(f"  dense cloud on the witness's picks: {int(off.sum())} of "
+        f"{off.size} sparse points' 8 dense points outside the contract, all "
+        f"among the {int(split.sum())} whose cubic-feature cell differs from "
+        f"the witness's (the point within rounding of a cell face)")
+    if (off & ~split).any():
+        fail("GRNet's dense cloud differs from the witness's at a point whose "
+             "cubic-feature cells equal the witness's")
+    cloud = calls["gridding_reverse"][0][1]
+    n_valid = (cloud.sum(-1) != 0).sum(1).cpu().numpy()
+    gap = np.abs(n_valid - w["n_valid"]).max()
+    log(f"  gridding reverse points a sample (of {cloud.shape[1]} voxels): "
+        f"{n_valid.tolist()}, the witness's {w['n_valid'].tolist()} (limit "
+        f"{GRNET_VALID_SLACK} apart)")
+    if gap > GRNET_VALID_SLACK:
+        fail(f"GRNet's gridding reverse keeps {n_valid.tolist()} points, the "
+             f"witness {w['n_valid'].tolist()}")
+    hold_grnet_ops(calls)
+    _, free = complete(model, partial,
+                       generator=torch.Generator().manual_seed(0))
+    log(f"  free-running (its own sample, generator seeded 0): dense against "
+        f"the anchored dense, Chamfer {chamfer(free, dense):.3e} (a reading: "
+        f"another random sample of the same cloud)")
+
+    gen = torch.Generator().manual_seed(31)
+    partial32, gt32 = (t.to(dev) for t in train_batch(gen, B_FAMILY))
+
+    def run():
+        return complete(model, partial32,
+                        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  GRNet forward, B={B_FAMILY}, parity (the sample's noise drawn on "
+        f"the host a forward): {ms:.1f} ms, {B_FAMILY / (ms / 1e3):.2f} "
+        f"clouds/s, peak memory {peak:.2f} GiB, on {nvidia_smi()}")
+    PATHS.update(grnet_b32_ms=ms, grnet_b32_peak_gib=peak)
+    PATHS["grnet_b32_shares"] = profile_ops(
+        lambda: (run(), torch.cuda.synchronize()), B_FAMILY, "GRNet forward")
+    sparse32 = run()[0]
+    for x1, x2, what in ((sparse32, gt32, "sparse -> gt"),
+                         (gt32, sparse32, "gt -> sparse")):
+        got = KERNEL["nn_idx"](x1, x2)
+        t0 = time.perf_counter()
+        want = PLAIN["nn_idx"](x1, x2)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        kms = cuda_ms(lambda: KERNEL["nn_idx"](x1, x2), reps=3)
+        exact = torch.equal(got, want)
+        log(f"  nn_idx (#6) on the sparse loss's shapes, {what} "
+            f"{list(x1.shape)} -> {list(x2.shape)}: bit for bit {exact}; "
+            f"kernel {kms:.3f} ms, plain {pms:.1f} ms; "
+            f"{chamfer_op.nn_splits(*x1.shape[:2], x2.shape[1])} candidate "
+            f"splits")
+        PATHS[f"grnet_nn_{what.split()[0]}_ms"] = kms
+        if not exact:
+            fail(f"nn_idx on GRNet's {what} shapes differs from plain")
+    del model
+    return launches
 
 
 def main() -> int:
@@ -4256,6 +4574,16 @@ def main() -> int:
         "atlasnet (Synthetic, 2 steps at B=32, validation over 32 clouds at "
         "B=16), MSN's --serving")
     family_batches = main_family_cli(dev)
+    log(f"phase 31: GRNet's eval forward at full width against the JAX "
+        f"witness (B={WITNESS_B}), its ops on the card against the CPU, the "
+        f"NN on the sparse loss's shapes, B={B_FAMILY} throughput")
+    grnet_forward = main_grnet_eval(dev)
+    log(f"phase 32: GRNet's training step at B={B_FAMILY} against a plain step "
+        f"replaying its NN picks and auction assignments")
+    family_steps.update(main_family_train(dev, ("grnet",)))
+    log("phase 33: the training and evaluation CLIs with --model grnet "
+        "(Synthetic, 2 steps at B=32, validation over 32 clouds at B=16)")
+    family_batches.update(main_family_cli(dev, ("grnet",)))
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -4314,15 +4642,16 @@ def main() -> int:
         # a serving eval batch's launches as the CLI runs it (phase 26)
         kernels[-1]["launches_serving_batch"] = {
             tag: launches_of(batch, name) for tag, batch in serve_batch.items()}
-        # MSN's and AtlasNet's paths (phases 28-30): a forward (MSN's serving
-        # arms too), a training step, an evaluation CLI batch
+        # MSN's, AtlasNet's and GRNet's paths (phases 28-33): a forward
+        # (MSN's serving arms too), a training step, an evaluation CLI batch
         kernels[-1]["launches_families"] = {
             "msn_forward": family_forward.get("msn", {}).get(name, 0),
             **{f"msn_serving_{arm}": family_forward.get(
                 f"msn_serving_{arm}", {}).get(name, 0)
                for arm in ("exact", "hybrid")},
+            "grnet_forward": grnet_forward.get(name, 0),
             **{f"{f}_step": family_steps.get(f, {}).get(name, 0)
-               for f in FAMILIES},
+               for f in FAMILIES + ("grnet",)},
             **{f"{k}_eval_batch": v.get(name, 0)
                for k, v in family_batches.items()}}
     if FAILURES:

@@ -1,6 +1,6 @@
 """Entry points: build the flagship SpareNet generator, or any ported
 family's generator from a run's config (``define_G``: SpareNet, AtlasNet,
-MSN), and complete clouds; build the SpareNet-GAN discriminator.
+MSN, GRNet), and complete clouds; build the SpareNet-GAN discriminator.
 
 Both run on the card unless the caller asks for the CPU: with no ``device``
 they use ``cuda`` and raise where there is none. On the CPU every op runs its
@@ -22,6 +22,7 @@ from ..configs import model_names
 from .atlasnet import AtlasNet, PointEncoder
 from .discriminator import (PatchDiscriminator, ProjectionD, SNConv, SNDense,
                             SNEmbed)
+from .grnet import GRNet
 from .layers import init_weights
 from .msn import MSN, MSN_MML_CALIBRATION
 from .sparenet import (MML_CALIBRATION, SpareNetDecode, SpareNetEncode,
@@ -32,7 +33,7 @@ __all__ = ["FLAGSHIP", "N_INPUT_POINTS", "MML_CALIBRATION",
            "complete", "build_discriminator", "resolve_device",
            "set_parity_mode", "SpareNetGenerator", "SpareNetEncode",
            "SpareNetDecode", "SpareNetRefine", "AtlasNet", "PointEncoder",
-           "MSN", "ProjectionD", "PatchDiscriminator"]
+           "MSN", "GRNet", "ProjectionD", "PatchDiscriminator"]
 
 # The flagship configuration: sparenet_tpu/configs/sparenet.yaml (NETWORK:
 # n_primitives 32, encode Residualnet, use_adain share, use_selayer true;
@@ -138,12 +139,15 @@ def define_G(cfg, *, seed: int | None = None, device=None,
              dial: ServingDial | None = None) -> nn.Module:
     """The generator of cfg.NETWORK.model_type (the JAX package's define_G:
     SpareNet with bottleneck and hide 4096; AtlasNet and MSN with bottleneck
-    1024 and PointNetfeat's hide 1024), DATASET.n_outpoints points and
-    NETWORK.n_primitives primitives, in eval mode on ``device``, initialised
-    as ``build_generator`` does from ``seed`` (default CONST.seed).
-    NETWORK.mml_calibration > 0 replaces the family's serving mml ratio;
-    TRAIN.serving_aligned puts the training forward's MDS on the batched
-    arm; ``dial`` (a ``ServingDial``) builds serving mode on that dial."""
+    1024 and PointNetfeat's hide 1024, DATASET.n_outpoints points and
+    NETWORK.n_primitives primitives; GRNet on a grid of 64 with
+    NETWORK.n_sampling_points points and 8 times as many dense ones), in
+    eval mode on ``device``, initialised as ``build_generator`` does from
+    ``seed`` (default CONST.seed). NETWORK.mml_calibration > 0 replaces the
+    family's serving mml ratio; TRAIN.serving_aligned puts the training
+    forward's MDS on the batched arm; ``dial`` (a ``ServingDial``) builds
+    serving mode on that dial. GRNet has no serving mode in the JAX
+    package: a dial changes nothing in its forward."""
     net = cfg.NETWORK
     mt = net.model_type
     seed = cfg.CONST.seed if seed is None else seed
@@ -167,6 +171,9 @@ def define_G(cfg, *, seed: int | None = None, device=None,
         model = MSN(bottleneck_size=1024, train_mds=train_mds,
                     mml_calibration=mml if mml > 0 else MSN_MML_CALIBRATION,
                     **common, **serving)
+    elif mt == model_names.MODEL_GRNET:
+        model = GRNet(n_sampling_points=net.n_sampling_points,
+                      gridding_scale=64)
     else:
         raise ValueError(f"define_G: no generator for model type {mt!r}")
     return _initialised(model, seed, dev)
@@ -177,8 +184,9 @@ def complete(model: nn.Module, partial: torch.Tensor, **kw):
     """Eval forward on the model's device: partial [B, N_in, 3] -> the
     model's outputs, in the mode it was built with: SpareNet's (coarse,
     middle, refine [B, num_points, 3], loss_mst), MSN's (coarse, refine,
-    loss_mst), AtlasNet's cloud; loss_mst is 0 in serving mode. ``kw``
-    reaches the model (AtlasNet's and MSN's ``grids`` or ``generator``)."""
+    loss_mst), AtlasNet's cloud, GRNet's (sparse, dense); loss_mst is 0 in
+    serving mode. ``kw`` reaches the model (AtlasNet's and MSN's ``grids``
+    or ``generator``, GRNet's ``sample_idx`` or ``generator``)."""
     set_parity_mode()
     dev = next(model.parameters()).device
     resolve_device(dev)

@@ -653,13 +653,15 @@ def grid_generation(num_points: int, nb_primitives: int) -> np.ndarray:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The reference's initialisation, drawn from ``generator``: Conv1d
-    normal(0, 0.02); Conv2d kaiming normal (fan_in, gain sqrt 2); Linear
-    normal(0, 0.01); BatchNorm1d scale normal(1, 0.02); BatchNorm2d scale 1;
-    biases 0. Run it on the CPU so a seed gives the same weights on every
-    device."""
+    normal(0, 0.02); Conv2d, Conv3d and ConvTranspose3d kaiming normal
+    (fan_in, gain sqrt 2; a transposed convolution's fan_in is its
+    in_channels times its taps, as the JAX package's kernel counts it);
+    Linear normal(0, 0.01); BatchNorm1d scale normal(1, 0.02); BatchNorm2d
+    and BatchNorm3d scale 1; biases 0. Run it on the CPU so a seed gives the
+    same weights on every device."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            fan_in = mod.in_channels * math.prod(mod.kernel_size)
             mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
         elif isinstance(mod, nn.Conv1d):
             mod.weight.normal_(0.0, 0.02, generator=generator)
@@ -669,7 +671,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.weight.normal_(0.0, mod.init_std, generator=generator)
         elif isinstance(mod, (nn.BatchNorm1d, StackedBatchNorm)):
             mod.weight.normal_(1.0, 0.02, generator=generator)
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, (nn.BatchNorm2d, nn.BatchNorm3d)):
             mod.weight.fill_(1.0)
         else:
             continue

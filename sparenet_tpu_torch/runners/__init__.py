@@ -1,15 +1,17 @@
 """Runners: the flagship SpareNet training step (``runners.sparenet.
 train_step``), the SpareNet-GAN step (``runners.sparenet_gan.gan_step``),
-the AtlasNet and MSN steps (``runners.atlasnet.train_step``,
-``runners.msn.train_step``), the optimizer rules (``runners.base``) and the
-runners around them (``sparenetRunner``, ``sparenetGANRunner``,
-``atlasnetRunner``, ``msnRunner``), resolved by ``get_runner``."""
+the AtlasNet, MSN and GRNet steps (``runners.atlasnet.train_step``,
+``runners.msn.train_step``, ``runners.grnet.train_step``), the optimizer
+rules (``runners.base``) and the runners around them (``sparenetRunner``,
+``sparenetGANRunner``, ``atlasnetRunner``, ``msnRunner``, ``grnetRunner``),
+resolved by ``get_runner``."""
 
 from __future__ import annotations
 
 from ..configs import model_names
 from .atlasnet import atlasnetRunner
 from .base import BaseRunner
+from .grnet import grnetRunner
 from .misc import AverageMeter
 from .msn import msnRunner
 from .sparenet import sparenetRunner
@@ -17,17 +19,14 @@ from .sparenet_gan import sparenetGANRunner
 
 __all__ = ["BaseRunner", "AverageMeter", "RUNNERS", "get_runner",
            "runner_class", "sparenetRunner", "sparenetGANRunner",
-           "atlasnetRunner", "msnRunner"]
+           "atlasnetRunner", "msnRunner", "grnetRunner"]
 
 RUNNERS = {
     (model_names.MODEL_SPARENET, False): sparenetRunner,
     (model_names.MODEL_SPARENET, True): sparenetGANRunner,
     (model_names.MODEL_ATLASNET, False): atlasnetRunner,
     (model_names.MODEL_MSN, False): msnRunner,
-}
-# the runners still to port, and the queue item of ROADMAP.md that ports each
-_WAITING = {
-    (model_names.MODEL_GRNET, False): "queue 1 item 5 (GRNet)",
+    (model_names.MODEL_GRNET, False): grnetRunner,
 }
 
 
@@ -36,10 +35,6 @@ def runner_class(model_type: str, gan: bool = False):
     key = (model_type, bool(gan))
     if key in RUNNERS:
         return RUNNERS[key]
-    if key in _WAITING:
-        raise NotImplementedError(
-            f"no runner for model={model_type!r} gan={gan} yet: "
-            f"ROADMAP.md, {_WAITING[key]}")
     raise ValueError(f"No runner for model={model_type!r} gan={gan}")
 
 

@@ -14,11 +14,12 @@ protocol, mean(sqrt(dist)), or the chamfer form, by NETWORK.metric).
 
 ``atlasnetRunner`` is ``sparenetRunner`` with AtlasNet (``models.define_G``),
 one RefineLoss meter, the step above on grids from a ``torch.Generator``
-seeded from CONST.seed (``rng_grid``, kept in the checkpoint, so a resumed
-run draws the grids the run it resumes would have drawn) and validation on
-grids from a generator seeded with the batch's index, as the JAX package
-seeds PRNGKey(model_idx). With a serving dial validation runs AtlasNet's
-serving mode (the decoders' bf16 chain; there is no MDS and no mml).
+seeded from CONST.seed (``step_generator``, kept in the checkpoint under
+``RNG_KEY``, ``rng_grid``, so a resumed run draws the grids the run it
+resumes would have drawn) and validation on grids from a generator seeded
+with the batch's index, as the JAX package seeds PRNGKey(model_idx). With a
+serving dial validation runs AtlasNet's serving mode (the decoders' bf16
+chain; there is no MDS and no mml).
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ class atlasnetRunner(sparenetRunner):
     model_type = model_names.MODEL_ATLASNET
     step_loss = staticmethod(atlasnet_loss)
     METERS = ("RefineLoss",)
+    RNG_KEY = "rng_grid"      # the step generator's name in the checkpoint
 
     def __init__(self, config, logger, device=None, dial=None):
         super().__init__(config, logger, device, dial)
@@ -77,19 +79,20 @@ class atlasnetRunner(sparenetRunner):
 
     def build_models(self):
         """The generator and its Adam (``sparenetRunner.build_models``),
-        then the training grids' generator, seeded from CONST.seed."""
+        then the generator of the training steps' draws, seeded from
+        CONST.seed."""
         super().build_models()
-        self.grid_generator = torch.Generator().manual_seed(
+        self.step_generator = torch.Generator().manual_seed(
             self.config.CONST.seed)
 
     def training_state(self) -> dict:
-        return {"optim_G": self.optimizer, "rng_grid": self.grid_generator}
+        return {"optim_G": self.optimizer, self.RNG_KEY: self.step_generator}
 
     def train_step(self, items):
         _, _, _, data = items
         partial, gt = self._put_batch(data)
         loss, c_l, r_l = train_step(self.model, self.optimizer, partial, gt,
-                                    self.lr, self.grid_generator,
+                                    self.lr, self.step_generator,
                                     self.step_config, self.step_loss)
         c_l, r_l = float(c_l) * 1000, float(r_l) * 1000
         self.loss = {"refine_loss": r_l, "rec_loss": float(loss)}

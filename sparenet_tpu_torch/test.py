@@ -2,7 +2,7 @@
 the JAX package).
 
     python -m sparenet_tpu_torch.test --weights CKPT
-        [--model sparenet|msn|atlasnet] [--config YAML]
+        [--model sparenet|msn|atlasnet|grnet] [--config YAML]
         [--dataset Synthetic] [--workdir DIR] [--device cpu]
         [--serving [--mds {auto,exact,batched,hybrid}] [--mds-g G]
          [--mds-schedule S1,S2,...] [--mds-tail T]
@@ -30,9 +30,11 @@ and the kernel launches and plain-version calls by op of the load (the mml
 fit) and the evaluation (on the card every op launches its kernel; on the
 CPU each runs its plain version). ``build(argv)`` gives the loaded runner
 and ``run(runner)`` that line, for callers in process.
-SpareNet (with or without ``--gan``), MSN and AtlasNet, and TEST.mode
-"default", are ported; GRNet is not yet. MSN's and AtlasNet's grids are
-seeded by the batch's index, as the JAX package seeds PRNGKey(model_idx).
+SpareNet (with or without ``--gan``), MSN, AtlasNet and GRNet, and
+TEST.mode "default", are ported. MSN's and AtlasNet's grids and GRNet's
+sample are seeded by the batch's index, as the JAX package seeds
+PRNGKey(model_idx). GRNet has no serving mode: ``--serving`` evaluates it
+in its one mode.
 """
 
 from __future__ import annotations

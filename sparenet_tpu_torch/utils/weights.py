@@ -1,10 +1,11 @@
 """JAX-package weights -> the port's state_dict (counterpart of
-sparenet_tpu/utils/torch_import.py: _to_torch, netG_rules, atlasnet_rules,
-msn_rules and the export_*_state_dict functions).
+sparenet_tpu/utils/torch_import.py: _flat_perm, _to_torch, netG_rules,
+atlasnet_rules, msn_rules, grnet_rules and the export_*_state_dict
+functions).
 
 ``state_dict_from_jax(variables, model_type=...)`` takes the JAX package's
-generator variables (SpareNetGenerator, AtlasNet or MSN) as a nested dict of
-numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns a
+generator variables (SpareNetGenerator, AtlasNet, MSN or GRNet) as a nested
+dict of numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns a
 state_dict in the original reference's layout of that model, which the
 port's model takes whole with ``load_state_dict(strict=True)``. The rule
 tables are this module's own copies, SpareNet's for the ported
@@ -27,20 +28,50 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["netG_rules", "atlasnet_rules", "msn_rules", "state_dict_from_jax",
-           "reference_state_dict", "disc_state_dict_from_jax"]
+__all__ = ["netG_rules", "atlasnet_rules", "msn_rules", "grnet_rules",
+           "state_dict_from_jax", "reference_state_dict",
+           "disc_state_dict_from_jax"]
 
 _DEC_BOTTLENECK = 1026
+_GRNET_BOTTLENECK_CH = 256  # GRNet's conv4 output channels
+
+
+def _flat_perm(n: int, c: int = _GRNET_BOTTLENECK_CH) -> np.ndarray:
+    """GRNet's fc bottleneck flatten: for each flat index (x, y, z, c) of
+    flax's channel-last [s, s, s, C] volume, the flat index (c, x, y, z) of
+    the reference's channel-first flatten of the same volume."""
+    s = round((n // c) ** (1.0 / 3.0))
+    if c * s ** 3 != n:
+        raise ValueError(f"bottleneck size {n} is not {c} * s^3")
+    i = np.arange(n)
+    x, r = divmod(i, s * s * c)
+    y, r = divmod(r, s * c)
+    z, cc = divmod(r, c)
+    return ((cc * s + x) * s + y) * s + z
 
 
 def _to_torch(kind: str, v: np.ndarray) -> np.ndarray:
-    """flax Dense kernel [in, out] -> torch weight layouts."""
+    """flax kernels -> torch weight layouts: Dense [in, out]; Conv
+    [kx, ky, kz, in, out] -> [out, in, kx, ky, kz]; ConvTranspose (padding
+    "SAME") [kx, ky, kz, in, out] -> [in, out, kx, ky, kz] with its taps
+    flipped in space; GRNet's fc5/fc6 with the channel-last flatten of the
+    bottleneck reordered channel-first."""
     if kind == "lin_w":
         return v.T
     if kind == "conv1d_w":
         return v.T[:, :, None]
     if kind == "conv2d_w":
         return v.T[:, :, None, None]
+    if kind == "conv3d_w":
+        return v.transpose(4, 3, 0, 1, 2)
+    if kind == "deconv3d_w":
+        return v.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1].copy()
+    if kind == "fc_in_w":
+        return v[np.argsort(_flat_perm(v.shape[0]))].T
+    if kind == "fc_out_w":
+        return v.T[np.argsort(_flat_perm(v.shape[1]))]
+    if kind == "fc_out_b":
+        return v[np.argsort(_flat_perm(v.shape[0]))]
     return v  # "id"
 
 
@@ -145,26 +176,50 @@ def msn_rules() -> _Rules:
     return r
 
 
+def grnet_rules() -> _Rules:
+    """GRNet: 4 Conv3d blocks, the fc5/fc6 bottleneck, 4 ConvTranspose3d
+    blocks and the fc11-fc14 MLP. The voxel axes agree (x-major on both
+    sides), so the conv kernels map by a transpose (the transposed ones
+    also flipped); the bottleneck's weights absorb the flatten order."""
+    r = _Rules()
+    for i in range(4):
+        r.dense((f"_ConvBlock_{i}", "Conv_0"), f"conv{i + 1}.0",
+                kind="conv3d_w")
+        r.bn((f"_ConvBlock_{i}", "BatchNorm_0"), f"conv{i + 1}.1")
+    r.add("params", ("Linear_0", "kernel"), "fc5.0.weight", "fc_in_w")
+    r.add("params", ("Linear_0", "bias"), "fc5.0.bias", "id")
+    r.add("params", ("Linear_1", "kernel"), "fc6.0.weight", "fc_out_w")
+    r.add("params", ("Linear_1", "bias"), "fc6.0.bias", "fc_out_b")
+    for i in range(4):
+        r.dense((f"_DeconvBlock_{i}", "ConvTranspose_0"), f"dconv{i + 7}.0",
+                bias=False, kind="deconv3d_w")
+        r.bn((f"_DeconvBlock_{i}", "BatchNorm_0"), f"dconv{i + 7}.1")
+    for j, t in enumerate(("fc11.0", "fc12.0", "fc13.0", "fc14")):
+        r.dense((f"Linear_{j + 2}",), t)
+    return r
+
+
 def _get(tree: dict, path: tuple):
     for k in path:
         tree = tree[k]
     return tree
 
 
-_SPARENET, _ATLASNET, _MSN = "SpareNet", "AtlasNet", "MSN"
+_SPARENET, _ATLASNET, _MSN, _GRNET = "SpareNet", "AtlasNet", "MSN", "GRNet"
 
 
 def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
                         n_primitives: int = 32,
                         model_type: str = _SPARENET) -> dict[str, torch.Tensor]:
-    """JAX generator variables of ``model_type`` ("SpareNet", "AtlasNet" or
-    "MSN"; ``use_selayer`` is SpareNet's) -> reference-layout state_dict of
-    CPU float32 tensors, including the reference's registered-but-unused
-    tensors at their defaults (every BatchNorm's num_batches_tracked; for
-    SpareNet the top-level conv1, refine.residual.bn7 and the AdaIN dummy
-    running stats; for MSN res.bn7)."""
+    """JAX generator variables of ``model_type`` ("SpareNet", "AtlasNet",
+    "MSN" or "GRNet"; ``use_selayer`` is SpareNet's) -> reference-layout
+    state_dict of CPU float32 tensors, including the reference's
+    registered-but-unused tensors at their defaults (every BatchNorm's
+    num_batches_tracked; for SpareNet the top-level conv1,
+    refine.residual.bn7 and the AdaIN dummy running stats; for MSN
+    res.bn7)."""
     rules = {_SPARENET: lambda: netG_rules(use_selayer),
-             _ATLASNET: atlasnet_rules, _MSN: msn_rules}
+             _ATLASNET: atlasnet_rules, _MSN: msn_rules, _GRNET: grnet_rules}
     if model_type not in rules:
         raise ValueError(f"state_dict_from_jax: no rules for {model_type!r}")
     sd: dict[str, np.ndarray] = {}

@@ -114,7 +114,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(toy, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("args,err,match", [
     (["--test_mode", "render"], NotImplementedError, "queue 1 item 3"),
-    (["--model", "grnet"], NotImplementedError, "queue 1 item 5"),
     (["--test_mode", "vis"], NotImplementedError, "queue 1 item 3"),
     (["--dataset", "ShapeNet"], NotImplementedError, "queue 1 item 3"),
 ])
@@ -179,6 +178,69 @@ def test_cli_evaluates_msn_in_serving_mode(tmp_path, capsys):
     _, _, _, data = val.first_batch()
     ratio, fitted = autocalibrate_mml(fresh, torch.from_numpy(data["partial_cloud"]))
     assert fitted and ratio == line["mml_calibration"]
+
+
+GRNET_YAML = """\
+DATASET: {train_dataset: Synthetic, test_dataset: Synthetic, n_outpoints: 128}
+CONST: {num_workers: 2, n_input_points: 64}
+NETWORK: {n_sampling_points: 16, model_type: GRNet, metric: chamfer}
+TEST: {metric_name: ChamferDistance, batch_size: 2}
+DATASETS: {synthetic: {n_train: 2, n_val: 4}}
+"""
+
+
+def test_cli_evaluates_grnet(tmp_path, capsys):
+    """``--model grnet`` on a checkpoint of a seeded GRNet (define_G's 64^3
+    grid, 16 sampled points, 128 dense) with jittered BatchNorm statistics:
+    the last line's metrics equal ``compute_all`` on the dense clouds of a
+    model loaded from the same file, each batch's sample drawn from a
+    generator seeded with the batch's index; a batch runs the NN both ways
+    for the sparse Chamfer loss, the dense Chamfer loss and the metrics.
+    About 5 s on two threads."""
+    from sparenet_tpu_torch.models import define_G
+
+    path = tmp_path / "grnet.yaml"
+    path.write_text(GRNET_YAML)
+    cfg = cfg_from_file(str(path))
+    cfg.DIR.checkpoints = str(tmp_path / "given")
+    model = define_G(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.6 - 0.3)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    checkpoint_save(cfg, 1, Metrics("ChamferDistance", [0.0, 1e4, 1e4]), None,
+                    model)
+    weights = os.path.join(cfg.DIR.checkpoints, "ckpt-best.pth")
+    _lib.reset_counts()
+    assert cli.main(["--model", "grnet", "--weights", weights, "--config",
+                     str(path), "--workdir", str(tmp_path / "w"),
+                     "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["n_clouds"] == 4 and line["batches"] == 2
+    assert line["launches"] == {} and line["mml_calibration"] is None
+    assert line["plain_calls"]["nn_idx"] == 2 * 6
+    assert get_runner(cfg).__name__ == "grnetRunner"
+
+    fresh = define_G(cfg, seed=9, device="cpu")
+    fresh.load_state_dict(torch.load(weights, weights_only=True)["net_G"],
+                          strict=True)
+    ds = SyntheticDataset(cfg, "test")
+    vals = []
+    for i in (0, 1):
+        items = [ds[j] for j in (2 * i, 2 * i + 1)]
+        partial = torch.from_numpy(np.stack([d["partial_cloud"]
+                                             for _, _, _, d in items]))
+        gt = torch.from_numpy(np.stack([d["gtcloud"] for _, _, _, d in items]))
+        _, dense = complete(fresh, partial,
+                            generator=torch.Generator().manual_seed(i))
+        vals.append(compute_all(dense, gt, eps=float(cfg.TEST.emd_eps),
+                                iters=int(cfg.TEST.emd_iters)))
+    want = np.concatenate(vals, 1).mean(1)
+    for k, v in zip(Metrics.names(), want):
+        assert line[k] == pytest.approx(float(v), rel=1e-6), k
 
 
 def test_get_runner():

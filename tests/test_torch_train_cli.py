@@ -344,42 +344,43 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(runs, tmp_path,
         train_cli.main(["--config", runs["yaml"], "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("model,match", [("grnet", "queue 1 item 5")])
-def test_cli_names_what_is_not_ported(tmp_path, model, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(["--model", model, "--workdir", str(tmp_path),
-                        "--device", "cpu"])
-
-
 FAMILY_YAML = """\
 DATASET: {{train_dataset: Synthetic, test_dataset: Synthetic, n_outpoints: 128}}
 CONST: {{num_workers: 2, n_input_points: 64}}
-NETWORK: {{n_primitives: 4, model_type: {model}, metric: emd}}
+NETWORK: {{n_primitives: 4, n_sampling_points: 16, model_type: {model},
+           metric: emd}}
 TRAIN: {{batch_size: 2, n_epochs: 1, save_freq: 1, log_freq: 1}}
 TEST: {{metric_name: EMD, batch_size: 2, emd_iters: 5}}
 DATASETS: {{synthetic: {{n_train: 2, n_val: 2}}}}
 """
 # a training step's plain calls (the EMD auction's bids 50 a reconstruction
-# loss; MSN's expansion and MDS once) and a validation batch's (the auction
-# at 5 rounds for the metric and 50 for each validation loss, the NN both
-# ways for the metrics)
+# loss; MSN's expansion and MDS once; GRNet's sparse Chamfer, the NN both
+# ways) and a validation batch's (the auction at 5 rounds for the metric and
+# 50 for each validation loss, the NN both ways for the metrics and for
+# GRNet's sparse loss)
 FAMILY_CALLS = {"atlasnet": {"emd_bids": 50 + 50 + 5, "nn_idx": 2},
                 "msn": {"emd_bids": 100 + 100 + 5, "nn_idx": 2,
-                        "expansion": 2, "mds": 2}}
+                        "expansion": 2, "mds": 2},
+                "grnet": {"emd_bids": 50 + 50 + 5, "nn_idx": 2 + 2 + 2}}
+FAMILY = {"msn": ("MSN", "rng_grid"), "atlasnet": ("AtlasNet", "rng_grid"),
+          "grnet": ("GRNet", "rng_sample")}
 
 
-@pytest.mark.parametrize("model", ["msn", "atlasnet"])
+@pytest.mark.parametrize("model", ["msn", "atlasnet", "grnet"])
 def test_cli_trains_evaluates_and_resumes(tmp_path, capsys, model):
-    """``--model msn|atlasnet`` on the CPU (plain versions; the models at
-    define_G's widths, 64 -> 128 points, 4 primitives, EMD): one epoch of
-    one step at B=2, validation, a checkpoint; the evaluation CLI on that
-    checkpoint reads the metrics the epoch's validation read (its grids
-    seeded by the batch's index, as the JAX package's are); a runner
-    resumed from it holds the trained generator, its Adam and the step
-    grids' generator bit for bit, and starts at epoch 2."""
+    """``--model msn|atlasnet|grnet`` on the CPU (plain versions; the models
+    at define_G's widths, 64 -> 128 points, EMD; MSN and AtlasNet with 4
+    primitives, GRNet on its 64^3 grid with 16 sampled points): one epoch
+    of one step at B=2, validation, a checkpoint; the evaluation CLI on
+    that checkpoint reads the metrics the epoch's validation read (its
+    grids or sample seeded by the batch's index, as the JAX package's
+    are); a runner resumed from it holds the trained generator, its Adam
+    and the step draws' generator bit for bit, and starts at epoch 2.
+    GRNet's case takes about 15 s on two threads: its checkpoint holds 77M
+    parameters and Adam's two moments."""
+    name, rng_key = FAMILY[model]
     cfg_path = tmp_path / "toy.yaml"
-    cfg_path.write_text(FAMILY_YAML.format(
-        model={"msn": "MSN", "atlasnet": "AtlasNet"}[model]))
+    cfg_path.write_text(FAMILY_YAML.format(model=name))
     args = ["--model", model, "--config", str(cfg_path), "--device", "cpu"]
     run = train_cli.build(args + ["--workdir", str(tmp_path / "train")])
     line = train_cli.run(run)
@@ -388,11 +389,11 @@ def test_cli_trains_evaluates_and_resumes(tmp_path, capsys, model):
               else {"CoarseLoss", "RefineLoss"})
     assert set(line["epoch_losses"]["1"]) == meters
     assert line["launches"] == {} and line["plain_calls"] == FAMILY_CALLS[model]
-    assert line["mml_calibration"] == (None if model == "atlasnet" else 5.65)
+    assert line["mml_calibration"] == (5.65 if model == "msn" else None)
     (ckpt,) = list((tmp_path / "train" / "checkpoints").rglob("*.pth"))
     payload = torch.load(ckpt, weights_only=True)
     assert set(payload) == {"epoch_index", "best_metrics", "net_G", "optim_G",
-                            "rng_grid"}
+                            rng_key}
 
     assert test_cli.main(args + ["--weights", str(ckpt), "--workdir",
                                  str(tmp_path / "test")]) == 0
@@ -403,8 +404,8 @@ def test_cli_trains_evaluates_and_resumes(tmp_path, capsys, model):
     again = train_cli.build(args + ["--workdir", str(tmp_path / "resume"),
                                     "--weights", str(ckpt), "--epochs", "2"])
     assert again.init_epoch == 1
-    assert torch.equal(again.grid_generator.get_state(),
-                       run.grid_generator.get_state())
+    assert torch.equal(again.step_generator.get_state(),
+                       run.step_generator.get_state())
     for (k, a), (k2, b) in zip(again.model.state_dict().items(),
                                run.model.state_dict().items()):
         assert k == k2 and torch.equal(a, b), k
