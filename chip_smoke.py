@@ -287,7 +287,28 @@ Phases, each printing a flushed line with its elapsed seconds:
      for bit; the evaluation CLI on the checkpoint reads the training run's
      validation metrics (relative 1e-3: cuDNN's 3D convolutions may add
      with atomics), and twice in deterministic mode to equal metrics, a
-     batch launching #6 4 and #8 100; clouds/s and seconds by part.
+     batch launching #6 4 and #8 100; clouds/s and seconds by part;
+ 34. the file datasets, on trees the phase writes in their published
+     layouts: ShapeNet (GRnet layout, 2 categories, 48 training models of 8
+     partial renderings of 2048 points and a 16384-point complete cloud,
+     one partial in ASCII, 32 test models), Completion3D (.h5 written by
+     the port, 32 VAL models of 2048 points) and KITTI (4 car scans with
+     their box corners); the C++ PCD reader and the Python codec by MB/s
+     on the card's host (warm cache), their clouds equal; the training CLI
+     on ShapeNet (sparenet.yaml, 2 steps at B=24): a step's launches as
+     phase 8's, no plain call, one checkpoint; the evaluation CLI on that
+     checkpoint reads the training run's validation metrics (relative
+     1e-5), a batch launching #1 4, #2 4, #3 2, #4 2, #6 and #8, no plain
+     call, with its seconds by part and the data's share of the epoch; the
+     evaluation CLI on Completion3D VAL at 2048 output points;
+ 35. the evaluation CLI's test modes on that checkpoint: ``render`` (a
+     rendered batch launches #9 24 times, no plain call; its 24 PNGs decode
+     to the depth maps the plain p2i renders on the card from the same
+     clouds, pixel for pixel), ``kitti`` (B=1: no metrics, and the .h5
+     clouds read back through data/h5.py equal a direct eval forward on the
+     same pose-normalised partials), ``vis`` in a subprocess (without
+     matplotlib it exits non-zero before building anything, naming it;
+     with it, it writes its plots).
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -295,8 +316,9 @@ mode needs.
 The output ends with a line "paths {...}" of each path's end-to-end time (the
 line two runs are compared by), one JSON line of per-kernel numbers (every
 TPU kernel of the JAX package, the packed kNN arm and the p2i backward, each
-with its launches a step and a serving eval batch as the CLIs run them), the
-card's name
+with its launches a step and a serving eval batch as the CLIs run them, and
+on the file datasets' paths: a ShapeNet step and eval batch, a rendered
+batch's side outputs, a KITTI cloud), the card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
 """
@@ -329,8 +351,10 @@ import torch  # noqa: E402
 from sparenet_tpu_torch import test as test_cli
 from sparenet_tpu_torch import train as train_cli
 from sparenet_tpu_torch.configs import CONFIG_DIR, cfg_from_file, cfg_update
-from sparenet_tpu_torch.data import (TEST, VAL, SyntheticDataset, collate,
-                                     data_init)
+from sparenet_tpu_torch.data import (IO, TEST, VAL, SyntheticDataset,
+                                     collate, data_init, h5, read_pcd)
+from sparenet_tpu_torch.data.datasets import _SYNTH_SHAPES, _surface_points
+from sparenet_tpu_torch.native import read_pcd_native
 from sparenet_tpu_torch.models import (N_INPUT_POINTS, ServingDial,
                                        build_discriminator, build_generator,
                                        MSN_MML_CALIBRATION, complete, define_G,
@@ -359,6 +383,7 @@ from sparenet_tpu_torch.runners import sparenet_gan as gan_runner
 from sparenet_tpu_torch.utils.checkpoint import checkpoint_load
 from sparenet_tpu_torch.utils.logging import set_logger
 from sparenet_tpu_torch.utils import calibration
+from sparenet_tpu_torch.utils import visualizer as uv
 from sparenet_tpu_torch.utils.calibration import BAND
 from sparenet_tpu_torch.utils.metrics import Metrics, compute_all, emd_metric
 from sparenet_tpu_torch.utils.weights import reference_state_dict
@@ -4408,6 +4433,411 @@ def main_grnet_eval(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: the file datasets and the evaluation CLI's test modes
+# ---------------------------------------------------------------------------
+
+# trees in the published layouts, written here: ShapeNet (GRnet layout: 8
+# partial renderings of 2048 points and a 16384-point complete cloud a
+# model; 2 categories of 24 training models, two steps at B=24, and 16 test
+# models, 32 clouds at B=16), Completion3D (.h5 of 2048 points, 16 VAL models
+# a category, evaluated at its 2048 output points) and KITTI (car scans with
+# their box corners)
+FILE_CATS = (("02691156", "airplane"), ("02958343", "car"))
+N_PARTIAL, N_RENDERINGS, N_C3D = 2048, 8, 2048
+FILE_TRAIN, FILE_TEST, C3D_VAL, KITTI_FRAMES = B_TRAIN, 16, 16, 4
+# a rendered batch: 8 views x (partial, output, ground truth) at radius 7
+RENDERED_P2I = 24
+
+
+def _scan(cloud: np.ndarray, n: int, rs) -> np.ndarray:
+    """n points of the half of ``cloud`` seen from a random direction."""
+    d = rs.randn(3)
+    side = cloud @ (d / np.linalg.norm(d))
+    seen = cloud[side > np.median(side)]
+    return seen[rs.choice(len(seen), n, replace=len(seen) < n)]
+
+
+def _write_ascii_pcd(path: str, pts: np.ndarray) -> None:
+    with open(path, "w") as f:
+        f.write("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+                "FIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+                f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+                f"POINTS {len(pts)}\nDATA ascii\n")
+        np.savetxt(f, pts.astype(np.float32), fmt="%.9g")
+
+
+def write_file_trees(root: str) -> dict:
+    """The three trees under ``root``; the config overrides that point the
+    DATASETS at them, and the ShapeNet .pcd files written (for the codec
+    reading)."""
+    rs = np.random.RandomState(34)
+    sn, c3, kt = (os.path.join(root, d) for d in ("ShapeNet", "c3d", "kitti"))
+    pcds, cats = [], []
+    for c, (tax, name) in enumerate(FILE_CATS):
+        train = [f"{name}{i:03d}" for i in range(FILE_TRAIN)]
+        test = [f"{name}{i:03d}" for i in range(FILE_TRAIN, FILE_TRAIN + FILE_TEST)]
+        cats.append({"taxonomy_id": tax, "taxonomy_name": name,
+                     "train": train, "val": test, "test": test})
+        for subset, models, views in (("train", train, N_RENDERINGS),
+                                      ("test", test, 1)):
+            for k, m in enumerate(models):
+                whole = _surface_points(
+                    _SYNTH_SHAPES[(3 * c + k) % len(_SYNTH_SHAPES)], N_OUT, rs)
+                d = os.path.join(sn, subset, "complete", tax)
+                os.makedirs(d, exist_ok=True)
+                pcds.append(os.path.join(d, f"{m}.pcd"))
+                IO.put(pcds[-1], whole)
+                d = os.path.join(sn, subset, "partial", tax, m)
+                os.makedirs(d, exist_ok=True)
+                for i in range(views):
+                    pcds.append(os.path.join(d, f"{i:02d}.pcd"))
+                    IO.put(pcds[-1], _scan(whole, N_PARTIAL, rs))
+    _write_ascii_pcd(pcds[1], IO.get(pcds[1]))      # one partial in ASCII
+    with open(os.path.join(sn, "ShapeNet.json"), "w") as f:
+        json.dump(cats, f)
+
+    cats = [{"taxonomy_id": "all", "taxonomy_name": "all", "train": [],
+             "val": [], "test": ["all000", "all001"]}]
+    for c, (tax, name) in enumerate(FILE_CATS):
+        models = [f"{name}{i:03d}" for i in range(C3D_VAL)]
+        cats.append({"taxonomy_id": tax, "taxonomy_name": name, "train": [],
+                     "val": models, "test": []})
+    for dc in cats:
+        for subset in ("val", "test"):
+            for m in dc[subset]:
+                whole = _surface_points(_SYNTH_SHAPES[rs.randint(8)], N_OUT, rs)
+                for kind, cloud in (("partial", _scan(whole, N_C3D, rs)),
+                                    ("gt", whole[rs.choice(N_OUT, N_C3D,
+                                                           replace=False)])):
+                    if subset == "test" and kind == "gt":
+                        continue
+                    d = os.path.join(c3, subset, kind, dc["taxonomy_id"])
+                    os.makedirs(d, exist_ok=True)
+                    IO.put(os.path.join(d, f"{m}.h5"), cloud)
+    with open(os.path.join(c3, "Completion3D.json"), "w") as f:
+        json.dump(cats, f)
+
+    frames = [f"frame{i:04d}" for i in range(KITTI_FRAMES)]
+    for d in ("cars", "bboxes"):
+        os.makedirs(os.path.join(kt, d), exist_ok=True)
+    size = np.array([3.9, 1.6, 1.5])
+    # corners 0 and 3 along the car's length, as NormalizeObjectPose reads
+    unit = np.array([[-1, -1, -1], [-1, 1, -1], [1, 1, -1], [1, -1, -1],
+                     [-1, -1, 1], [-1, 1, 1], [1, 1, 1], [1, -1, 1]]) * 0.5
+    for f_ in frames:
+        yaw = rs.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                        [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        centre = rs.uniform([-20, -20, -1], [20, 20, 1])
+        car = _scan(_surface_points("box", 8192, rs) * size,
+                    int(rs.randint(300, 3000)), rs)
+        IO.put(os.path.join(kt, "cars", f"{f_}.pcd"),
+               (car @ rot.T + centre).astype(np.float32))
+        np.savetxt(os.path.join(kt, "bboxes", f"{f_}.txt"),
+                   (unit * size) @ rot.T + centre)
+    with open(os.path.join(kt, "KITTI.json"), "w") as f:
+        json.dump([{"taxonomy_id": "02958343", "taxonomy_name": "car",
+                    "train": [], "val": [], "test": frames}], f)
+    overrides = {"TRAIN": {"save_freq": 1}, "TEST": {"batch_size": 16},
+                 "DATASETS": {
+        "shapenet": {"category_file_path": os.path.join(sn, "ShapeNet.json"),
+                     "n_renderings": N_RENDERINGS,
+                     "partial_points_path": os.path.join(
+                         sn, "%s/partial/%s/%s/%02d.pcd"),
+                     "complete_points_path": os.path.join(
+                         sn, "%s/complete/%s/%s.pcd")},
+        "completion3d": {"category_file_path": os.path.join(
+                             c3, "Completion3D.json"),
+                         "partial_points_path": os.path.join(
+                             c3, "%s/partial/%s/%s.h5"),
+                         "complete_points_path": os.path.join(
+                             c3, "%s/gt/%s/%s.h5")},
+        "kitti": {"category_file_path": os.path.join(kt, "KITTI.json"),
+                  "partial_points_path": os.path.join(kt, "cars", "%s.pcd"),
+                  "bounding_box_file_path": os.path.join(kt, "bboxes",
+                                                         "%s.txt")}}}
+    return {"overrides": overrides, "pcds": pcds}
+
+
+def file_yaml(work: str, tag: str, overrides: dict) -> str:
+    """sparenet.yaml with ``overrides``, written under work/tag."""
+    os.makedirs(os.path.join(work, tag), exist_ok=True)
+    return run_yaml("sparenet.yaml", os.path.join(work, tag), overrides)
+
+
+def codec_reading(pcds: list) -> None:
+    """MB/s of the C++ PCD reader and of the Python codec over the same
+    files on the card's host (page cache warm: the files were just
+    written), their clouds equal."""
+    nbytes = sum(os.path.getsize(p) for p in pcds)
+    times, clouds = {}, {}
+    for name, fn in (("native", read_pcd_native), ("python", read_pcd)):
+        t0 = time.perf_counter()
+        clouds[name] = [fn(p) for p in pcds]
+        times[name] = time.perf_counter() - t0
+    same = all(np.array_equal(a, b.astype(np.float32))
+               for a, b in zip(clouds["native"], clouds["python"]))
+    rates = {k: nbytes / 1e6 / v for k, v in times.items()}
+    log(f"  PCD codecs over {len(pcds)} files, {nbytes / 1e6:.2f} MB (one "
+        f"ASCII, warm page cache) on the card's host: C++ reader "
+        f"{rates['native']:.1f} MB/s ({times['native']:.3f} s), Python codec "
+        f"{rates['python']:.1f} MB/s ({times['python']:.3f} s); clouds equal "
+        f"{same}")
+    if not same:
+        fail("the C++ PCD reader and the Python codec read other clouds")
+    PATHS["pcd_codecs"] = dict(files=len(pcds), mb=nbytes / 1e6,
+                               **{f"{k}_mb_per_s": v for k, v in rates.items()})
+
+
+def eval_file_cli(args: list, what: str, expect_clouds: int):
+    """The evaluation CLI in process on ``args``, counts set to 0 just
+    before its run; (runner, last line, a batch's launches)."""
+    _lib.reset_counts()
+    runner = test_cli.build(args)
+    _lib.reset_counts()
+    line = test_cli.run(runner)
+    torch.cuda.synchronize()
+    plain = {k: v for k, v in _lib.PLAIN_CALLS.items() if v}
+    batch = {k: v / line["batches"] for k, v in _lib.LAUNCHES.items() if v}
+    sec = line["seconds"]
+    share = sec["data"] / sec["total"] if sec["total"] else 0.0
+    metrics = ("no metrics (no ground truth)" if line["F-Score"] is None else
+               f"F {line['F-Score']:.4f}, CD x 1000 "
+               f"{line['ChamferDistance']:.4f}, EMD x 100 {line['EMD']:.4f}")
+    log(f"  {what}: {metrics}; {line['n_clouds']} clouds in "
+        f"{line['batches']} batches, {line['clouds_per_s']:.2f} clouds/s "
+        f"(data {sec['data']:.3f} s, {100 * share:.1f}% of the epoch; "
+        f"forward {sec['forward']:.3f} s, metrics {sec['metrics']:.3f} s); a "
+        f"batch's launches {batch}, plain calls {plain}")
+    if plain:
+        fail(f"{what}: plain calls {plain}")
+    if line["n_clouds"] != expect_clouds:
+        fail(f"{what}: {line['n_clouds']} clouds, expected {expect_clouds}")
+    for name, want in (("knn", 4), ("gather_max", 4), ("expansion", 2),
+                       ("mds", 2)):
+        if batch.get(name) != want:
+            fail(f"{what}: {name} {batch.get(name)} launches a batch, "
+                 f"expected {want}")
+    return runner, line, dict(batch, data_share=share)
+
+
+def main_file_data(step_launches: dict, dev) -> dict:
+    """Phase 34; returns the trees' overrides, the checkpoint and the work
+    directory (phase 35 reads them) and the launches of a ShapeNet step and
+    eval batch."""
+    release_memory("the file datasets")
+    work = tempfile.mkdtemp(prefix="file_data_")
+    try:
+        return _file_data(work, step_launches)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def _file_data(work: str, step_launches: dict) -> dict:
+    t0 = time.perf_counter()
+    trees = write_file_trees(os.path.join(work, "trees"))
+    log(f"  trees written in {time.perf_counter() - t0:.1f} s: ShapeNet "
+        f"({2 * (FILE_TRAIN + FILE_TEST)} models, {len(trees['pcds'])} .pcd), "
+        f"Completion3D ({2 * C3D_VAL} VAL models, .h5), KITTI "
+        f"({KITTI_FRAMES} frames)")
+    codec_reading(trees["pcds"])
+    path = file_yaml(work, "shapenet", trees["overrides"])
+    first = train_cli.build(["--config", path, "--workdir",
+                             os.path.join(work, "train"), "--epochs", "1"])
+    epochs: list = []
+    with training_launches(epochs):
+        line = train_cli.run(first)
+        torch.cuda.synchronize()
+        launches, plain = dict(_lib.LAUNCHES), dict(_lib.PLAIN_CALLS)
+    steps = len(first.train_loader)
+    check_cli_line(line, launches, plain, TRAIN_EXPECTED + ("gather_max",),
+                   "training CLI on ShapeNet files")
+    step = per_step(epochs, steps)
+    for name in ("knn", "expansion", "mds", "nn_idx", "edge_stats_fwd",
+                 "edge_stats_bwd"):
+        if step[name] != step_launches[name]:
+            fail(f"ShapeNet training: {name} {step[name]} launches a step, "
+                 f"phase 8's step {step_launches[name]}")
+    sec = line["seconds"]
+    log(f"  training epoch on ShapeNet files on {nvidia_smi()}: "
+        f"{line['clouds_trained']} clouds in {steps} steps of {B_TRAIN}, "
+        f"{line['clouds_per_s']:.2f} clouds/s over data and step time; "
+        f"seconds: data {sec['data']:.3f}, step {sec['step']:.3f}, val "
+        f"{sec['val']:.3f}; a step's launches "
+        f"{ {k: v for k, v in step.items() if v} }")
+    PATHS["shapenet_train_cli"] = dict(
+        clouds_per_s=line["clouds_per_s"], steps=steps,
+        **{f"{k}_s": v for k, v in sec.items()})
+    names = checkpoints(first)
+    if len(names) != 1:
+        fail(f"ShapeNet training: {len(names)} checkpoints after one epoch")
+        raise RuntimeError("no checkpoint to evaluate")
+    ckpt = os.path.join(first.config.DIR.checkpoints, names[0])
+    best = line["best_metrics"]
+    del first
+    release_memory("the evaluation CLI on ShapeNet files")
+
+    _, tline, batch = eval_file_cli(
+        ["--config", path, "--weights", ckpt, "--workdir",
+         os.path.join(work, "eval")], "evaluation CLI on ShapeNet TEST",
+        2 * FILE_TEST)
+    gaps = {k: abs(tline[k] / v - 1) if v else abs(tline[k])
+            for k, v in best.items()}
+    log(f"  against the training run's validation of the same weights: "
+        f"relative gaps {gaps} (limit 1e-05)")
+    if max(gaps.values()) > 1e-5:
+        fail(f"ShapeNet evaluation CLI reads other metrics than the training "
+             f"run's validation: {gaps}")
+    for name in EVAL_OPS_ALL:
+        if not batch.get(name):
+            fail(f"ShapeNet evaluation: {name} was not launched")
+    PATHS["shapenet_eval_cli"] = dict(
+        clouds_per_s=tline["clouds_per_s"], data_share=batch["data_share"],
+        **{f"{k}_s": v for k, v in tline["seconds"].items()})
+    release_memory("the evaluation CLI on Completion3D")
+
+    c3d = file_yaml(work, "c3d", dict(trees["overrides"],
+                                      DATASET={"n_outpoints": N_C3D}))
+    _, cline, _ = eval_file_cli(
+        ["--config", c3d, "--weights", ckpt, "--dataset", "Completion3D",
+         "--workdir", os.path.join(work, "c3d")],
+        f"evaluation CLI on Completion3D VAL ({N_C3D} output points)",
+        2 * C3D_VAL)
+    if not all(math.isfinite(cline[k]) for k in Metrics.names()):
+        fail(f"Completion3D evaluation: metrics not finite {cline}")
+    PATHS["c3d_eval_cli"] = dict(clouds_per_s=cline["clouds_per_s"])
+    return dict(trees=trees, path=path, ckpt=ckpt, work=work,
+                shapenet_step={k: v for k, v in step.items() if v},
+                shapenet_eval_batch={k: v for k, v in batch.items()
+                                     if k in _lib.LAUNCHES})
+
+
+def main_test_modes(files: dict, dev) -> dict:
+    """Phase 35; returns the launches of a rendered batch's side outputs
+    and of a KITTI cloud."""
+    work, ckpt, path = files["work"], files["ckpt"], files["path"]
+    out: dict = {}
+    try:
+        release_memory("the render mode")
+        kept: dict = {}
+        rendered: list = []
+        inference = train_base.BaseRunner.inference
+
+        def keeping(self, data):
+            if self.model_idx == 0:
+                kept.update(refine=self.ptcloud.clone(), tax=self.taxonomy_id,
+                            data={k: torch.from_numpy(v).to(dev)
+                                  for k, v in data.items()})
+            before = dict(_lib.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inference(self, data)
+            torch.cuda.synchronize()
+            if self.model_idx % self.config.TEST.infer_freq == 0:
+                rendered.append(({k: v - before[k] for k, v in
+                                  _lib.LAUNCHES.items() if v - before[k]},
+                                 time.perf_counter() - t0))
+        with patched((train_base.BaseRunner, "inference", keeping)):
+            runner, line, _ = eval_file_cli(
+                ["--config", path, "--weights", ckpt, "--workdir",
+                 os.path.join(work, "render"), "--test_mode", "render"],
+                "--test_mode render on ShapeNet TEST", 2 * FILE_TEST)
+        log(f"  rendered batches (TEST.infer_freq {runner.config.TEST.infer_freq}"
+            f"): {[(l, round(s, 4)) for l, s in rendered]} (launches, seconds "
+            f"of the 24 maps and their PNGs)")
+        if not rendered or any(l != {"p2i": RENDERED_P2I} for l, _ in rendered):
+            fail(f"render mode: a rendered batch launched {rendered}, "
+                 f"expected p2i {RENDERED_P2I}")
+        cfg = runner.config
+        base = os.path.join(cfg.DIR.logs, "plots", str(kept["tax"]), "0")
+        renderer = ComputeDepthMaps(projection=cfg.RENDER.projection,
+                                    eyepos_scale=cfg.RENDER.eyepos,
+                                    image_size=cfg.RENDER.img_size)
+        clouds = {"1": kept["data"]["partial_cloud"], "2": kept["refine"],
+                  "3": kept["data"]["gtcloud"]}
+        bad = []
+        with torch.no_grad(), swapped(p2i=PLAIN["p2i"]):
+            for j in range(renderer.num_views):
+                for tag, cloud in clouds.items():
+                    img = renderer(cloud, view_id=j,
+                                   radius_list=[uv.DEPTH_RADIUS])[0, :, :, 0]
+                    got = uv.read_png(os.path.join(base, f"{j}{tag}.png"))
+                    if not np.array_equal(got, uv.gray_rgba(img.cpu().numpy())):
+                        bad.append(f"{j}{tag}")
+        log(f"  the 24 PNGs of batch 0 decoded against depth maps of its "
+            f"clouds by the plain p2i on the card: {24 - len(bad)} equal "
+            f"pixel for pixel{', differing: ' + str(bad) if bad else ''}")
+        if bad:
+            fail(f"render mode: PNGs {bad} differ from the plain p2i's maps")
+        PATHS["rendered_batch_s"] = rendered[0][1] if rendered else None
+        out["rendered_batch"] = rendered[0][0] if rendered else {}
+        del runner, kept
+        release_memory("the kitti mode")
+
+        kitti = file_yaml(work, "kitti", dict(
+            files["trees"]["overrides"], TEST={"batch_size": 1,
+                                               "infer_freq": 1}))
+        runner, line, batch = eval_file_cli(
+            ["--config", kitti, "--weights", ckpt, "--workdir",
+             os.path.join(work, "kitti"), "--test_mode", "kitti"],
+            "--test_mode kitti (B=1)", KITTI_FRAMES)
+        if any(line[k] is not None for k in Metrics.names()):
+            fail(f"kitti mode: metrics {line} where there is no ground truth")
+        worst, n = 0.0, 0
+        with torch.no_grad():
+            for b, (tax, _, _, data) in enumerate(data_init(runner.config)[1]):
+                want = complete(runner.model, torch.from_numpy(
+                    data["partial_cloud"]).to(dev))[2][0].cpu().numpy()
+                got = h5.read(os.path.join(runner.config.DIR.out_path,
+                                           "benchmark", tax[0], f"{b}.h5"))
+                n += 1
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    worst = max(worst, float(np.abs(got - want).max())
+                                if got.shape == want.shape else math.inf)
+        log(f"  kitti outputs: {n} .h5 clouds read back through data/h5.py "
+            f"against a direct eval forward on the same pose-normalised "
+            f"partials: {'equal bit for bit' if not worst else f'max abs {worst:.3g}'}"
+            f"; {line['seconds']['forward'] / KITTI_FRAMES * 1e3:.1f} ms of "
+            f"forward a cloud at B=1")
+        if n != KITTI_FRAMES or worst:
+            fail(f"kitti mode: {n} outputs, max abs {worst} from the direct "
+                 f"forward")
+        out["kitti_cloud"] = {k: v for k, v in batch.items()
+                              if k in _lib.LAUNCHES}
+        PATHS["kitti_cloud_ms"] = line["seconds"]["total"] / KITTI_FRAMES * 1e3
+        del runner
+        release_memory("the vis mode")
+
+        vis_dir = os.path.join(work, "vis")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sparenet_tpu_torch.test", "--config", path,
+             "--weights", ckpt, "--workdir", vis_dir, "--test_mode", "vis"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        tail = (proc.stderr.strip().splitlines() or [""])[-1]
+        try:
+            import matplotlib  # noqa: F401
+            have = True
+        except ImportError:
+            have = False
+        plots = [os.path.join(d, f) for d, _, fs in os.walk(vis_dir)
+                 for f in fs if f.endswith(".png")]
+        log(f"  --test_mode vis ({'with' if have else 'without'} matplotlib): "
+            f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s, "
+            f"{len(plots)} plots; last line of stderr: {tail[:200]}")
+        if have and (proc.returncode or not plots):
+            fail("vis mode with matplotlib wrote no plot")
+        if not have and (proc.returncode == 0 or "matplotlib" not in tail
+                         or os.path.exists(vis_dir)):
+            fail("vis mode without matplotlib did not stop before building, "
+                 "with a message that names it")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
@@ -4584,6 +5014,16 @@ def main() -> int:
     log("phase 33: the training and evaluation CLIs with --model grnet "
         "(Synthetic, 2 steps at B=32, validation over 32 clouds at B=16)")
     family_batches.update(main_family_cli(dev, ("grnet",)))
+    log(f"phase 34: the file datasets: ShapeNet (.pcd), Completion3D (.h5) "
+        f"and KITTI trees; the training CLI on ShapeNet (2 steps at "
+        f"B={B_TRAIN}), the evaluation CLI on its checkpoint and on "
+        f"Completion3D VAL; the PCD codecs' MB/s")
+    files = main_file_data(t_launches, dev)
+    log("phase 35: the evaluation CLI's test modes on the checkpoint: render "
+        "(ShapeNet TEST), kitti (B=1), vis")
+    file_launches = dict(shapenet_step=files["shapenet_step"],
+                         shapenet_eval_batch=files["shapenet_eval_batch"],
+                         **main_test_modes(files, dev))
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -4654,6 +5094,10 @@ def main() -> int:
                for f in FAMILIES + ("grnet",)},
             **{f"{k}_eval_batch": v.get(name, 0)
                for k, v in family_batches.items()}}
+        # the file datasets' paths (phases 34-35): a ShapeNet training step
+        # and eval batch, a rendered batch's side outputs, a KITTI cloud
+        kernels[-1]["launches_file_data"] = {
+            k: v.get(name, 0) for k, v in file_launches.items()}
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

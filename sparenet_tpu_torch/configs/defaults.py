@@ -12,6 +12,11 @@ loaders' prefetch depth), and of the rest what its ported modules use.
 from __future__ import annotations
 
 import copy
+import os
+
+# the port's copies of the category files, found from the package itself
+META_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "meta")
 
 
 class AttrDict(dict):
@@ -39,7 +44,7 @@ def default_config() -> AttrDict:
     cfg = AttrDict()
 
     # Dataset: 'Completion3D', 'ShapeNet', 'ShapeNetCars', 'KITTI' or
-    # 'Synthetic' (procedural shapes, no files; the only one ported yet).
+    # 'Synthetic' (procedural shapes, no files).
     cfg.DATASET = _d(
         train_dataset="ShapeNet",
         test_dataset="ShapeNet",
@@ -139,17 +144,17 @@ def default_config() -> AttrDict:
             n_renderings=8,
             n_points=16384,
             version="GRnet",
-            category_file_path="./sparenet_tpu/data/meta/ShapeNet.json",
+            category_file_path=os.path.join(META_DIR, "ShapeNet.json"),
             partial_points_path="/path/to/datasets/ShapeNetCompletion/%s/partial/%s/%s/%02d.pcd",
             complete_points_path="/path/to/datasets/ShapeNetCompletion/%s/complete/%s/%s.pcd",
         ),
         completion3d=_d(
-            category_file_path="./sparenet_tpu/data/meta/Completion3D.json",
+            category_file_path=os.path.join(META_DIR, "Completion3D.json"),
             partial_points_path="/path/to/datasets/completion3d/data/shapenet/%s/partial/%s/%s.h5",
             complete_points_path="/path/to/datasets/completion3d/data/shapenet/%s/gt/%s/%s.h5",
         ),
         kitti=_d(
-            category_file_path="./sparenet_tpu/data/meta/KITTI.json",
+            category_file_path=os.path.join(META_DIR, "KITTI.json"),
             partial_points_path="/path/to/datasets/KITTI/cars/%s.pcd",
             bounding_box_file_path="/path/to/datasets/KITTI/bboxes/%s.txt",
         ),

@@ -1,17 +1,28 @@
 """Host-side batching and prefetch (the port's copy of
 sparenet_tpu/data/loaders.py: ``collate``, ``DataLoader``, ``data_init``).
 
-A thread pool maps the dataset reads and a background thread keeps
-``prefetch`` batches ready; batches are (taxonomy_ids, labels [B] int32,
-model_ids, data dict of stacked float32 numpy arrays), in the same order and
-with the same shuffle seeds as the JAX package's loader, so both packages
-see the same batches. The step that takes a batch makes the one host-to-card
-copy.
+A background thread keeps ``prefetch`` batches ready; batches are
+(taxonomy_ids, labels [B] int32, model_ids, data dict of stacked float32
+numpy arrays), in the same order and with the same shuffle seeds as the JAX
+package's loader (``RandomState(seed + pass)``, the pass counted from 0 in
+each loader). A pool of ``num_workers`` threads reads the files, but every
+random draw is taken on the background thread in the pass's index order
+(the draw protocol of ``data/datasets.py``: ``choose``, ``read``,
+``finish``; a dataset without it, as Synthetic, is read whole by
+``dataset[i]`` in the pool), from a ``random.Random`` and an
+``np.random.RandomState`` both seeded with ``seed + pass`` as well. So a
+pass's batches do not depend on the worker count, a loader's pass draws
+what any other loader of the same seed draws in that pass (a resumed run's
+first epoch draws what the first run's first epoch drew, as its shuffle
+does), and they equal the JAX package's batches at one worker when its
+global ``random`` and ``np.random`` are seeded with ``seed + pass``. The
+step that takes a batch makes the one host-to-card copy.
 """
 
 from __future__ import annotations
 
 import queue
+import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -60,28 +71,50 @@ class DataLoader:
             rs.shuffle(order)
         return order
 
+    def _generators(self):
+        """The pass's draw generators: (random.Random, RandomState)."""
+        seed = self._seed + self._epoch
+        return random.Random(seed), np.random.RandomState(seed)
+
     def _batches(self):
         order = self._order()
-        self._epoch += 1
         for i in range(len(self)):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
 
+    def _collated(self, idxs, rngs, pool=None):
+        """One batch: the items of ``idxs`` read in ``pool`` (or here), the
+        draws taken here in index order. A dataset without the draw
+        protocol (``finish``: Synthetic) is read whole by ``dataset[i]``."""
+        rnd, rs = rngs
+        ds = self.dataset
+        drawn = hasattr(ds, "finish")
+        if drawn:
+            args = (ds.read, idxs, [ds.choose(i, rnd) for i in idxs])
+        else:
+            args = (ds.__getitem__, idxs)
+        items = (map if pool is None else pool.map)(*args)
+        if drawn:
+            items = [ds.finish(item, rs) for item in items]
+        return collate(list(items))
+
     def first_batch(self):
         """The next pass's first batch, read in the calling thread; the
-        pass is not counted (its shuffle seed stays the next pass's)."""
-        idxs = self._order()[:self.batch_size]
-        return collate([self.dataset[i] for i in idxs])
+        pass is not counted (its shuffle and draw seeds stay the next
+        pass's)."""
+        return self._collated(self._order()[:self.batch_size],
+                              self._generators())
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
+        batches, rngs = list(self._batches()), self._generators()
+        self._epoch += 1
 
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idxs in self._batches():
-                        q.put(collate(list(pool.map(self.dataset.__getitem__,
-                                                    idxs))))
+                    for idxs in batches:
+                        q.put(self._collated(idxs, rngs, pool))
             except BaseException as e:      # raised again in the consumer
                 q.put(e)
             q.put(sentinel)
@@ -100,7 +133,10 @@ class DataLoader:
 def data_init(cfg):
     """(train_loader, val_loader). Validation takes the TEST split, except
     for Completion3D (VAL: its test split has no ground truth), in batches
-    of cfg.TEST.batch_size."""
+    of cfg.TEST.batch_size. Both loaders draw from generators seeded with
+    CONST.seed and the pass (the JAX package leaves its validation loader
+    at seed 0 and never seeds its draws); with the cGAN, DATASET.num_class
+    is the training dataset's categories (Completion3D's less its "all")."""
     train_ld = loader_class(cfg.DATASET.train_dataset)(cfg)
     test_ld = loader_class(cfg.DATASET.test_dataset)(cfg)
     train_loader = DataLoader(
@@ -120,6 +156,7 @@ def data_init(cfg):
         drop_last=False,
         num_workers=cfg.CONST.num_workers,
         prefetch=cfg.TPU.prefetch,
+        seed=cfg.CONST.seed,
     )
     if cfg.GAN.use_cgan:
         num_classes = len(train_ld.dataset_categories)

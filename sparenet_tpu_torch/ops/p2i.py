@@ -56,7 +56,8 @@ from .common import check_input, fma, is_cpu, sqrt_ieee
 __all__ = ["COS_COEFFS", "cos_weight_sq", "window_size", "p2i_max",
            "p2i_max_plain", "p2i_tiles_plain", "TILE", "ITEM_PIXELS",
            "item_entries", "p2i_max_backward", "p2i_max_backward_plain",
-           "p2i_bwd_tiles_plain", "bwd_plan", "p2i_max_zbg"]
+           "p2i_bwd_tiles_plain", "bwd_plan", "p2i_max_zbg", "p2i_sum",
+           "p2i_max_bg", "p2i"]
 
 # cos(pi sqrt(s)) / 2 + 1/2 = 1 + sum_k c_k s^k, c_k = (-1)^k pi^2k / (2 (2k)!),
 # k = 1 .. 10, rounded to f32 (the JAX package's _COS_COEFFS)
@@ -114,9 +115,10 @@ def _weight(r: torch.Tensor, radius: float) -> torch.Tensor:
     return cos_weight_sq(s * s)
 
 
-def _window(points: torch.Tensor, radius: float, h: int, w: int):
-    """Candidate pixels of each point: (pixel index within its image
-    [P, K, K], weight w(r) [P, K, K], valid [P, K, K])."""
+def _window_terms(points: torch.Tensor, radius: float, h: int, w: int):
+    """Candidate pixels of each point, as the JAX package's ``_window``:
+    (rows [P, K, 1], columns [P, 1, K], dy, dx and r [P, K, K], valid
+    [P, K, K])."""
     k = window_size(radius)
     rad = torch.tensor(radius, dtype=torch.float32, device=points.device)
     base = torch.floor(points - rad).to(torch.int32)          # [P, 2]
@@ -127,6 +129,13 @@ def _window(points: torch.Tensor, radius: float, h: int, w: int):
     dx = px.float() - points[:, 1, None, None]
     r = sqrt_ieee(dy * dy + dx * dx)                          # [P, K, K]
     valid = (py >= 0) & (py < h) & (px >= 0) & (px < w) & (r <= rad)
+    return py, px, dy, dx, r, valid
+
+
+def _window(points: torch.Tensor, radius: float, h: int, w: int):
+    """Candidate pixels of each point: (pixel index within its image
+    [P, K, K], weight w(r) [P, K, K], valid [P, K, K])."""
+    py, px, _, _, r, valid = _window_terms(points, radius, h, w)
     return py * w + px, _weight(r, radius), valid
 
 
@@ -496,3 +505,184 @@ def p2i_max_zbg(points, feats, binds, b: int, h: int, w: int,
             and (points.requires_grad or feats.requires_grad)):
         return p2i_max(points, feats, binds, b, h, w, float(radius), False)[0]
     return _P2iMaxZbg.apply(points, feats, binds, b, h, w, float(radius))
+
+
+# ---------------------------------------------------------------------------
+# the general splats over a background (the JAX package's p2i_sum, p2i_max
+# and p2i; XLA there, stock PyTorch ops here, on either device)
+# ---------------------------------------------------------------------------
+
+def _check_general(points, feats, binds, background):
+    check_input("p2i points", points, torch.float32, 2, last=2)
+    check_input("p2i feats", feats, torch.float32, 2)
+    check_input("p2i binds", binds, torch.int32, 1)
+    check_input("p2i background", background, torch.float32, 4,
+                last=feats.shape[1])
+    if not (points.shape[0] == feats.shape[0] == binds.shape[0]):
+        raise ValueError("p2i: points, feats and binds differ in length")
+
+
+def _slots(points, binds, radius: float, b: int, h: int, w: int, sl):
+    """A chunk's window: (pixel slot [p, K, K] in the flattened images,
+    B * H * W where invalid or out of the batch; dy, dx, r, valid)."""
+    py, px, dy, dx, r, valid = _window_terms(points[sl], radius, h, w)
+    bi = binds[sl].long()[:, None, None]
+    valid = valid & (bi >= 0) & (bi < b)
+    slot = torch.where(valid, bi * (h * w) + py * w + px, b * h * w)
+    return slot, dy, dx, r, valid
+
+
+def _slope(r: torch.Tensor, radius: float) -> torch.Tensor:
+    """-dw/dr / r: (pi / 2R) sin(pi r / R) / max(r, 1e-10)."""
+    return (torch.sin(r * math.pi / radius) * 0.5 * math.pi / radius
+            / r.clamp_min(1e-10))
+
+
+def _sum_forward(points, feats, binds, background, radius: float):
+    b, h, w, c = background.shape
+    n_pix = b * h * w
+    out = torch.cat([background.reshape(n_pix, c),
+                     background.new_zeros(1, c)])             # +1: drop
+    for sl in _chunks(points.shape[0], radius):
+        slot, _, _, r, valid = _slots(points, binds, radius, b, h, w, sl)
+        wv = (_weight(r, radius) * valid)[..., None] * feats[sl, None, None, :]
+        out.index_add_(0, slot.reshape(-1), wv.reshape(-1, c))
+    return out[:n_pix].reshape(b, h, w, c)
+
+
+def _sum_backward(points, feats, binds, g, radius: float):
+    """The JAX package's _p2i_sum_bwd: (d points [P, 2], d feats [P, C])."""
+    b, h, w, c = g.shape
+    gf = torch.cat([g.reshape(-1, c), g.new_zeros(1, c)])
+    d_pt, d_pf = [], []
+    for sl in _chunks(points.shape[0], radius):
+        slot, dy, dx, r, valid = _slots(points, binds, radius, b, h, w, sl)
+        og = gf[slot] * valid[..., None]                      # [p, K, K, C]
+        d_pf.append((og * _weight(r, radius)[..., None]).sum((1, 2)))
+        kfac = ((og * feats[sl, None, None, :]).sum(-1)
+                * _slope(r, radius)) * valid
+        d_pt.append(torch.stack([(kfac * dy).sum((1, 2)),
+                                 (kfac * dx).sum((1, 2))], -1))
+    return torch.cat(d_pt), torch.cat(d_pf)
+
+
+def _max_forward(points, feats, binds, background, radius: float):
+    """The JAX package's _p2i_max_forward: (out [B, H, W, C], winner ids
+    [B, H, W, C] int64, -1 where the background stays): the lowest point id
+    among those whose value is >= the pixel's max and > its background."""
+    b, h, w, c = background.shape
+    n = b * h * w * c
+    bg = torch.cat([background.reshape(-1), background.new_zeros(1)])
+    out = bg.clone()
+    ch = torch.arange(c, device=points.device)
+    parts = []
+    for sl in _chunks(points.shape[0], radius):
+        slot, _, _, r, valid = _slots(points, binds, radius, b, h, w, sl)
+        wv = _weight(r, radius)[..., None] * feats[sl, None, None, :]
+        idx = torch.where(valid[..., None], slot[..., None] * c + ch, n)
+        out.scatter_reduce_(0, idx.reshape(-1), wv.reshape(-1), reduce="amax",
+                            include_self=True)
+        parts.append((sl, idx.reshape(-1), wv.reshape(-1)))
+    big = torch.iinfo(torch.int64).max
+    ids = torch.full((n + 1,), big, dtype=torch.int64, device=points.device)
+    for sl, idx, wv in parts:
+        win = (wv >= out[idx]) & (wv > bg[idx]) & (idx < n)
+        pid = torch.arange(sl.start, sl.stop, device=points.device)
+        pid = pid.repeat_interleave(idx.numel() // (sl.stop - sl.start))
+        ids.scatter_reduce_(0, torch.where(win, idx, n),
+                            torch.where(win, pid, big), reduce="amin",
+                            include_self=True)
+    ids = torch.where(ids == big, -1, ids)[:n]
+    return out[:n].reshape(b, h, w, c), ids.reshape(b, h, w, c)
+
+
+def _max_backward(points, feats, ids, g, radius: float):
+    """The JAX package's _p2i_max_bwd: (d points [P, 2], d feats [P, C],
+    d background [B, H, W, C])."""
+    b, h, w, c = g.shape
+    p = points.shape[0]
+    dev = g.device
+    won = ids >= 0
+    safe = torch.where(won, ids, 0)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :, None]
+    dy = yy - points[:, 0][safe]
+    dx = xx - points[:, 1][safe]
+    r = sqrt_ieee(dy * dy + dx * dx)
+    gm = g * won
+    sid = torch.where(won, safe, p).reshape(-1)
+    ch = torch.arange(c, device=dev).expand(b, h, w, c).reshape(-1)
+    d_pf = torch.zeros(p + 1, c, dtype=g.dtype, device=dev).index_put_(
+        (sid, ch), (gm * _weight(r, radius)).reshape(-1), accumulate=True)
+    kfac = gm * feats[safe, ch.reshape(b, h, w, c)] * _slope(r, radius)
+    d_pt = torch.zeros(p + 1, 2, dtype=g.dtype, device=dev).index_add_(
+        0, sid, torch.stack([kfac * dy, kfac * dx], -1).reshape(-1, 2))
+    return d_pt[:p], d_pf[:p], torch.where(won, 0.0, g)
+
+
+class _P2iSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, feats, binds, background, radius):
+        ctx.save_for_backward(points, feats, binds)
+        ctx.radius = radius
+        return _sum_forward(points, feats, binds, background, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        points, feats, binds = ctx.saved_tensors
+        d_pt, d_pf = _sum_backward(points, feats, binds, g.contiguous(),
+                                   ctx.radius)
+        return d_pt, d_pf, None, g, None
+
+
+class _P2iMaxBg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, feats, binds, background, radius):
+        out, ids = _max_forward(points, feats, binds, background, radius)
+        ctx.save_for_backward(points, feats, ids)
+        ctx.radius = radius
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        points, feats, ids = ctx.saved_tensors
+        d_pt, d_pf, d_bg = _max_backward(points, feats, ids, g.contiguous(),
+                                         ctx.radius)
+        return d_pt, d_pf, None, d_bg, None
+
+
+def p2i_sum(points, feats, binds, background, radius: float) -> torch.Tensor:
+    """Sum splat over a background: points [P, 2] f32 (y, x) pixels, feats
+    [P, C] f32, binds [P] int32, background [B, H, W, C] f32 -> background +
+    sum of w(r) * f over every pixel within r <= radius of a point;
+    differentiable in points, feats and background (the JAX package's
+    ``p2i_sum`` and its ``_p2i_sum_bwd``). Stock PyTorch ops on either
+    device: the JAX package has no kernel for it, and no shipped path
+    runs it."""
+    _check_general(points, feats, binds, background)
+    return _P2iSum.apply(points, feats, binds, background, float(radius))
+
+
+def p2i_max_bg(points, feats, binds, background, radius: float) -> torch.Tensor:
+    """Max splat over a background (the JAX package's ``p2i_max``, whose
+    name here is the zero-background kernel's): each pixel takes the max of
+    its background and of w(r) * f over the points within r <= radius;
+    differentiable in points, feats and background as ``_p2i_max_bwd``: a
+    pixel's gradient goes to its winner (the lowest point id among values
+    >= the max and > the background), else to the background. Stock
+    PyTorch ops on either device, as ``p2i_sum``."""
+    _check_general(points, feats, binds, background)
+    return _P2iMaxBg.apply(points, feats, binds, background, float(radius))
+
+
+def p2i(points, feats, binds, background, radius: float,
+        kernel_kind_str: str = "cos", reduce: str = "sum") -> torch.Tensor:
+    """The reference wrapper's dispatcher (cuda/p2i_op/__init__.py:99-131)
+    on points already in (y, x) pixels: ``reduce`` "sum" or "max"."""
+    if kernel_kind_str != "cos":
+        raise ValueError(f"p2i: kernel {kernel_kind_str!r}; only 'cos' exists")
+    if reduce == "sum":
+        return p2i_sum(points, feats, binds, background, radius)
+    if reduce == "max":
+        return p2i_max_bg(points, feats, binds, background, radius)
+    raise ValueError(f"Invalid reduce value: {reduce}")

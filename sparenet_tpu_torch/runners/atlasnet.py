@@ -108,4 +108,4 @@ class atlasnetRunner(sparenetRunner):
 
     def _val_impl(self, partial, gt):
         refine = self.val_outputs(partial)
-        return refine, [self.rec(refine, gt)]
+        return refine, None if gt is None else [self.rec(refine, gt)]

@@ -26,7 +26,11 @@ _maybe_autocalibrate_mml). ``runner()`` runs the epochs from
 every TRAIN.log_freq batches) then ``val()``. ``test()`` runs ``val()``
 alone: a ``val_step`` (a subclass's) a batch, the overall and per-category
 meters, the table, and a checkpoint on improvement or every TRAIN.save_freq
-epochs. The runner works on ``device`` (``None``: the card). Training
+epochs; then ``inference`` writes TEST.mode's side outputs. A batch without
+ground truth (KITTI) runs the eval forward alone: it adds nothing to the
+losses, metrics or table, no checkpoint is judged on it, and it counts in
+``n_clouds`` (``summary`` reports the metrics as None when no cloud had
+one). The runner works on ``device`` (``None``: the card). Training
 seconds are split into data (waiting for the loader and the copy to the
 device), step and val in ``train_seconds``; each validation batch's into
 data, forward (the eval forward and the validation losses) and metrics in
@@ -46,6 +50,7 @@ import yaml
 
 from ..configs import AttrDict
 from ..data import data_init
+from ..data.io import IO
 from ..models import resolve_device
 from ..utils import calibration
 from ..utils import checkpoint as ckpt
@@ -115,6 +120,7 @@ class BaseRunner:
         self.seconds = dict.fromkeys(("data", "forward", "metrics"), 0.0)
         self.train_seconds = dict.fromkeys(("data", "step", "val"), 0.0)
         self.batch_metrics: list = []
+        self.n_clouds = self.n_val_batches = 0
         self.epoch_losses: dict = {}
         self.epoch_lr: dict = {}
         self.clouds_trained = 0
@@ -282,6 +288,8 @@ class BaseRunner:
     def val(self):
         self.category_metrics = {}
         self.batch_metrics = []
+        self.n_clouds = 0
+        self.metrics = None
         self.seconds = dict.fromkeys(self.seconds, 0.0)
         self.logger.info("Start validating.")
         self.n_batches = len(self.val_loader)
@@ -297,19 +305,22 @@ class BaseRunner:
             self.taxonomy_id = taxonomy_ids[0]
             self.model_id = model_ids[0]
             t0 = perf_counter()
-            per_sample = self.val_step(items)
+            per_sample = self.val_step(items)      # None without ground truth
             self.val_time.update(perf_counter() - t0)
-            self.batch_metrics.append([float(v) for v in per_sample.mean(1)])
-            self._accumulate_val(taxonomy_ids, per_sample)
+            self.n_clouds += len(taxonomy_ids)
+            if per_sample is not None:
+                self.batch_metrics.append([float(v) for v in per_sample.mean(1)])
+                self._accumulate_val(taxonomy_ids, per_sample)
             if self.model_idx % self.config.TRAIN.log_freq == 0:
                 self.logger.info(
                     "Test[%d/%d] Taxonomy = %s Sample = %s Losses = %s Metrics = %s"
                     % (self.model_idx + 1, self.n_batches, self.taxonomy_id,
                        self.model_id,
                        ["%.4f" % l for l in self.test_losses.val()],
-                       ["%.4f" % m for m in self.metrics]))
+                       ["%.4f" % m for m in self.metrics or []]))
             self.inference(data)
             self.model_idx += 1
+        self.n_val_batches = self.model_idx
         self.metrics = Metrics(self.config.TEST.metric_name,
                                self.test_metrics.avg())
         self.val_finish()
@@ -327,19 +338,62 @@ class BaseRunner:
         ]
 
     def val_finish(self):
+        if not self.test_metrics.count(0):
+            self.logger.info("No cloud of the split has a ground truth: no "
+                             "metrics, no table, no checkpoint.")
+            return
         uv.print_table(self.config, self.epoch_idx, self.test_metrics,
                        self.category_metrics, self.val_writer,
                        self.test_losses)
         self.models_save()
 
     def inference(self, data):
-        """Side outputs per TEST.mode: "default" writes images to the
-        writers, which are no-op writers here."""
-        if self.config.TEST.mode != "default":
-            raise NotImplementedError(
-                f"TEST.mode {self.config.TEST.mode!r}: the plots, depth maps "
-                f"and KITTI outputs are not ported yet (ROADMAP.md, queue 1 "
-                f"item 3)")
+        """Side outputs of TEST.mode for every TEST.infer_freq-th batch, of
+        its first cloud (runners/base_runner.py:256-327): "default" writes
+        nothing (the writers are no-op writers, so the JAX package's
+        TensorBoard images would go nowhere); "vis" a three-view plot of
+        partial, output and ground truth (matplotlib) at DIR.logs/plots/
+        <taxonomy>/<batch>.png; "render" the depth-map PNGs
+        (``utils.visualizer.save_depth_map``); "kitti" the output cloud as
+        DIR.out_path/benchmark/<taxonomy>/<batch>.h5."""
+        cfg = self.config
+        if self.model_idx % cfg.TEST.infer_freq != 0 or self.ptcloud is None:
+            return
+        if cfg.TEST.mode == "default":
+            return
+        if cfg.TEST.mode == "vis":
+            plot_dir = os.path.join(cfg.DIR.logs, "plots", str(self.taxonomy_id))
+            os.makedirs(plot_dir, exist_ok=True)
+            plot_path = os.path.join(plot_dir, "%s.png" % self.model_idx)
+            clouds = [data["partial_cloud"][0], self.ptcloud[0].cpu().numpy()]
+            titles = ["input", "output"]
+            if "gtcloud" in data:
+                clouds.append(data["gtcloud"][0])
+                titles.append("ground truth")
+            title = ("" if self.metrics is None else
+                     "CD %.4f  EMD %.4f F-score %.4f"
+                     % (self.metrics[1], self.metrics[2], self.metrics[0]))
+            uv.plot_pcd_three_views(plot_path, clouds, titles, title,
+                                    [5] + [0.5] * (len(clouds) - 1))
+        elif cfg.TEST.mode == "render":
+            clouds = {k: torch.from_numpy(v).to(self.device)
+                      for k, v in data.items() if k in ("partial_cloud",
+                                                        "gtcloud")}
+            with torch.no_grad():
+                uv.save_depth_map(cfg, self.ptcloud, clouds, self.taxonomy_id,
+                                  self.model_idx)
+        elif cfg.TEST.mode == "kitti":
+            out_dir = os.path.join(cfg.DIR.out_path, "benchmark",
+                                   str(self.taxonomy_id))
+            os.makedirs(out_dir, exist_ok=True)
+            out_path = os.path.join(out_dir, "%s.h5" % self.model_idx)
+            IO.put(out_path, self.ptcloud[0].cpu().numpy())
+            self.logger.info(
+                "Test[%d/%d] Taxonomy = %s Sample = %s File = %s"
+                % (self.model_idx + 1, self.n_batches, self.taxonomy_id,
+                   self.model_idx, out_path))
+        else:
+            raise ValueError(f"unknown TEST.mode {cfg.TEST.mode!r}")
 
     def test(self):
         """Standalone eval (runners/base_runner.py:344-355)."""
@@ -363,12 +417,15 @@ class BaseRunner:
                     mml_fitted=self.mml_fitted)
 
     def summary(self) -> dict:
-        """The split's per-metric means, its clouds, the seconds by part
-        and the mode: the evaluation CLI's last line."""
-        out = dict(zip(Metrics.names(), self.test_metrics.avg()))
-        n = self.test_metrics.count(0)
+        """The split's per-metric means (None where no cloud had a ground
+        truth), its clouds, the seconds by part and the mode: the evaluation
+        CLI's last line."""
+        measured = self.test_metrics.count(0) > 0
+        out = {k: v if measured else None
+               for k, v in zip(Metrics.names(), self.test_metrics.avg())}
+        n = self.n_clouds
         total = sum(self.seconds.values())
-        out.update(n_clouds=n, batches=len(self.batch_metrics),
+        out.update(n_clouds=n, batches=self.n_val_batches,
                    seconds=dict(self.seconds, total=total),
                    clouds_per_s=n / total if total else 0.0, **self.mode())
         return out

@@ -60,5 +60,7 @@ class grnetRunner(atlasnetRunner):
 
     def _val_impl(self, partial, gt):
         sparse, dense = self.val_outputs(partial)
+        if gt is None:
+            return dense, None
         return dense, [chamfer.chamfer_distance(sparse, gt),
                        self.rec(dense, gt)]

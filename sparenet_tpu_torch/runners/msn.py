@@ -51,4 +51,6 @@ class msnRunner(atlasnetRunner):
 
     def _val_impl(self, partial, gt):
         coarse, refine, _ = self.val_outputs(partial)
+        if gt is None:
+            return refine, None
         return refine, [self.rec(coarse, gt), self.rec(refine, gt)]

@@ -22,7 +22,8 @@ the epoch's lr; losses into ``loss`` and the CoarseLoss/RefineLoss meters)
 and its ``val_step``: the eval forward (serving mode with a dial), the
 validation losses of coarse and refine (Chamfer or EMD by NETWORK.metric, as
 ``_val_impl``) and ``utils.metrics.compute_all`` at TEST.emd_eps /
-emd_iters, in fp32 in either mode.
+emd_iters, in fp32 in either mode; a batch without ground truth runs the
+forward alone.
 """
 
 from __future__ import annotations
@@ -191,26 +192,35 @@ class sparenetRunner(BaseRunner):
         return reconstruction(pred, gt, metric)
 
     def _val_impl(self, partial, gt):
-        """(refine, the validation losses: coarse and refine) of one
-        batch."""
+        """(refine, the validation losses: coarse and refine, or None
+        without ``gt``) of one batch."""
         coarse, _, refine, _ = complete(self.model, partial)
+        if gt is None:
+            return refine, None
         return refine, [self.rec(coarse, gt), self.rec(refine, gt)]
 
     @torch.no_grad()
     def val_step(self, items):
+        """The batch's metrics [3, B]; without a ground truth (KITTI) the
+        eval forward alone, and None."""
         _, _, _, data = items
         dev = self.device
         t0 = perf_counter()
         partial = torch.from_numpy(data["partial_cloud"]).to(dev)
-        gt = torch.from_numpy(data["gtcloud"]).to(dev)
+        gt = data.get("gtcloud")
+        gt = None if gt is None else torch.from_numpy(gt).to(dev)
         _sync(dev)
         t1 = perf_counter()
         refine, losses = self._val_impl(partial, gt)
-        self.test_losses.update([float(v) * 1000 for v in losses])
+        if losses is not None:
+            self.test_losses.update([float(v) * 1000 for v in losses])
+        else:                       # no loss read waits for the forward
+            _sync(dev)
         t2 = perf_counter()
         self.ptcloud = refine
-        vals = compute_all(refine, gt, eps=float(self.config.TEST.emd_eps),
-                           iters=int(self.config.TEST.emd_iters))
+        vals = None if gt is None else compute_all(
+            refine, gt, eps=float(self.config.TEST.emd_eps),
+            iters=int(self.config.TEST.emd_iters))
         t3 = perf_counter()
         self.seconds["data"] += t1 - t0
         self.seconds["forward"] += t2 - t1

@@ -3,7 +3,8 @@ the JAX package).
 
     python -m sparenet_tpu_torch.test --weights CKPT
         [--model sparenet|msn|atlasnet|grnet] [--config YAML]
-        [--dataset Synthetic] [--workdir DIR] [--device cpu]
+        [--dataset NAME] [--test_mode {default,vis,render,kitti}]
+        [--workdir DIR] [--device cpu]
         [--serving [--mds {auto,exact,batched,hybrid}] [--mds-g G]
          [--mds-schedule S1,S2,...] [--mds-tail T]
          [--mds-select {sort,bisect,topk,pack16}]]
@@ -30,11 +31,20 @@ and the kernel launches and plain-version calls by op of the load (the mml
 fit) and the evaluation (on the card every op launches its kernel; on the
 CPU each runs its plain version). ``build(argv)`` gives the loaded runner
 and ``run(runner)`` that line, for callers in process.
-SpareNet (with or without ``--gan``), MSN, AtlasNet and GRNet, and
-TEST.mode "default", are ported. MSN's and AtlasNet's grids and GRNet's
-sample are seeded by the batch's index, as the JAX package seeds
-PRNGKey(model_idx). GRNet has no serving mode: ``--serving`` evaluates it
-in its one mode.
+SpareNet (with or without ``--gan``), MSN, AtlasNet and GRNet are ported.
+MSN's and AtlasNet's grids and GRNet's sample are seeded by the batch's
+index, as the JAX package seeds PRNGKey(model_idx). GRNet has no serving
+mode: ``--serving`` evaluates it in its one mode.
+
+``--dataset`` sets DATASET.train_dataset and test_dataset (ShapeNet,
+ShapeNetCars, Completion3D, KITTI or Synthetic; the file datasets read the
+paths of DATASETS.* in the config). ``--test_mode`` writes side outputs of
+every TEST.infer_freq-th batch's first cloud (``runners.base.BaseRunner.
+inference``): "vis" three-view plots (needs matplotlib, checked here before
+anything is built), "render" depth-map PNGs (the renderer, p2i #9 on the
+card), "kitti" the completed clouds as .h5 (it sets DATASET.test_dataset to
+KITTI, whose clouds have no ground truth: the metrics of the last line are
+then null).
 """
 
 from __future__ import annotations
@@ -116,10 +126,9 @@ def build(argv=None):
 
     runner_cls = runner_class(MODELS[args.model], args.gan)
     dial = serving_dial(args)
-    if args.test_mode != "default":
-        raise NotImplementedError(
-            f"--test_mode {args.test_mode}: the plots, depth maps and KITTI "
-            f"outputs are not ported yet (ROADMAP.md, queue 1 item 3)")
+    if args.test_mode == "vis":
+        from .utils.visualizer import require_matplotlib
+        require_matplotlib("--test_mode vis (its three-view plots)")
     yaml_path = args.config or shipped_yaml(args.model, args.gan)
     cfg = cfg_from_file(yaml_path)
     cfg_update(cfg, weights=args.weights, workdir=args.workdir)
@@ -127,6 +136,8 @@ def build(argv=None):
     if args.dataset:
         cfg.DATASET.train_dataset = args.dataset
         cfg.DATASET.test_dataset = args.dataset
+    if args.test_mode == "kitti":
+        cfg.DATASET.test_dataset = "KITTI"
 
     logger = set_logger(os.path.join(cfg.DIR.logs, "log.txt"))
     return runner_cls(cfg, logger, device=args.device, dial=dial)

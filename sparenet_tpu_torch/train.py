@@ -3,7 +3,7 @@ the JAX package).
 
     python -m sparenet_tpu_torch.train [--model sparenet|msn|atlasnet|grnet]
         [--gan] [--config YAML] [--weights CKPT] [--workdir DIR]
-        [--dataset Synthetic]
+        [--dataset NAME]
         [--epochs N] [--batch-size B] [--device cpu]
         [--serving [--mds ...] [--mds-g G] [--mds-schedule S1,...]
          [--mds-tail T] [--mds-select ...]]
@@ -59,7 +59,8 @@ def get_args_from_command_line(argv=None):
                         help="torch device (default: the card)")
     parser.add_argument("--workdir", type=str, default=None)
     parser.add_argument("--dataset", type=str, default=None,
-                        help="DATASET.{train,test}_dataset (e.g. Synthetic)")
+                        help="DATASET.{train,test}_dataset: ShapeNet, "
+                             "ShapeNetCars, Completion3D, KITTI or Synthetic")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=None)
     add_serving_args(parser)

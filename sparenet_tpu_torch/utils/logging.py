@@ -1,9 +1,10 @@
 """Logger and summary writers (the port's copy of
 sparenet_tpu/utils/logging.py; reference: utils/misc.py:39-51, 112-130).
 
-``writer_init`` gives no-op writers: the TensorBoard dumps (scalars and the
-point-cloud images of ``TEST.mode`` "default") wait for the visualizer's
-plots (ROADMAP.md, queue 1 item 3).
+``writer_init`` gives no-op writers: the port writes no TensorBoard files,
+so the scalars and the point-cloud images that ``TEST.mode`` "default"
+draws in the JAX package are not made (``utils/visualizer.py:
+tensorboard_save_image`` draws them for a writer that is given one).
 """
 
 from __future__ import annotations

@@ -112,17 +112,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(toy, tmp_path, monkeypatch):
                   "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("args,err,match", [
-    (["--test_mode", "render"], NotImplementedError, "queue 1 item 3"),
-    (["--test_mode", "vis"], NotImplementedError, "queue 1 item 3"),
-    (["--dataset", "ShapeNet"], NotImplementedError, "queue 1 item 3"),
-])
-def test_cli_names_what_is_not_ported(toy, tmp_path, args, err, match):
-    with pytest.raises(err, match=match):
-        cli.main(["--weights", toy["weights"], "--config", toy["yaml"],
-                  "--workdir", str(tmp_path), "--device", "cpu"] + args)
-
-
 MSN_YAML = """\
 DATASET: {train_dataset: Synthetic, test_dataset: Synthetic, n_outpoints: 128}
 CONST: {num_workers: 2, n_input_points: 64}
