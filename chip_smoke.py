@@ -308,7 +308,39 @@ Phases, each printing a flushed line with its elapsed seconds:
      clouds read back through data/h5.py equal a direct eval forward on the
      same pose-normalised partials), ``vis`` in a subprocess (without
      matplotlib it exits non-zero before building anything, naming it;
-     with it, it writes its plots).
+     with it, it writes its plots);
+ 36. FPD on the card: the canonical classifier (sparenet_tpu_torch/data/
+     fpd_cls_canonical.npz) on 4 seeded clouds of 16384 points, its 1808-d
+     activations against the JAX package's on the CPU (docs/artifacts/port/
+     jax_arms_fpd_witness.npz, scripts/port_jax_arms_fpd_witness.py; atol
+     3e-6, rtol 1e-4), and calculate_fpd of two seeded sets of 60 clouds of
+     2048 points within 1e-3 relative of the JAX package's; then the FPD CLI
+     (``python -m sparenet_tpu_torch.test_fpd``) in two processes side by
+     side, fake and null against real, on three trees the phase writes,
+     keyed to the first 50 models of each category of fpd_test.list at
+     16384 points: every FPD finite, fake above null; seconds by part;
+ 37. SpareNet's other arms at full width (sparenet.yaml: 16384 points, 32
+     primitives, bottleneck and hide 4096, SE on), (a) encode=Pointfeat with
+     use_adain=no_share and (b) encode=Residualnet with use_adain=no_use,
+     seeded with jittered BatchNorm statistics: each tensor's sha256 (on a
+     stride) against the witness's; at B=2 a forward's launches, coarse
+     against the witness (b's also with plain ops on the witness's encoder
+     graphs, the slots its graphs differ in counted), loss_mst, both refine
+     passes' MDS against the witness's picks and the refine anchored on the
+     witness's cloud and picks, free-running by Chamfer; B=32 forwards with
+     peak memory; one training step of each at B=4 against a plain step
+     replaying its kNN graphs, MDS picks and auction assignments, both
+     deterministic; the
+     flagship step at B=24 with and without TPU.remat, twice each in
+     deterministic mode: bit for bit, each step's time, peak and launches
+     (remat: #1 and #7f twice in the encoder);
+ 38. EdgeRes and SIREN: one EdgeRes refine pass (16384 points, B=2) on the
+     witness's coarse cloud and picks, #1 at each of its seven shapes (C =
+     4, 64, 128, 1088, 512, 256, 128) against its plain version, timed; the
+     pass with plain ops on the kernel's graphs elementwise, and against the
+     witness by Chamfer (each on its own graphs); a flagship forward with
+     EdgeRes (#1 18 times) and one training step at B=2 against a plain
+     step; the SIREN decoder against the witness.
 Deterministic mode is torch.use_deterministic_algorithms(True) as a user sets
 it, with no warn_only: an op with no deterministic form fails the phase. The
 script sets CUBLAS_WORKSPACE_CONFIG=:4096:8 before cuBLAS starts, which that
@@ -318,7 +350,8 @@ line two runs are compared by), one JSON line of per-kernel numbers (every
 TPU kernel of the JAX package, the packed kNN arm and the p2i backward, each
 with its launches a step and a serving eval batch as the CLIs run them, and
 on the file datasets' paths: a ShapeNet step and eval batch, a rendered
-batch's side outputs, a KITTI cloud), the card's name
+batch's side outputs, a KITTI cloud; on SpareNet's other arms, EdgeRes and
+the rematted step; #1's times on EdgeRes's pass), the card's name
 and power limit, and {"ok": true, "device": {...}} as the last line. Any failed
 phase exits non-zero without that line. No CUDA device: exit 2.
 """
@@ -330,6 +363,7 @@ import copy
 import gc
 import hashlib
 import json
+import lzma
 import math
 import os
 import re
@@ -366,12 +400,13 @@ from sparenet_tpu_torch.ops import (edge_gather, emd, expansion_penalty,
                                     gather, knn, mds)
 from sparenet_tpu_torch.ops import cubic_feature_sampling as cubic_op
 from sparenet_tpu_torch.ops import gridding as gridding_op
-from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph,
-                                           pairwise_sqdist_graph_seq,
+from sparenet_tpu_torch.ops.common import (pairwise_sqdist_graph_seq,
                                            pairwise_sqdist_serving,
                                            slice_plan, sqdist3)
 from sparenet_tpu_torch.models import grnet as grnet_model
-from sparenet_tpu_torch.models.sparenet import flagged_base
+from sparenet_tpu_torch.models.layers import (GridDecoderStack, grid_generation,
+                                             init_weights, num_adain_params)
+from sparenet_tpu_torch.models.sparenet import SpareNetRefine, flagged_base
 from sparenet_tpu_torch.runners import atlasnet as atlas_runner
 from sparenet_tpu_torch.runners import base as train_base
 from sparenet_tpu_torch.runners import grnet as grnet_runner
@@ -609,22 +644,66 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # (ok, max_abs_err, message)
 # ---------------------------------------------------------------------------
 
+def slot_sqdist_high(x, idx, chunk: int = 1024):
+    """For the slots idx [B, N, k] of x [B, N, C], the distance both kNN
+    versions round, evaluated exactly in float64: |x|^2 + |y|^2 - 2 (xh.yh
+    + xh.yl + xl.yh), the reference's HIGH-precision split (xh = bf16(x),
+    xl = bf16(x - xh)), written as |x - y|^2 from differences plus the
+    split's error 2 sum(xh (yr - yl) + (xr - xl) yh + xr yr), xr = x - xh,
+    so that nothing cancels. [B, N, k], ``chunk`` queries at a time."""
+    xh = x.to(torch.bfloat16).float()
+    xr = x - xh
+    xl = xr.to(torch.bfloat16).float()
+    xd, xhd, xrd, xld = (t.double() for t in (x, xh, xr, xl))
+    out = []
+    for s in range(0, x.shape[1], chunk):
+        i = idx[:, s:s + chunk]
+        q = slice(s, s + chunk)
+        y, yh, yr, yl = (gather.gather_rows(t, i) for t in (xd, xhd, xrd, xld))
+        diff = (y - xd[:, q, None]).square().sum(-1)
+        err = (xhd[:, q, None] * (yr - yl) + (xrd - xld)[:, q, None] * yh
+               + xrd[:, q, None] * yr).sum(-1)
+        out.append((diff + 2.0 * err).clamp_min(0.0))
+    return torch.cat(out, 1)
+
+
 def compare_knn(x, got, want):
-    """Index mismatches are acceptable only at near-ties: a distance gap
-    within 1e-5 of |x|^2 + |y|^2 (the two sum the same terms in another
-    order)."""
+    """Index mismatches are acceptable only at near-ties: each query's k
+    distances (``slot_sqdist_high``: the split distance both versions
+    round, exact) sorted, for the two graphs slot by slot, within 1e-5 of
+    |x|^2 + max |y|^2 over the row, an envelope of the f32 rounding of that
+    distance in two summation orders. Sorted, a near-tie that moves one
+    neighbour up compares no rank with the next.
+    Where |x|^2 dwarfs the distances (EdgeRes's 1088-wide stage) the
+    envelope spans several neighbour ranks: there the kernel is held to its
+    own ranking bit for bit (``compare_knn_model``)."""
     got, want = got.long(), want.long()
-    d = pairwise_sqdist_graph(x, x)
-    gap = (d.gather(2, got) - d.gather(2, want)).abs()
-    x2 = (x * x).sum(-1)
+    gap = (slot_sqdist_high(x, got).sort(-1).values
+           - slot_sqdist_high(x, want).sort(-1).values).abs()
+    x2 = x.double().square().sum(-1)
     b = x.shape[0]
-    scale = x2[:, :, None] + x2.gather(1, want.reshape(b, -1)).reshape(want.shape)
+
+    def far(idx):
+        return x2.gather(1, idx.reshape(b, -1)).reshape(idx.shape).amax(-1)
+    scale = x2 + torch.maximum(far(got), far(want))
     mism = got != want
-    n_far = int((mism & (gap > 1e-5 * scale)).sum())
+    n_far = int((gap > 1e-5 * scale[..., None]).sum())
     err = float(gap.max())
     return (n_far == 0, err,
             f"{int(mism.sum())} index mismatches of {got.numel()}, {n_far} "
-            f"beyond the near-tie envelope; max distance gap {err:.3e}")
+            f"sorted distances beyond the near-tie envelope; max gap "
+            f"{err:.3e}")
+
+
+def compare_knn_model(got, rows, model):
+    """The kernel's graph got [B, N, k] at the query rows ``rows`` against
+    its own ranking there (``knn.knn_seq_rows``): bit for bit."""
+    g = got[:, rows].long()
+    bad = g != model[..., :got.shape[2]]
+    return (not bool(bad.any()), int(bad.sum()),
+            f"{int(bad.any(-1).sum())} of {bad.shape[0] * bad.shape[1]} "
+            f"sampled queries off the kernel's own ranking ({int(bad.sum())} "
+            f"slots)")
 
 
 def nan_equal(a, b) -> bool:
@@ -4838,7 +4917,665 @@ def main_test_modes(files: dict, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# FPD, SpareNet's other arms, EdgeRes and SIREN (phases 36-38)
+# ---------------------------------------------------------------------------
+
+# scripts/port_jax_arms_fpd_witness.py: the JAX package's outputs on the
+# CPU from the weights and inputs the helpers below build
+ARMS_WITNESS = os.path.join(ROOT, "docs", "artifacts", "port",
+                            "jax_arms_fpd_witness.npz")
+
+
+def save_witness(path: str, arrays: dict) -> None:
+    """An npz of each array's bytes compressed by lzma, beside a manifest
+    of dtypes and shapes (the witness's clouds and kNN graphs take about
+    30% less than under savez_compressed)."""
+    blobs = {k: np.frombuffer(lzma.compress(
+        np.ascontiguousarray(v).tobytes(), preset=9 | lzma.PRESET_EXTREME),
+        np.uint8) for k, v in arrays.items()}
+    manifest = {k: [np.asarray(v).dtype.str, list(np.shape(v))]
+                for k, v in arrays.items()}
+    np.savez(path, _manifest=np.array(json.dumps(manifest)), **blobs)
+
+
+def load_witness(path: str) -> dict:
+    """The arrays ``save_witness`` wrote, by name."""
+    with np.load(path) as f:
+        manifest = json.loads(str(f["_manifest"]))
+        return {k: np.frombuffer(lzma.decompress(f[k].tobytes()),
+                                 np.dtype(dt)).reshape(shape).copy()
+                for k, (dt, shape) in manifest.items()}
+ARMS = {"a": dict(encode="Pointfeat", use_adain="no_share"),
+        "b": dict(encode="Residualnet", use_adain="no_use")}
+# a forward's and a training step's launches of each arm (the step's bids
+# depend on the auction's rounds: counted, not fixed)
+ARMS_FORWARD = {"a": {"expansion": 2, "mds": 2},
+                "b": {"knn": 4, "gather_max": 4, "expansion": 2, "mds": 2}}
+ARMS_STEP_OPS = {"a": ("expansion", "mds", "nn_idx", "emd_bids"),
+                 "b": TRAIN_EXPECTED}
+# gradients exactly 0 in exact arithmetic: biases ahead of a normalisation
+# (train BatchNorm, or AdaIN in no_share's decoders) and the BatchNorm
+# biases before a max whose shift the next train BatchNorm removes
+ARMS_ZERO_GRAD = {
+    "a": ({"encoder.linear.bias", "encoder.feat_extractor.bn3.bias",
+           "refine.residual.bn3.bias"}
+          | {f"encoder.feat_extractor.conv{i}.bias" for i in (1, 2, 3)}
+          | {f"decoder.decoder.conv{i}.bias" for i in (1, 2, 3)}
+          | {f"refine.residual.conv{i}.bias" for i in range(1, 7)}),
+    "b": ({"encoder.linear.bias", "refine.residual.bn3.bias"}
+          | {f"decoder.decoder.conv{i}.bias" for i in (1, 2, 3)}
+          | {f"refine.residual.conv{i}.bias" for i in range(1, 7)})}
+SIREN_WIDTH = 1026                       # the decoders' bottleneck
+FPD_SEED, FPD_CLOUDS, FPD_SET, FPD_SET_POINTS = WITNESS_SEED + 36, 4, 60, 2048
+FPD_BATCH = 30                           # the FPD CLI's default batch
+FPD_PER_CATEGORY = 50                    # models a category the CLI phase scores
+FPD_CLI_TIMEOUT_S = 300
+FPD_CLI_ARGS: list = []                  # further CLI flags (a CPU rehearsal's)
+SESSIONS: set = set()                    # child sessions killed at the time limit
+
+
+def arms_config(arm: str, remat: bool = False):
+    """The port's sparenet.yaml (16384 points, 32 primitives, SE on) with
+    the arm's encoder and decoder, and TPU.remat."""
+    cfg = family_config("sparenet")
+    cfg.NETWORK.encode = ARMS[arm]["encode"]
+    cfg.NETWORK.use_adain = ARMS[arm]["use_adain"]
+    cfg.TPU.remat = remat
+    return cfg
+
+
+def arms_model(arm: str, dev):
+    """The arm at full width (``define_G``: bottleneck and hide 4096),
+    initialised on the CPU from WITNESS_SEED with jittered BatchNorm
+    statistics, on ``dev`` in eval mode."""
+    model = define_G(arms_config(arm), seed=WITNESS_SEED, device="cpu")
+    jitter_bn_stats(model, torch.Generator().manual_seed(WITNESS_SEED + 1))
+    return model.to(dev).eval()
+
+
+def edgeres_refine(dev):
+    """SpareNetRefine with EdgeRes at full width (16384 points, 32
+    primitives, SE on), initialised on the CPU from WITNESS_SEED + 2 with
+    jittered BatchNorm statistics."""
+    refine = SpareNetRefine(N_OUT, N_PRIMS, use_selayer=True, edgeres=True)
+    init_weights(refine, torch.Generator().manual_seed(WITNESS_SEED + 2))
+    jitter_bn_stats(refine, torch.Generator().manual_seed(WITNESS_SEED + 3))
+    return refine.to(dev).eval()
+
+
+def siren_decoder(dev):
+    """One SIREN GridDecoder at the decoders' width (1026), initialised on
+    the CPU from WITNESS_SEED + 4 (the SineLayer bounds)."""
+    dec = GridDecoderStack(1, SIREN_WIDTH, use_sine=True)
+    init_weights(dec, torch.Generator().manual_seed(WITNESS_SEED + 4))
+    return dec.to(dev).eval()
+
+
+def siren_inputs():
+    """The folding grid [512, 2] and numpy-seeded AdaIN parameters [B,
+    7692] (seven sizes, the last three unused), 1 + 0.5 normal."""
+    grid = ((grid_generation(N_OUT, N_PRIMS) - 0.5) * 2.0).astype(np.float32)
+    rs = np.random.RandomState(WITNESS_SEED + 5)
+    ap = 1.0 + 0.5 * rs.randn(WITNESS_B, num_adain_params(SIREN_WIDTH, True))
+    return grid, ap.astype(np.float32)
+
+
+def fpd_clouds():
+    """numpy-seeded clouds for the FPD checks: FPD_CLOUDS clouds of 16384
+    uniform points, and two sets of FPD_SET Synthetic surfaces of 2048
+    points (one shape a cloud, in turn), the second with 0.02 noise."""
+    rs = np.random.RandomState(FPD_SEED)
+    one = (rs.rand(FPD_CLOUDS, N_OUT, 3) - 0.5).astype(np.float32)
+    sets = []
+    for noise in (0.0, 0.02):
+        clouds = [_surface_points(_SYNTH_SHAPES[i % len(_SYNTH_SHAPES)],
+                                  FPD_SET_POINTS, rs) for i in range(FPD_SET)]
+        c = np.stack(clouds).astype(np.float32)
+        sets.append((c + noise * rs.randn(*c.shape)).astype(np.float32))
+    return one, sets[0], sets[1]
+
+
+def state_checksums(module) -> dict:
+    """sha256 (first 16 hex digits) of each tensor of the module's own
+    state_dict, hashed on a stride that keeps at most 2^20 elements (the
+    no_share decoders hold 1.03 billion parameters)."""
+    out = {}
+    for k, v in sorted(module.state_dict().items()):
+        flat = v.detach().cpu().reshape(-1)
+        step = max(1, flat.numel() >> 20)
+        out[k] = hashlib.sha256(flat[::step].contiguous().numpy().tobytes()
+                                ).hexdigest()[:16]
+    return out
+
+
+def same_weights(what: str, module, want: dict) -> bool:
+    sums = state_checksums(module)
+    bad = [k for k in want if sums.get(k) != want[k]]
+    if bad or sums.keys() != want.keys():
+        fail(f"{what}: {len(bad)} of {len(want)} tensors differ from the "
+             f"witness's (e.g. {bad[:3]}): this torch ({torch.__version__}) "
+             f"draws other numbers from the seed, so the witness does not "
+             f"apply")
+        return False
+    log(f"  {what}: {sum(p.numel() for p in module.parameters())} parameters;"
+        f" its {len(sums)} tensors equal the witness's by sha256")
+    return True
+
+
+def fpd_tree(root: str) -> str:
+    """Three .pcd trees of 16384-point clouds keyed to the first
+    FPD_PER_CATEGORY models of each category of the port's fpd_test.list
+    (docs/FPD_ARTIFACT.md's protocol): real/complete = a clean Synthetic
+    surface of the category's shape, fake = the same with 0.02 noise and a
+    quarter of its points duplicated, null = an independent clean sample.
+    Returns the list's path."""
+    from sparenet_tpu_torch import test_fpd as fpd_cli
+    with open(fpd_cli.FPD_LIST) as f:
+        models = f.read().splitlines()
+    keep = [m for tax in fpd_cli.TAXONOMY2LABEL
+            for m in [x for x in models if x.startswith(tax)][:FPD_PER_CATEGORY]]
+    for i, model_id in enumerate(keep):
+        label = fpd_cli.TAXONOMY2LABEL[model_id.split("/")[0]]
+        rs = np.random.RandomState(77_000 + i)
+        real = _surface_points(_SYNTH_SHAPES[label], N_OUT, rs)
+        fake = real + rs.randn(N_OUT, 3).astype(np.float32) * 0.02
+        dup = rs.permutation(N_OUT)[:N_OUT // 4]
+        fake[dup] = fake[rs.permutation(N_OUT)[:N_OUT // 4]]
+        null = _surface_points(_SYNTH_SHAPES[label], N_OUT, rs)
+        for sub, cloud in (("real/complete", real), ("fake", fake),
+                           ("null", null)):
+            path = os.path.join(root, sub, f"{model_id}.pcd")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            IO.put(path, cloud.astype(np.float32))
+    lst = os.path.join(root, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(keep))
+    return lst
+
+
+def main_fpd(dev) -> None:
+    """Phase 36: the canonical classifier's activations and an FPD against
+    the witness, then the FPD CLI twice (fake and null against real) in two
+    processes side by side."""
+    from sparenet_tpu_torch import frechet
+    from sparenet_tpu_torch.frechet import fpd as fpd_mod
+    release_memory("FPD")
+    if not os.path.exists(ARMS_WITNESS):
+        fail(f"{ARMS_WITNESS} is missing (scripts/port_jax_arms_fpd_witness.py)")
+        return
+    w = load_witness(ARMS_WITNESS)
+    one, s1, s2 = fpd_clouds()
+    t = time.perf_counter()
+    model = fpd_mod.load_classifier(device=dev)
+    act = frechet.get_activations(one, model, batch_size=FPD_CLOUDS)
+    hold(f"the canonical classifier's activations, {FPD_CLOUDS} clouds of "
+         f"{N_OUT} points", torch.from_numpy(act), w["fpd_actv"])
+    t1 = time.perf_counter()
+    value = frechet.calculate_fpd(s1, s2, model, batch_size=FPD_BATCH)
+    gap = abs(value / float(w["fpd_value"]) - 1)
+    log(f"  FPD of two sets of {FPD_SET} clouds of {FPD_SET_POINTS} points: "
+        f"{value!r} against the witness's {float(w['fpd_value'])!r}, relative "
+        f"gap {gap:.3e} (limit 1e-3); activations {t1 - t:.2f} s, the FPD "
+        f"{time.perf_counter() - t1:.2f} s (one sqrtm of 1808 x 1808 on the "
+        f"host)")
+    if not gap <= 1e-3:
+        fail(f"FPD {value} differs from the witness's {float(w['fpd_value'])}")
+    del model
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="fpd_cli_")
+    try:
+        t = time.perf_counter()
+        lst = fpd_tree(work)
+        log(f"  wrote 3 trees of {8 * FPD_PER_CATEGORY} clouds of {N_OUT} "
+            f"points ({FPD_PER_CATEGORY} a category of fpd_test.list) in "
+            f"{time.perf_counter() - t:.1f} s")
+        procs, lines = {}, {}
+        t = time.perf_counter()
+        for tag in ("fake", "null"):
+            cmd = [sys.executable, "-m", "sparenet_tpu_torch.test_fpd",
+                   "--data_dir", os.path.join(work, "real"),
+                   "--fake_dir", os.path.join(work, tag), "--list_path", lst,
+                   "--num_points", str(N_OUT), "--batch_size", str(FPD_BATCH),
+                   "--jobs", "4", "--log_dir", os.path.join(work, f"log_{tag}"),
+                   *FPD_CLI_ARGS]
+            out = open(os.path.join(work, f"{tag}.out"), "w")
+            # a session of its own: a timeout kills its sqrtm workers too
+            procs[tag] = (subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                           stderr=subprocess.STDOUT,
+                                           start_new_session=True), out)
+            SESSIONS.add(procs[tag][0].pid)
+        for tag, (proc, out) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, FPD_CLI_TIMEOUT_S - (
+                    time.perf_counter() - t)))
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                rc = proc.wait()
+            SESSIONS.discard(proc.pid)
+            out.close()
+            with open(out.name) as f:
+                text = f.read().strip().splitlines()
+            try:
+                lines[tag] = json.loads(text[-1]) if rc == 0 else None
+            except (ValueError, IndexError):
+                lines[tag] = None
+            if lines[tag] is None:
+                fail(f"the FPD CLI ({tag} against real) exited {rc}: "
+                     f"{text[-5:]}")
+        wall = time.perf_counter() - t
+        for tag, line in lines.items():
+            if line is None:
+                continue
+            log(f"  FPD CLI, {tag} against real ({line['n_models']} models): "
+                f"overall {line['fpd_all']!r}, category mean "
+                f"{line['fpd_category_mean']!r}, per category "
+                + json.dumps({k: round(v, 6) for k, v in
+                              line["fpd_per_category"].items()})
+                + "; seconds by part " + json.dumps(
+                    {k: round(v, 2) for k, v in line["seconds"].items()}))
+            PATHS[f"fpd_cli_{tag}"] = dict(
+                all=line["fpd_all"], mean=line["fpd_category_mean"],
+                per_category=line["fpd_per_category"], seconds=line["seconds"])
+        log(f"  the two CLIs side by side: {wall:.1f} s of wall time")
+        PATHS["fpd_cli_wall_s"] = wall
+        if all(lines.values()):
+            ok = all(math.isfinite(v) for line in lines.values() for v in
+                     [line["fpd_all"], *line["fpd_per_category"].values()])
+            if not ok or not lines["fake"]["fpd_all"] > lines["null"]["fpd_all"]:
+                fail("the FPD CLI's fake set does not score above the null set "
+                     "(or a value is not finite)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def replay_graphs(graphs):
+    """A kNN returning the witness's graphs in call order."""
+    it = iter(graphs)
+
+    def knn_replay(x, k=8, packed=False):
+        return torch.from_numpy(np.asarray(next(it), np.int32)).to(x.device)
+    return knn_replay
+
+
+def knn_slots_off(calls, graphs, as_sets: bool = False) -> list:
+    """For each recorded kNN call, the slots whose index differs from the
+    graph's (``as_sets``: both sorted in each row)."""
+    off = []
+    for c, g in zip(calls, graphs):
+        got = c[2].cpu().long()
+        if as_sets:
+            got = got.sort(-1).values
+        off.append(int((got != torch.from_numpy(g.astype(np.int64))).sum()))
+    return off
+
+
+def arm_step(model, partial, gt):
+    """One training step of a copy of ``model`` with a new Adam: (losses,
+    gradients by name)."""
+    m = copy.deepcopy(model)
+    return run_step(m, train_base.make_optimizer(m, train_runner.CONFIG),
+                    partial, gt)
+
+
+def main_arms(dev) -> dict:
+    """Phase 37; returns the launches of each arm's forward and step and of
+    the rematted flagship step."""
+    out: dict = {}
+    if not os.path.exists(ARMS_WITNESS):
+        fail(f"{ARMS_WITNESS} is missing (scripts/port_jax_arms_fpd_witness.py)")
+        return out
+    w = load_witness(ARMS_WITNESS)
+    partial_np, _ = witness_inputs()
+    partial = torch.from_numpy(partial_np).to(dev)
+    gen = torch.Generator().manual_seed(37)
+    partial32 = (torch.rand(B_BENCH, N_INPUT_POINTS, 3, generator=gen)
+                 - 0.5).to(dev)
+    step_in = [t.to(dev) for t in train_batch(gen, B_CHECK)]
+    with torch.no_grad():
+        for arm in ARMS:
+            release_memory(f"arm ({arm}) {ARMS[arm]}")
+            t = time.perf_counter()
+            model = arms_model(arm, dev)
+            log(f"  arm ({arm}): built on the CPU and moved in "
+                f"{time.perf_counter() - t:.1f} s")
+            if not same_weights(f"arm ({arm})", model,
+                                json.loads(str(w[f"{arm}_checksums"]))):
+                continue
+            calls: dict = {}
+            with swapped(**recording(calls)):
+                res, launches, plain = launch_counts(
+                    lambda: complete(model, partial))
+            check_launches(f"arm ({arm}) forward, B={WITNESS_B}", launches,
+                           plain, ARMS_FORWARD[arm])
+            out[f"{arm}_forward"] = launches
+            coarse, _, refine, loss_mst = res
+            if arm == "b":
+                graphs = w["b_graphs"]
+                off = knn_slots_off(calls["knn"], graphs)
+                log(f"  arm (b): the kernel's encoder graphs against the JAX "
+                    f"package's: slots that differ per stage {off} of "
+                    f"{graphs[0].size} (near-ties the two round apart)")
+                with swapped(**dict(PLAIN, knn=replay_graphs(graphs))):
+                    anchored = model.coarse_cloud(partial)
+                hold("arm (b) coarse, plain ops on the witness's graphs",
+                     anchored, w["b_coarse"])
+                if sum(off):
+                    gap = float((coarse.cpu() - torch.from_numpy(
+                        w["b_coarse"])).abs().max())
+                    log(f"  arm (b) coarse free-running: max abs gap {gap:.3e}"
+                        f", Chamfer {chamfer(coarse, torch.from_numpy(w['b_coarse']).to(dev)):.3e}")
+                else:
+                    hold("arm (b) coarse against the witness", coarse,
+                         w["b_coarse"])
+            else:
+                hold(f"arm ({arm}) coarse against the witness", coarse,
+                     w[f"{arm}_coarse"])
+            jc = torch.from_numpy(w[f"{arm}_coarse"]).to(dev)
+            dist, _, mml = expansion_penalty.expansion_penalty(jc, PRIM_S, 1.5)
+            hold(f"arm ({arm}) loss_mst on the witness's coarse cloud",
+                 dist.mean(), w[f"{arm}_loss_mst"], atol=0.0)
+            # both refine passes anchored on the witness's coarse cloud and
+            # picks; the middle cloud between them is the port's own
+            mid = jc
+            for p in (1, 2):
+                base = flagged_base(mid, partial)
+                if p == 2:
+                    _, _, mml = expansion_penalty.expansion_penalty(
+                        mid, PRIM_S, 1.5)
+                w_idx = torch.from_numpy(w[f"{arm}_idx{p}"].astype(np.int32)).to(dev)
+                idx = mds.minimum_density_sample(base[..., :3].contiguous(),
+                                                 N_OUT, mml)
+                ok, _, msg = compare_mds(base[..., :3], mml, idx, w_idx)
+                log(f"  arm ({arm}) refine pass {p}: MDS (#4) on the "
+                    f"{'witness' if p == 1 else 'anchored middle'} cloud "
+                    f"against the JAX package's picks: {msg}")
+                if not ok:
+                    fail(f"arm ({arm}) pass {p}: MDS picks part from the JAX "
+                         f"package's at a step that is no near-tie")
+                mid = model.refine.finish(base, w_idx)
+            hold(f"arm ({arm}) refine anchored on the witness's coarse cloud "
+                 f"and both passes' picks", mid, w[f"{arm}_refine"])
+            cd = chamfer(refine, torch.from_numpy(w[f"{arm}_refine"]).to(dev))
+            log(f"  arm ({arm}) refine free-running: Chamfer {cd:.3e} against "
+                f"the witness (limit {CONTRACT_CHAMFER:g}); loss_mst "
+                f"{float(loss_mst)!r} against {float(w[f'{arm}_loss_mst'])!r}")
+            if not cd <= CONTRACT_CHAMFER:
+                fail(f"arm ({arm}) free-running refine: Chamfer {cd:.3e}")
+            del calls, res
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: complete(model, partial32), reps=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"  arm ({arm}) forward, B={B_BENCH}: {ms:.1f} ms, "
+                f"{B_BENCH / (ms / 1e3):.2f} clouds/s, peak memory {peak:.2f} "
+                f"GiB, on {nvidia_smi()}")
+            PATHS[f"arm_{arm}_b32_ms"] = ms
+            PATHS[f"arm_{arm}_b32_peak_gib"] = peak
+            with torch.enable_grad():
+                out[f"{arm}_step"] = kernel_and_plain_steps(
+                    f"arm ({arm}) training step, B={B_CHECK}", model, step_in,
+                    ARMS_STEP_OPS[arm], ARMS_ZERO_GRAD[arm])
+            del model
+    release_memory("the rematted flagship step")
+    with torch.enable_grad():
+        out["flagship_remat_step"] = remat_steps(dev)
+    return out
+
+
+def kernel_and_plain_steps(what: str, model, step_in, expected, zero_grad):
+    """One training step of a copy of ``model`` against a plain step that
+    replays its kNN graphs, MDS picks and auction assignments, both in
+    deterministic mode (the bids are held to their plain version in phases
+    9 and 29); returns the kernel step's launches."""
+    calls: dict = {}
+    assigns: list = []
+    auction = emd.auction_assign
+
+    def keep(*a, **k):
+        assigns.append(auction(*a, **k))
+        return assigns[-1]
+    with deterministic():
+        with swapped(**recording(calls)), patched(
+                (emd, "auction_assign", keep)):
+            kern, launches, plain = launch_counts(
+                lambda: arm_step(model, *step_in))
+        log(f"  {what}: loss {kern[0]}; launches {launches}, plain calls "
+            f"{plain}")
+        missing = [op for op in expected if not launches.get(op)]
+        if missing or plain:
+            fail(f"{what}: no launch of {missing} or plain calls {plain}")
+        fixed = {op: replay(calls[op]) for op in ("knn", "mds") if op in calls}
+        it = iter(assigns)
+        with swapped(**dict(PLAIN, **fixed)), patched(
+                (emd, "auction_assign", lambda *a, **k: next(it))):
+            p = arm_step(model, *step_in)
+    loss, rel, zero, worst = step_gaps(kern, p, zero_grad)
+    log(f"  {what}: kernel step vs plain step (kNN graphs, MDS picks and "
+        f"auction assignments replayed), both deterministic: loss rel gap "
+        f"{loss:.3e} (limit {STEP_LOSS_RTOL:g}), gradient leaf relative-L2 "
+        f"gap {rel:.3e} ({worst}; limit {STEP_GRAD_REL:g}), zero-gradient "
+        f"leaves {zero:.3e} (limit {STEP_ZERO_ABS:g})")
+    if loss > STEP_LOSS_RTOL or rel > STEP_GRAD_REL or zero > STEP_ZERO_ABS:
+        fail(f"{what}: the kernel step differs from the anchored plain step")
+    return launches
+
+
+def remat_steps(dev) -> dict:
+    """The flagship step at B=24 with and without TPU.remat, each twice
+    from the same state in deterministic mode: losses, every gradient and
+    every running statistic bit for bit, each step's peak memory and time;
+    returns the rematted step's launches."""
+    model = build_generator(seed=0, device="cpu")
+    jitter_bn_stats(model, torch.Generator().manual_seed(38))
+    plain_m = model.to(dev)
+    remat_m = copy.deepcopy(plain_m)
+    remat_m.remat = remat_m.refine.remat = True
+    partial, gt = (t.to(dev) for t in train_batch(
+        torch.Generator().manual_seed(39), B_TRAIN))
+    runs = {}
+    with deterministic():
+        for tag, m in (("plain", plain_m), ("remat", remat_m)):
+            opt = train_base.make_optimizer(m, train_runner.CONFIG)
+            steps, peaks, times = [], [], []
+            for i in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                _lib.reset_counts()
+                steps.append(run_step(m, opt, partial, gt))
+                times.append((time.perf_counter() - t) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                if i == 0:
+                    launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+            runs[tag] = dict(steps=steps, peaks=peaks, times=times,
+                             launches=launches,
+                             buffers={k: v.clone() for k, v in m.named_buffers()})
+            m.zero_grad(set_to_none=True)
+            del opt
+    same = all(
+        a[0] == b[0] and a[1].keys() == b[1].keys()
+        and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+        for a, b in zip(runs["plain"]["steps"], runs["remat"]["steps"]))
+    same_buf = all(torch.equal(runs["plain"]["buffers"][k], v)
+                   for k, v in runs["remat"]["buffers"].items())
+    for tag, r in runs.items():
+        log(f"  flagship step B={B_TRAIN}, {tag}, deterministic: "
+            f"{[round(x, 1) for x in r['times']]} ms, peak memory "
+            f"{[round(x, 2) for x in r['peaks']]} GiB, launches {r['launches']}")
+        PATHS[f"flagship_{tag}_b24_det_ms"] = r["times"][1]
+        PATHS[f"flagship_{tag}_b24_peak_gib"] = max(r["peaks"])
+    log(f"  remat against plain, two steps: losses, gradients bit for bit "
+        f"{same}; running statistics bit for bit {same_buf}")
+    if not (same and same_buf):
+        fail("the rematted flagship step differs from the plain step")
+    lp, lr_ = runs["plain"]["launches"], runs["remat"]["launches"]
+    want = dict(lp, knn=2 * lp.get("knn", 0),
+                edge_stats_fwd=2 * lp.get("edge_stats_fwd", 0))
+    if lr_ != want:
+        fail(f"the rematted step's launches {lr_} are not the plain step's "
+             f"with the encoder's #1 and #7f twice ({want})")
+    return lr_
+
+
+EDGERES_MODEL_ROWS = 128      # query rows a cloud held to #1's own ranking
+
+
+def check_edgeres_knn(kcalls) -> dict:
+    """#1 on each of the EdgeRes pass's seven inputs: against its plain
+    version at every query (``compare_knn``), against its own ranking bit
+    for bit at EDGERES_MODEL_ROWS evenly spaced query rows a cloud
+    (``compare_knn_model``), the queries its margin test sends to the exact
+    scan, and kernel, plain and library times. Then a planted fault, each
+    graph's 8th neighbour replaced by plain's 9th (``replay_knn``'s
+    perturbation), which the two checks together must refuse at every
+    shape. Returns the kernels line's row: sums over the seven calls and a
+    list by shape."""
+    library, reps, _, bound_fn = SPECS["knn"]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "flagged": 0, "queries": 0, "shapes": []}
+    for i, (args, kw, got) in enumerate(kcalls):
+        x, k = args[0], kw.get("k", args[1] if len(args) > 1 else K)
+        b, n, c = x.shape
+        want = plain_knn(x, k)
+        ok, err, msg = compare_knn(x, got, want)
+        rows = torch.arange(0, n, n // EDGERES_MODEL_ROWS, device=x.device)
+        model = knn.knn_seq_rows(x, rows, k)
+        ok_m, _, msg_m = compare_knn_model(got, rows, model)
+        flagged = flagged_by(lambda: knn.knn_idx(x, k), "knn_flagged")
+        nine = plain_knn(x, k + 1)
+        fault = torch.cat([got[..., :k - 1], nine[..., k:].to(got.dtype)], -1)
+        f_plain, _, f_msg = compare_knn(x, fault, want)
+        f_model, _, f_msg_m = compare_knn_model(fault, rows, model)
+        ms = cuda_ms(lambda: knn.knn_idx(x, k), reps=reps)
+        pms = cuda_ms(lambda: plain_knn(x, k), reps=1, warmup=0)
+        lms = cuda_ms(lambda: library(x, k), reps=3)
+        b_ms, _ = bound_fn(args, got)
+        log(f"  knn call {i} [{b}, {n}, {c}]: against plain: {msg}; against "
+            f"its own ranking: {msg_m}; {flagged} of {b * n} queries flagged "
+            f"for the exact scan; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms, bound {b_ms:.5f} ms")
+        log(f"    planted fault (8th neighbour := plain's 9th): against "
+            f"plain: {'passes' if f_plain else 'refused'} ({f_msg}); against "
+            f"its own ranking: {'passes' if f_model else 'refused'} "
+            f"({f_msg_m})")
+        if not ok:
+            fail(f"knn call {i} of the EdgeRes pass: beyond the near-tie "
+                 f"envelope of its plain version")
+        if not ok_m:
+            fail(f"knn call {i} of the EdgeRes pass: off its own ranking")
+        if f_plain and f_model:
+            fail(f"knn call {i} of the EdgeRes pass: the planted fault passes")
+        tot["shapes"].append(dict(C=c, flagged=flagged, queries=b * n, ms=ms,
+                                  plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                                  slots_off_plain=int((got != want).sum()),
+                                  fault_refused_by_plain=not f_plain,
+                                  fault_refused_by_model=not f_model))
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                       ("bound_ms", b_ms), ("flagged", flagged),
+                       ("queries", b * n)):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del want, model, nine, fault
+    log(f"  knn: {len(kcalls)} calls per EdgeRes pass: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms; "
+        f"{tot['flagged']} of {tot['queries']} queries flagged")
+    return tot
+
+
+def main_edgeres_siren(dev) -> dict:
+    """Phase 38; returns the launches of EdgeRes's refine pass, a
+    generator forward and a training step with it."""
+    out: dict = {}
+    if not os.path.exists(ARMS_WITNESS):
+        return out
+    w = load_witness(ARMS_WITNESS)
+    partial_np, _ = witness_inputs()
+    partial = torch.from_numpy(partial_np).to(dev)
+    release_memory("EdgeRes")
+    with torch.no_grad():
+        refine = edgeres_refine(dev)
+        if same_weights("the EdgeRes refine", refine,
+                        json.loads(str(w["c_checksums"]))):
+            base = flagged_base(torch.from_numpy(w["b_coarse"]).to(dev), partial)
+            w_idx = torch.from_numpy(w["b_idx1"].astype(np.int32)).to(dev)
+            calls: dict = {}
+            with swapped(**recording(calls)):
+                got, launches, plain = launch_counts(
+                    lambda: refine.finish(base, w_idx))
+            check_launches(f"the EdgeRes refine pass, B={WITNESS_B}",
+                           launches, plain, {"knn": 7})
+            out["edgeres_pass"] = launches
+            log("  #1 at EdgeRes's shapes (the pass's own inputs):")
+            out["knn_rows"] = check_edgeres_knn(calls["knn"])
+            graphs = w["c_graphs"]
+            slots = knn_slots_off(calls["knn"], graphs, as_sets=True)
+            log(f"  the kernel's seven graphs against the JAX package's, as "
+                f"sets: slots that differ per stage {slots} of "
+                f"{graphs[0].size}")
+            out["knn_rows"]["slots_off_witness"] = slots
+            with swapped(**dict(PLAIN, knn=replay_graphs(graphs))):
+                anchored = refine.finish(base, w_idx)
+            hold("the EdgeRes pass, plain ops on the witness's seven graphs",
+                 anchored, w["c_refine"])
+            want = torch.from_numpy(w["c_refine"]).to(dev)
+            err = (got - want).abs()
+            off = int((err > CONTRACT_ATOL + CONTRACT_RTOL * want.abs())
+                      .any(-1).sum())
+            cd = chamfer(got, want)
+            log(f"  the EdgeRes pass free-running against the witness (each "
+                f"package on its own seven graphs): Chamfer "
+                f"{cd:.3e} (limit {CONTRACT_CHAMFER:g}); max abs gap "
+                f"{float(err.max()):.3e}, points outside atol {CONTRACT_ATOL:g}"
+                f" + rtol {CONTRACT_RTOL:g}: {off} of "
+                f"{got.shape[0] * got.shape[1]} (kNN near-ties the two round "
+                f"apart, and the global max feature after them)")
+            PATHS["edgeres_witness"] = dict(chamfer=cd, points_off=off,
+                                            max_abs=float(err.max()))
+            if not cd <= CONTRACT_CHAMFER:
+                fail(f"the EdgeRes pass differs from the witness: Chamfer {cd:.3e}")
+        del refine
+        dec = siren_decoder(dev)
+        if same_weights("the SIREN decoder", dec,
+                        json.loads(str(w["d_checksums"]))):
+            grid, ap = siren_inputs()
+            res = dec(torch.from_numpy(grid).to(dev),
+                      torch.from_numpy(ap).to(dev))[0]
+            hold("the SIREN decoder against the witness", res, w["d_out"])
+        del dec
+    release_memory("the flagship with EdgeRes")
+    model = build_generator(seed=WITNESS_SEED, device="cpu", edgeres=True)
+    jitter_bn_stats(model, torch.Generator().manual_seed(40))
+    model = model.to(dev).eval()
+    _, launches, plain = launch_counts(lambda: complete(model, partial))
+    check_launches(f"the flagship forward with EdgeRes, B={WITNESS_B}",
+                   launches, plain, {"knn": 18, "gather_max": 4,
+                                     "expansion": 2, "mds": 2})
+    out["edgeres_forward"] = launches
+    step_in = [t.to(dev) for t in train_batch(
+        torch.Generator().manual_seed(41), WITNESS_B)]
+    launches = kernel_and_plain_steps(
+        f"the flagship training step with EdgeRes, B={WITNESS_B}", model,
+        step_in, TRAIN_EXPECTED, ZERO_GRAD)
+    if launches.get("knn") != 18:
+        fail(f"the EdgeRes step launched #1 {launches.get('knn')} times, not 18")
+    out["edgeres_step"] = launches
+    return out
+
+
+def _out_of_time(signum, frame):
+    """The time limit: kill the child sessions, then exit non-zero."""
+    for pgid in list(SESSIONS):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(pgid, signal.SIGKILL)
+    print(f"time limit of {TIME_LIMIT_S} s reached", file=sys.stderr, flush=True)
+    os._exit(1)
+
+
 def main() -> int:
+    signal.signal(signal.SIGALRM, _out_of_time)
     signal.alarm(TIME_LIMIT_S)   # never outlive the time limit
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels run on the card only",
@@ -5024,6 +5761,26 @@ def main() -> int:
     file_launches = dict(shapenet_step=files["shapenet_step"],
                          shapenet_eval_batch=files["shapenet_eval_batch"],
                          **main_test_modes(files, dev))
+    t36 = time.perf_counter()
+    log(f"phase 36: FPD on the card: the canonical classifier's activations "
+        f"and an FPD against the JAX witness, then the FPD CLI (fake and null "
+        f"against real, {FPD_PER_CATEGORY} models a category of "
+        f"fpd_test.list at {N_OUT} points)")
+    main_fpd(dev)
+    t37 = time.perf_counter()
+    log(f"  phase 36: {t37 - t36:.1f} s")
+    log(f"phase 37: SpareNet's arms at full width against the JAX witness "
+        f"(B={WITNESS_B}): (a) {ARMS['a']}, (b) {ARMS['b']}; B={B_BENCH} "
+        f"forwards, a training step of each at B={B_CHECK} against a plain "
+        f"step, the flagship step at B={B_TRAIN} with and without TPU.remat")
+    arm_launches = main_arms(dev)
+    log("phase 38: EdgeRes (#1 at its shapes, its refine pass against the "
+        "witness, a forward and a training step with it) and the SIREN "
+        "decoder against the witness")
+    arm_launches.update(main_edgeres_siren(dev))
+    knn_rows = arm_launches.pop("knn_rows", None)
+    log(f"  phases 37-38: {time.perf_counter() - t37:.1f} s")
+    PATHS.update(phase36_s=t37 - t36, phase37_38_s=time.perf_counter() - t37)
 
     meta = {
         "knn": ("sparenet_tpu_torch/csrc/knn.cu",
@@ -5098,6 +5855,14 @@ def main() -> int:
         # and eval batch, a rendered batch's side outputs, a KITTI cloud
         kernels[-1]["launches_file_data"] = {
             k: v.get(name, 0) for k, v in file_launches.items()}
+        # SpareNet's other arms (phases 37-38): each arm's forward and
+        # training step, the rematted flagship step, EdgeRes's refine pass,
+        # a forward and a training step with EdgeRes
+        kernels[-1]["launches_arms"] = {
+            k: v.get(name, 0) for k, v in arm_launches.items()}
+    if knn_rows is not None:
+        # #1 on EdgeRes's seven graphs of one refine pass (B=2, N=16384)
+        kernels[0]["edgeres_pass"] = knn_rows
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed: {FAILURES}")
         return 1

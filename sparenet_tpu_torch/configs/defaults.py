@@ -5,8 +5,9 @@ Mirrors the reference config system (reference: configs/base_config.py:12-110):
 a nested attribute-dict of defaults, overlaid by per-model YAML files with
 strict key and type validation, then overridden from the CLI. The tree is
 the JAX package's, key for key, so that every config file that package reads
-loads here too; of the ``TPU`` block the port reads only ``prefetch`` (the
-loaders' prefetch depth), and of the rest what its ported modules use.
+loads here too; of the ``TPU`` block the port reads ``prefetch`` (the
+loaders' prefetch depth) and ``remat`` (SpareNet's training forward), and
+of the rest what its ported modules use.
 """
 
 from __future__ import annotations
@@ -79,7 +80,8 @@ def default_config() -> AttrDict:
     )
 
     # The JAX package's TPU execution policy (replaces the reference's APEX
-    # block); the port reads only prefetch.
+    # block); the port reads prefetch and remat (SpareNet's training
+    # forward recomputes its encoder, decoder and residual nets).
     cfg.TPU = _d(
         bf16=False,
         mesh_batch=0,

@@ -145,7 +145,11 @@ def define_G(cfg, *, seed: int | None = None, device=None,
     eval mode on ``device``, initialised as ``build_generator`` does from
     ``seed`` (default CONST.seed). NETWORK.mml_calibration > 0 replaces the
     family's serving mml ratio; TRAIN.serving_aligned puts the training
-    forward's MDS on the batched arm; ``dial`` (a ``ServingDial``) builds
+    forward's MDS on the batched arm; SpareNet takes NETWORK.encode and
+    NETWORK.use_adain, and TPU.remat recomputes its encoder, decoder and
+    residual nets in the backward of a training forward (the JAX package
+    rematerialises its training model only; eval forwards and steps without
+    gradients are unchanged); ``dial`` (a ``ServingDial``) builds
     serving mode on that dial. GRNet has no serving mode in the JAX
     package: a dial changes nothing in its forward."""
     net = cfg.NETWORK
@@ -161,6 +165,7 @@ def define_G(cfg, *, seed: int | None = None, device=None,
             seed=seed, device=device, bottleneck_size=4096, hide_size=4096,
             use_selayer=net.use_selayer, use_adain=net.use_adain,
             encode=net.encode, train_mds=train_mds,
+            remat=bool(cfg.TPU.remat),
             mml_calibration=mml if mml > 0 else MML_CALIBRATION, **common,
             **serving)
     dev = resolve_device(device)

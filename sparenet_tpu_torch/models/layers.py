@@ -9,9 +9,12 @@ in that layout (see ``sparenet_tpu_torch.utils.weights``) loads with
 over the channel axis, never as cuDNN convolutions.
 
 The 32 per-primitive folding decoders are one module with stacked weights
-[P, out, in] and batched products (``GridDecoderStack`` for SpareNet,
-``PointGenConStack`` for AtlasNet and MSN); a load hook stacks the
-reference's per-primitive keys.
+[P, out, in] and batched products (``GridDecoderStack`` for SpareNet's
+shared AdaIN and its SIREN variant, ``AdaInGridDecoderStack`` for its
+``no_share`` arm, ``PointGenConStack`` for AtlasNet, MSN and SpareNet's
+``no_use`` arm); a load hook stacks the reference's per-primitive keys.
+``recomputing`` marks a checkpoint's replay (remat), during which the
+running statistics are left as the forward set them.
 
 Serving mode (eval with ``serving=True``, the reference's
 ``SPARENET_FAST_MATH=1`` under ``bench.py``'s bf16 matmul precision) runs the
@@ -30,6 +33,7 @@ running update 0.9 * running + 0.1 * statistic with that biased variance.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 
@@ -45,7 +49,8 @@ __all__ = [
     "external_stats_affine", "SELayer", "EdgeConvResFeat", "PointNetfeat",
     "adaptive_instance_norm", "grid_decoder_adain_sizes", "num_adain_params",
     "split_adain_params", "StackedLinear", "StackedBatchNorm", "StackedSE",
-    "GridDecoderStack", "PointGenConStack", "PointNetRes", "grid_generation", "init_weights",
+    "GridDecoderStack", "AdaInGridDecoderStack", "PointGenConStack", "PointNetRes",
+    "EdgeRes", "graph_feature", "grid_generation", "init_weights", "recomputing",
 ]
 
 
@@ -97,6 +102,20 @@ def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tenso
 
 
 _MOMENTUM = 0.9  # flax's EMA decay (torch momentum 0.1)
+_RECOMPUTING = [0]  # > 0 while a checkpointed forward is replayed
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The context of a checkpoint's recompute (``torch.utils.checkpoint``'s
+    ``context_fn``): the replayed forward leaves the running statistics as
+    the first forward set them, so they advance once a step, as under the
+    JAX package's ``nn.remat``."""
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
 
 
 def bn_train_stats(x: torch.Tensor, dims):
@@ -110,7 +129,10 @@ def bn_train_stats(x: torch.Tensor, dims):
 @torch.no_grad()
 def update_running(running_mean: torch.Tensor, running_var: torch.Tensor,
                    mean: torch.Tensor, var: torch.Tensor) -> None:
-    """running <- 0.9 * running + 0.1 * statistic, in place (flax's EMA)."""
+    """running <- 0.9 * running + 0.1 * statistic, in place (flax's EMA);
+    nothing while a checkpointed forward is replayed (``recomputing``)."""
+    if _RECOMPUTING[0]:
+        return
     running_mean.copy_(_MOMENTUM * running_mean + (1.0 - _MOMENTUM) * mean)
     running_var.copy_(_MOMENTUM * running_var + (1.0 - _MOMENTUM) * var)
 
@@ -279,19 +301,23 @@ class EdgeConvResFeat(nn.Module):
 
 
 class PointNetfeat(nn.Module):
-    """PointNet global feature (the reference's PointNetfeat, SE off): x
-    [B, N, 3] -> [B, hide_size] by 1x1 convs 3 -> 64 -> 128 -> hide_size,
-    each with BatchNorm (ReLU after the first two), then a max over the
-    points. In serving mode the products run at bf16 precision
-    (``product_bf16``)."""
+    """PointNet global feature (the reference's PointNetfeat): x [B, N, 3]
+    -> [B, hide_size] by 1x1 convs 3 -> 64 -> 128 -> hide_size, each with
+    BatchNorm, then SE (``use_selayer``) and ReLU after the first two, then
+    a max over the points. In serving mode the products run at bf16
+    precision (``product_bf16``)."""
 
-    def __init__(self, hide_size: int = 1024, serving: bool = False):
+    def __init__(self, hide_size: int = 1024, serving: bool = False,
+                 use_selayer: bool = False):
         super().__init__()
         self.serving = serving
+        self.use_selayer = use_selayer
         for i, (cin, cout) in enumerate(((3, 64), (64, 128), (128, hide_size)),
                                         start=1):
             setattr(self, f"conv{i}", nn.Conv1d(cin, cout, 1))
             setattr(self, f"bn{i}", nn.BatchNorm1d(cout))
+            if use_selayer and i < 3:
+                setattr(self, f"se{i}", SELayer(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         on = serving_dtype(self) is not None
@@ -300,6 +326,8 @@ class PointNetfeat(nn.Module):
             x = bn_apply(getattr(self, f"bn{i}"),
                          product_bf16(x, conv.weight[..., 0], conv.bias, on=on))
             if i < 3:
+                if self.use_selayer:
+                    x = getattr(self, f"se{i}")(x, serving=on)
                 x = F.relu(x)
         return x.amax(1)
 
@@ -310,34 +338,40 @@ class PointNetfeat(nn.Module):
 
 def adaptive_instance_norm(x: torch.Tensor, weight: torch.Tensor,
                            bias: torch.Tensor, eps: float = 1e-5):
-    """AdaIN over the point axis (-2): x [..., B, N, C], weight/bias [B, C];
-    instance statistics per (sample, channel), biased variance. For bf16 x
+    """AdaIN over the point axis (-2): x [..., B, N, C], weight/bias [B, C]
+    (or [P, B, C], a primitive's own); instance statistics per (sample,
+    channel), biased variance. For bf16 x
     the statistics are f32 and the normalisation runs in bf16 (the
     reference's dtype-preserving form)."""
     dt = x.dtype
     mean = x.float().mean(-2, keepdim=True)
     var = ((x - mean.to(dt)).float() ** 2).mean(-2, keepdim=True)
     xn = (x - mean.to(dt)) * torch.rsqrt(var + eps).to(dt)
-    return xn * weight[:, None, :].to(dt) + bias[:, None, :].to(dt)
+    return xn * weight.unsqueeze(-2).to(dt) + bias.unsqueeze(-2).to(dt)
 
 
-def grid_decoder_adain_sizes(bottleneck_size: int) -> tuple[int, ...]:
-    """Per-layer AdaIN feature counts of the (non-SIREN) GridDecoder."""
+def grid_decoder_adain_sizes(bottleneck_size: int,
+                             use_sine: bool = False) -> tuple[int, ...]:
+    """Per-layer AdaIN feature counts of the GridDecoder, in the
+    reference's registration order: the SIREN decoder's four sine layers'
+    first, then adain1-3, registered but unused by its forward."""
     b = bottleneck_size
+    if use_sine:
+        return (b, b // 2, b // 4, b // 4, b, b // 2, b // 4)
     return (b, b // 2, b // 4)
 
 
-def num_adain_params(bottleneck_size: int) -> int:
-    return 2 * sum(grid_decoder_adain_sizes(bottleneck_size))
+def num_adain_params(bottleneck_size: int, use_sine: bool = False) -> int:
+    return 2 * sum(grid_decoder_adain_sizes(bottleneck_size, use_sine))
 
 
 def split_adain_params(params: torch.Tensor, sizes):
     """Per AdaIN layer, (weight, bias) = (std, mean) consumed in order:
-    each layer's slice is [mean(=bias) | std(=weight)]."""
+    each layer's slice of the last axis is [mean(=bias) | std(=weight)]."""
     out, off = [], 0
     for nf in sizes:
-        bias = params[:, off:off + nf]
-        weight = params[:, off + nf:off + 2 * nf]
+        bias = params[..., off:off + nf]
+        weight = params[..., off + nf:off + 2 * nf]
         out.append((weight, bias))
         off += 2 * nf
     return out
@@ -352,9 +386,10 @@ class StackedLinear(nn.Module):
     x [P (or 1), ..., in] -> [P, ..., out] by one batched product."""
 
     def __init__(self, p: int, cin: int, cout: int, bias: bool = True,
-                 init_std: float = 0.02):
+                 init_std: float = 0.02, init_bound: float | None = None):
         super().__init__()
         self.init_std = init_std
+        self.init_bound = init_bound  # uniform(-bound, bound) in its place
         self.weight = nn.Parameter(torch.empty(p, cout, cin))
         self.bias = nn.Parameter(torch.zeros(p, cout)) if bias else None
 
@@ -440,6 +475,8 @@ class _PrimitiveStack(nn.Module):
     each primitive's) at their defaults."""
 
     reference_key = "{p}.{name}"
+    # the 1x1 convolutions, whose reference weights are [out, in, 1]
+    conv_weight = re.compile(r"(conv\d|linear\d(\.linear)?)\.weight")
 
     def __init__(self, n_primitives: int):
         super().__init__()
@@ -456,7 +493,8 @@ class _PrimitiveStack(nn.Module):
         return prefix + self.reference_key.format(p=p, name=name)
 
     def _stack_reference_keys(self, state_dict, prefix, *args):
-        if self._key(prefix, 0, "conv1.weight") not in state_dict:
+        first = next(name for name, _ in self.named_parameters())
+        if self._key(prefix, 0, first) not in state_dict:
             return
         for name, t in list(self.named_parameters()) + list(self.named_buffers()):
             keys = [self._key(prefix, p, name) for p in range(self.n_primitives)]
@@ -474,7 +512,7 @@ class _PrimitiveStack(nn.Module):
         out = {}
         for name, v in self.state_dict().items():
             v = v.detach().cpu()
-            conv = re.fullmatch(r"conv\d\.weight", name) is not None
+            conv = self.conv_weight.fullmatch(name) is not None
             for p in range(self.n_primitives):
                 out[self._key(prefix, p, name)] = (v[p, ..., None] if conv
                                                    else v[p]).clone()
@@ -484,20 +522,51 @@ class _PrimitiveStack(nn.Module):
         return out
 
 
+OMEGA = 30.0  # the SIREN layers' frequency (the reference's omega_0)
+
+
+class _SineStack(nn.Module):
+    """P SIREN layers' products (the reference's SineLayer.linear)."""
+
+    def __init__(self, p: int, cin: int, cout: int, bound: float):
+        super().__init__()
+        self.linear = StackedLinear(p, cin, cout, init_bound=bound)
+
+
 class GridDecoderStack(_PrimitiveStack):
-    """P AdaIN-modulated folding decoders (non-SIREN GridDecoder) with
-    stacked weights: grid [S, 2] and shared AdaIN params [B, A] ->
-    [P, B, S, 3]. Per layer: conv -> AdaIN -> BN -> (SE) -> relu; then
-    conv4 + tanh. Reference keys ``{p}.dec.<name>`` (``_PrimitiveStack``);
+    """P AdaIN-modulated folding decoders (GridDecoder) with stacked
+    weights: grid [S, 2] and AdaIN params [B, A] shared by every primitive
+    (or [P, B, A], each its own) -> [P, B, S, 3]. Per layer: conv -> AdaIN
+    -> BN -> (SE) -> relu; then conv4 + tanh. With ``use_sine`` the SIREN
+    decoder: four layers sin(AdaIN(30 * linear(x))) at widths b, b/2, b/4,
+    b/4 and an output linear5 to 3 with no tanh, initialised as the
+    reference's SineLayer (uniform, bound 1/in for the first layer,
+    sqrt(6/in)/30 after it and sqrt(6/b)/30 for linear5); its params
+    carry seven AdaIN sizes, the last three (adain1-3) registered but
+    unused. Reference keys ``{p}.dec.<name>`` (``_PrimitiveStack``);
     AdaIN's dummy running statistics are registered-but-unused there."""
 
     reference_key = "{p}.dec.{name}"
 
     def __init__(self, n_primitives: int, bottleneck_size: int = 1026,
-                 use_selayer: bool = False, serving: bool = False):
+                 use_selayer: bool = False, serving: bool = False,
+                 use_sine: bool = False):
         super().__init__(n_primitives)
         self.serving = serving
-        self.sizes = grid_decoder_adain_sizes(bottleneck_size)
+        self.use_selayer = use_selayer
+        self.use_sine = use_sine
+        self.sizes = grid_decoder_adain_sizes(bottleneck_size, use_sine)
+        if use_sine:
+            b = bottleneck_size
+            widths = (2, b, b // 2, b // 4, b // 4)
+            for i in range(4):
+                cin = widths[i]
+                bound = 1.0 / cin if i == 0 else math.sqrt(6.0 / cin) / OMEGA
+                setattr(self, f"linear{i + 1}",
+                        _SineStack(n_primitives, cin, widths[i + 1], bound))
+            self.linear5 = StackedLinear(n_primitives, b // 4, 3,
+                                         init_bound=math.sqrt(6.0 / b) / OMEGA)
+            return
         chans = (2,) + self.sizes
         for i in range(3):
             setattr(self, f"conv{i + 1}",
@@ -508,21 +577,31 @@ class GridDecoderStack(_PrimitiveStack):
                 setattr(self, f"se{i + 1}",
                         StackedSE(n_primitives, chans[i + 1]))
         self.conv4 = StackedLinear(n_primitives, self.sizes[-1], 3)
-        self.use_selayer = use_selayer
 
     def unused_reference(self) -> dict:
-        out = super().unused_reference()
-        for i, nf in enumerate(self.sizes, 1):
-            out[f"adain{i}.running_mean"] = torch.zeros(nf)
-            out[f"adain{i}.running_var"] = torch.ones(nf)
+        out = {} if self.use_sine else super().unused_reference()
+        names = ([f"linear{i}.adain" for i in (1, 2, 3, 4)]
+                 if self.use_sine else [])
+        names += [f"adain{i}" for i in (1, 2, 3)]
+        for name, nf in zip(names, self.sizes):
+            out[f"{name}.running_mean"] = torch.zeros(nf)
+            out[f"{name}.running_var"] = torch.ones(nf)
         return out
 
+    def _sine(self, x: torch.Tensor, style, on: bool) -> torch.Tensor:
+        for i, (w, bias) in enumerate(style[:4], 1):
+            y = getattr(self, f"linear{i}").linear(x, bf16_product=on)
+            x = torch.sin(adaptive_instance_norm(OMEGA * y, w, bias))
+        return self.linear5(x, bf16_product=on)
+
     def forward(self, grid: torch.Tensor, adain_params: torch.Tensor):
-        b = adain_params.shape[0]
+        b = adain_params.shape[-2]
         dt = serving_dtype(self)
         x = grid.expand(1, b, *grid.shape)                     # [1, B, S, 2]
-        for i, (w, bias) in enumerate(split_adain_params(adain_params,
-                                                         self.sizes), 1):
+        style = split_adain_params(adain_params, self.sizes)
+        if self.use_sine:
+            return self._sine(x, style, dt is not None)
+        for i, (w, bias) in enumerate(style, 1):
             x = getattr(self, f"conv{i}")(x, dt)
             x = adaptive_instance_norm(x, w, bias)
             x = getattr(self, f"bn{i}")(x)
@@ -532,30 +611,66 @@ class GridDecoderStack(_PrimitiveStack):
         return torch.tanh(self.conv4(x, dt)).float()
 
 
+class AdaInGridDecoderStack(GridDecoderStack):
+    """The ``no_share`` decoders: each primitive's own style MLP
+    (Linear(D, D), ReLU, Linear(D, A), on ``StackedLinear``: one batched
+    product over the primitives) emits the AdaIN params of its own
+    GridDecoder: grid [S, 2] and style [B, D] -> [P, B, S, 3]. Reference
+    keys ``{p}.mlp.0``/``{p}.mlp.2`` and ``{p}.dec.<name>``. In serving
+    mode the MLP's products run at bf16 precision."""
+
+    def __init__(self, n_primitives: int, style_size: int,
+                 bottleneck_size: int = 1026, use_selayer: bool = False,
+                 serving: bool = False):
+        super().__init__(n_primitives, bottleneck_size, use_selayer, serving)
+        self.mlp = nn.Sequential(
+            StackedLinear(n_primitives, style_size, style_size, init_std=0.01),
+            nn.ReLU(inplace=True),
+            StackedLinear(n_primitives, style_size,
+                          num_adain_params(bottleneck_size), init_std=0.01))
+
+    def _key(self, prefix: str, p: int, name: str) -> str:
+        if name.startswith("mlp."):
+            return f"{prefix}{p}.{name}"
+        return super()._key(prefix, p, name)
+
+    def forward(self, grid: torch.Tensor, style: torch.Tensor):
+        on = serving_dtype(self) is not None
+        h = F.relu(self.mlp[0](style[None], bf16_product=on))  # [P, B, D]
+        return super().forward(grid, self.mlp[2](h, bf16_product=on))
+
+
 class PointGenConStack(_PrimitiveStack):
     """P folding decoders without AdaIN (the reference's PointGenCon, which
     AtlasNet and MSN run once a primitive and the JAX package vmaps), with
     stacked weights: grids [P, B, S, 2] and style [B, D] -> [P, B, S, 3].
     Each maps concat(grid, style) [B, S, D + 2] through 1x1 convs
     D + 2 -> D + 2 -> (D + 2) / 2 -> (D + 2) / 4 with BatchNorm and ReLU,
-    then a conv to 3 and tanh. The first conv's product is split: the style
-    columns once a (primitive, sample), the two grid columns a point; the
-    same sum, without the [P, B, S, D + 2] input. In serving mode the chain
-    runs in bf16 as flax's dtype=bfloat16 does (``dense``). Reference keys
-    ``{p}.<name>`` (``_PrimitiveStack``)."""
+    then a conv to 3 and tanh; ``input_size`` sets the first conv's input
+    width where it is not D + 2 (SpareNet's ``no_use`` decoders: 2 + 4096
+    into 1026), ``use_selayer`` adds SE after each BatchNorm. The first
+    conv's product is split: the style columns once a (primitive, sample),
+    the two grid columns a point; the same sum, without the [P, B, S, D + 2]
+    input. In serving mode the chain runs in bf16 as flax's dtype=bfloat16
+    does (``dense``). Reference keys ``{p}.<name>`` (``_PrimitiveStack``)."""
 
     def __init__(self, n_primitives: int, bottleneck_size: int = 1026,
-                 serving: bool = False):
+                 serving: bool = False, input_size: int | None = None,
+                 use_selayer: bool = False):
         super().__init__(n_primitives)
         self.serving = serving
+        self.use_selayer = use_selayer
         bs = bottleneck_size
-        chans = (bs, bs, bs // 2, bs // 4, 3)
+        chans = (input_size or bs, bs, bs // 2, bs // 4, 3)
         for i in range(4):
             setattr(self, f"conv{i + 1}",
                     StackedLinear(n_primitives, chans[i], chans[i + 1]))
         for i in range(3):
             setattr(self, f"bn{i + 1}",
                     StackedBatchNorm(n_primitives, chans[i + 1]))
+            if use_selayer:
+                setattr(self, f"se{i + 1}",
+                        StackedSE(n_primitives, chans[i + 1]))
 
     def _first(self, grids: torch.Tensor, style: torch.Tensor, dt):
         """conv1 of concat(grid, style): [P, B, S, D + 2]-wide input never
@@ -582,9 +697,14 @@ class PointGenConStack(_PrimitiveStack):
 
     def forward(self, grids: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         dt = serving_dtype(self)
-        x = F.relu(self.bn1(self._first(grids, style, dt)))
-        x = F.relu(self.bn2(self.conv2(x, dt)))
-        x = F.relu(self.bn3(self.conv3(x, dt)))
+        x = self._first(grids, style, dt)
+        for i in (1, 2, 3):
+            if i > 1:
+                x = getattr(self, f"conv{i}")(x, dt)
+            x = getattr(self, f"bn{i}")(x)
+            if self.use_selayer:
+                x = getattr(self, f"se{i}")(x, serving=dt is not None)
+            x = F.relu(x)
         return torch.tanh(self.conv4(x, dt)).float()
 
 
@@ -634,6 +754,73 @@ class PointNetRes(nn.Module):
         return torch.tanh(conv1x1(self.conv7, x, dt)).float()
 
 
+def graph_feature(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """DGCNN edge features [B, N, k, 2C] of x [B, N, C] over the graph idx
+    [B, N, k]: concat(x_j - x_i, x_i) (the JAX package's
+    get_graph_feature)."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    nbr = x[rows, idx.long()]                                  # [B, N, k, C]
+    center = x[:, :, None, :].expand_as(nbr)
+    return torch.cat([nbr - center, center], dim=-1)
+
+
+class EdgeRes(nn.Module):
+    """EdgeConv residual refiner (the reference's EdgeRes, off unless the
+    refine's ``edgeres`` is set): x [B, N, 4] -> [B, N, 3]. Six EdgeConv
+    stages, each a kNN graph (k = 8) over its input features (the kNN
+    kernel), the edge features, a 1x1 Conv2d without bias, BatchNorm2d,
+    SE (``use_selayer``; over points and edges) and ReLU, then a max over
+    the k edges: 4 -> 64 -> 128 -> 1024 (no SE, no ReLU), then
+    concat(global max, the 64-d point features) 1088 -> 512 -> 256 -> 128;
+    then a last graph, conv7 to 3, tanh and a max over the edges. Dense as
+    in the JAX package (the edge tensor exists; seven graphs a call). In
+    serving mode the products run at bf16 precision and the graphs take the
+    packed kNN arm where it applies (the encoder's rule)."""
+
+    _CHANNELS = (4, 64, 128, 1024, 512, 256, 128, 3)
+
+    def __init__(self, use_selayer: bool = False, serving: bool = False,
+                 k: int = 8):
+        super().__init__()
+        self.k = k
+        self.serving = serving
+        self.use_selayer = use_selayer
+        ch = self._CHANNELS
+        for i in range(7):
+            cin = 1088 if i == 3 else ch[i]
+            setattr(self, f"conv{i + 1}", nn.Conv2d(2 * cin, ch[i + 1], 1,
+                                                    bias=False))
+        for i in range(6):
+            setattr(self, f"bn{i + 1}", nn.BatchNorm2d(ch[i + 1]))
+        if use_selayer:
+            for i in (1, 2, 4, 5, 6):  # no se3, as PointNetRes
+                setattr(self, f"se{i}", SELayer(ch[i]))
+
+    def _stage(self, feat: torch.Tensor, i: int, act: bool = True):
+        on = serving_dtype(self) is not None
+        nbr = knn.knn_idx(feat.contiguous(), self.k, packed=on)
+        conv = getattr(self, f"conv{i}")
+        e = product_bf16(graph_feature(feat, nbr),
+                         conv.weight.reshape(conv.weight.shape[0], -1), on=on)
+        if i == 7:
+            return torch.tanh(e).amax(2)
+        e = bn_apply(getattr(self, f"bn{i}"), e)
+        if self.use_selayer and i != 3:
+            e = getattr(self, f"se{i}")(e, serving=on)
+        return (F.relu(e) if act else e).amax(2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._stage(x, 1)
+        pointfeat = x
+        x = self._stage(x, 2)
+        x = self._stage(x, 3, act=False)
+        g = x.amax(1, keepdim=True).expand(-1, x.shape[1], -1)
+        x = torch.cat([g, pointfeat], dim=-1)
+        for i in (4, 5, 6):
+            x = self._stage(x, i)
+        return self._stage(x, 7)
+
+
 # ---------------------------------------------------------------------------
 # Folding grid and initialisation
 # ---------------------------------------------------------------------------
@@ -667,6 +854,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             mod.weight.normal_(0.0, 0.02, generator=generator)
         elif isinstance(mod, nn.Linear):
             mod.weight.normal_(0.0, 0.01, generator=generator)
+        elif isinstance(mod, StackedLinear) and mod.init_bound is not None:
+            mod.weight.uniform_(-mod.init_bound, mod.init_bound,
+                                generator=generator)
         elif isinstance(mod, StackedLinear):
             mod.weight.normal_(0.0, mod.init_std, generator=generator)
         elif isinstance(mod, (nn.BatchNorm1d, StackedBatchNorm)):

@@ -13,48 +13,82 @@ eval mode only; a serving model in train mode runs the parity training
 path, as in the reference. ``train_mds`` is the MDS arm of the training
 forward: "exact" (greedy MDS, the reference's), or "batched" as the JAX
 package's serving-aligned training (``TRAIN.serving_aligned``,
-``define_G(train=True)``); eval forwards keep exact greedy MDS. ``use_adain="share"`` and
-``encode="Residualnet"`` only; the other decoder and encoder arms wait for a
-later slice. Clouds are channel-last [B, N, 3]; primitive i owns points
-[i*S, (i+1)*S) of the coarse cloud. Module and parameter names follow the
-original reference's net_G state_dict.
+``define_G(train=True)``); eval forwards keep exact greedy MDS.
+
+Every arm of the JAX package's generator: the encoder ``encode``
+("Residualnet", the EdgeConv extractor, or "Pointfeat", PointNetfeat with
+SE), the decoder ``use_adain`` ("share": one style MLP for every primitive;
+"no_share": each primitive's own; "no_use": the style concatenated onto the
+grid, no AdaIN), and the refine's residual net (``edgeres``: EdgeRes, which
+no shipped config sets, in place of PointNetRes). ``remat`` (the config's
+TPU.remat) recomputes the encoder, the decoder and each refine pass's
+residual net in the backward instead of keeping their activations
+(``torch.utils.checkpoint``, non-reentrant), in training with gradients
+only; the expansion penalty and MDS stay outside, and the replay leaves the
+BatchNorm running statistics as the forward set them. Clouds are
+channel-last [B, N, 3]; primitive i owns points [i*S, (i+1)*S) of the
+coarse cloud. Module and parameter names follow the original reference's
+net_G state_dict.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from ..ops import expansion_penalty as _expansion
 from ..ops import mds as _mds
-from .layers import (EdgeConvResFeat, GridDecoderStack, PointNetRes, bn_apply,
-                     grid_generation, num_adain_params, product_bf16,
-                     serving_dtype)
+from .layers import (AdaInGridDecoderStack, EdgeConvResFeat, EdgeRes,
+                     GridDecoderStack, PointGenConStack, PointNetfeat,
+                     PointNetRes, bn_apply, grid_generation, num_adain_params,
+                     product_bf16, recomputing, serving_dtype)
 
 __all__ = ["SpareNetEncode", "SpareNetDecode", "Resampler", "SpareNetRefine",
-           "SpareNetGenerator", "flagged_base", "MML_CALIBRATION"]
+           "SpareNetGenerator", "flagged_base", "rematerialised",
+           "MML_CALIBRATION", "ENCODERS", "DECODERS"]
 
 _DEC_BOTTLENECK = 1026  # GridDecoder width
 # the family's serving mml ratio, the reference's trained-weights fit
 # (sparenet_tpu/models/sparenet.py: SpareNetRefine.mml_calibration)
 MML_CALIBRATION = 1.33
 _EXPANSION_ALPHA = 1.5
+ENCODERS = ("Residualnet", "Pointfeat")
+DECODERS = ("share", "no_share", "no_use")
+
+
+def rematerialised(fn, *args):
+    """fn(*args) under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, the recompute inside
+    ``layers.recomputing`` (no second running-statistics update)."""
+    return _checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class SpareNetEncode(nn.Module):
-    """EdgeConv (Residualnet) feature extractor + bottleneck head:
-    partial [B, N_in, 3] -> style [B, bottleneck_size]."""
+    """Feature extractor (``encode``: EdgeConv "Residualnet" or PointNet
+    "Pointfeat") + bottleneck head: partial [B, N_in, 3] -> style
+    [B, bottleneck_size]."""
 
     def __init__(self, bottleneck_size: int = 4096, hide_size: int = 4096,
-                 use_selayer: bool = False, serving: bool = False):
+                 use_selayer: bool = False, serving: bool = False,
+                 encode: str = "Residualnet"):
         super().__init__()
         self.serving = serving
-        # the reference fixes the extractor's internal width at 4096 and
-        # sets only its output width from hide_size
-        self.feat_extractor = EdgeConvResFeat(
-            k=8, hide_size=4096, output_size=hide_size,
-            use_selayer=use_selayer, serving=serving)
+        if encode == "Residualnet":
+            # the reference fixes the extractor's internal width at 4096 and
+            # sets only its output width from hide_size
+            self.feat_extractor = EdgeConvResFeat(
+                k=8, hide_size=4096, output_size=hide_size,
+                use_selayer=use_selayer, serving=serving)
+        elif encode == "Pointfeat":
+            self.feat_extractor = PointNetfeat(hide_size, serving, use_selayer)
+        else:
+            raise ValueError(f"unknown encode {encode!r}: one of {ENCODERS}")
         self.linear = nn.Linear(hide_size, bottleneck_size)
         self.bn = nn.BatchNorm1d(bottleneck_size)
 
@@ -65,23 +99,38 @@ class SpareNetEncode(nn.Module):
 
 
 class SpareNetDecode(nn.Module):
-    """Shared-AdaIN multi-primitive folding decoder: style [B, bottleneck]
-    -> coarse cloud [B, num_points, 3]. One MLP emits the AdaIN parameters
-    every primitive's decoder consumes."""
+    """Style-based multi-primitive folding decoder: style [B, bottleneck]
+    -> coarse cloud [B, num_points, 3]. ``use_adain``: "share" (one MLP
+    emits the AdaIN parameters every primitive's decoder consumes),
+    "no_share" (each primitive's own MLP, ``AdaInGridDecoderStack``) or
+    "no_use" (PointGenCon decoders over concat(grid, style), no AdaIN)."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
                  bottleneck_size: int = 4096, use_selayer: bool = False,
-                 serving: bool = False):
+                 serving: bool = False, use_adain: str = "share"):
         super().__init__()
         self.n_primitives = n_primitives
         self.serving = serving
-        self.mlp = nn.Sequential(
-            nn.Linear(bottleneck_size, bottleneck_size),
-            nn.ReLU(inplace=True),
-            nn.Linear(bottleneck_size, num_adain_params(_DEC_BOTTLENECK)),
-        )
-        self.decoder = GridDecoderStack(n_primitives, _DEC_BOTTLENECK,
-                                        use_selayer, serving)
+        self.use_adain = use_adain
+        if use_adain == "share":
+            self.mlp = nn.Sequential(
+                nn.Linear(bottleneck_size, bottleneck_size),
+                nn.ReLU(inplace=True),
+                nn.Linear(bottleneck_size, num_adain_params(_DEC_BOTTLENECK)),
+            )
+            self.decoder = GridDecoderStack(n_primitives, _DEC_BOTTLENECK,
+                                            use_selayer, serving)
+        elif use_adain == "no_share":
+            self.decoder = AdaInGridDecoderStack(
+                n_primitives, bottleneck_size, _DEC_BOTTLENECK, use_selayer,
+                serving)
+        elif use_adain == "no_use":
+            self.decoder = PointGenConStack(
+                n_primitives, _DEC_BOTTLENECK, serving,
+                input_size=2 + bottleneck_size, use_selayer=use_selayer)
+        else:
+            raise ValueError(f"unknown use_adain {use_adain!r}: one of "
+                             f"{DECODERS}")
         grid = (grid_generation(num_points, n_primitives) - 0.5) * 2.0
         self.register_buffer("grid", torch.from_numpy(grid), persistent=False)
 
@@ -93,8 +142,14 @@ class SpareNetDecode(nn.Module):
         return product_bf16(h, l2.weight, l2.bias)
 
     def forward(self, style: torch.Tensor) -> torch.Tensor:
-        out = self.decoder(self.grid, self._style(style))      # [P, B, S, 3]
         b = style.shape[0]
+        if self.use_adain == "share":
+            out = self.decoder(self.grid, self._style(style))  # [P, B, S, 3]
+        elif self.use_adain == "no_share":
+            out = self.decoder(self.grid, style)
+        else:
+            grids = self.grid.expand(self.n_primitives, b, *self.grid.shape)
+            out = self.decoder(grids, style)
         return out.permute(1, 0, 2, 3).reshape(b, -1, 3)
 
 
@@ -182,23 +237,30 @@ class Resampler:
 
 class SpareNetRefine(Resampler, nn.Module):
     """Expansion penalty -> MDS resample of coarse + partial -> residual
-    delta (``Resampler``, its residual net ``residual``). One module serves
-    both refine passes, as in the reference; ``mml_calibration`` defaults
-    to 1.33, the reference's trained-weights fit."""
+    delta (``Resampler``, its residual net ``residual``: PointNetRes, or
+    EdgeRes with ``edgeres``). One module serves both refine passes, as in
+    the reference; ``mml_calibration`` defaults to 1.33, the reference's
+    trained-weights fit. ``remat``: the residual net is recomputed in the
+    backward (training with gradients only)."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
                  use_selayer: bool = False, serving: bool = False,
                  mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
                  mds_tail: int = _mds.TAIL, train_mds: str = "exact",
-                 select: str = "sort"):
+                 select: str = "sort", edgeres: bool = False,
+                 remat: bool = False):
         nn.Module.__init__(self)
         self.init_resampler(num_points, n_primitives, serving, mds,
                             mml_calibration, mds_g, mds_schedule, mds_tail,
                             train_mds, select)
-        self.residual = PointNetRes(use_selayer, serving)
+        self.remat = remat
+        self.residual = (EdgeRes if edgeres else PointNetRes)(use_selayer,
+                                                              serving)
 
     def delta(self, base: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return rematerialised(self.residual, base)
         return self.residual(base)
 
     def forward(self, coarse: torch.Tensor, partial: torch.Tensor):
@@ -207,7 +269,9 @@ class SpareNetRefine(Resampler, nn.Module):
 
 class SpareNetGenerator(nn.Module):
     """Full SpareNet: partial [B, N_in, 3] ->
-    (coarse, middle, refine [B, num_points, 3], loss_mst)."""
+    (coarse, middle, refine [B, num_points, 3], loss_mst); the arms
+    ``encode``, ``use_adain``, ``edgeres`` and ``remat`` as the module
+    docstring says."""
 
     def __init__(self, num_points: int = 16384, n_primitives: int = 32,
                  bottleneck_size: int = 4096, hide_size: int = 4096,
@@ -216,22 +280,22 @@ class SpareNetGenerator(nn.Module):
                  mds: str = "auto", mml_calibration: float = MML_CALIBRATION,
                  mds_g: int = _mds.BATCH_G, mds_schedule=_mds.SCHEDULE,
                  mds_tail: int = _mds.TAIL, train_mds: str = "exact",
-                 select: str = "sort"):
+                 select: str = "sort", edgeres: bool = False,
+                 remat: bool = False):
         super().__init__()
-        if use_adain != "share" or encode != "Residualnet":
-            raise NotImplementedError(
-                f"use_adain={use_adain!r}, encode={encode!r}: only 'share' "
-                "with 'Residualnet' is ported so far")
         # registered but unused by the forward, as in the reference
         self.conv1 = nn.Conv1d(3, 64, 1)
         self.serving = serving
+        self.remat = remat
         self.encoder = SpareNetEncode(bottleneck_size, hide_size, use_selayer,
-                                      serving)
+                                      serving, encode)
         self.decoder = SpareNetDecode(num_points, n_primitives,
-                                      bottleneck_size, use_selayer, serving)
+                                      bottleneck_size, use_selayer, serving,
+                                      use_adain)
         self.refine = SpareNetRefine(
             num_points, n_primitives, use_selayer, serving, mds,
-            mml_calibration, mds_g, mds_schedule, mds_tail, train_mds, select)
+            mml_calibration, mds_g, mds_schedule, mds_tail, train_mds, select,
+            edgeres, remat)
 
     @property
     def resampler(self) -> SpareNetRefine:
@@ -241,6 +305,9 @@ class SpareNetGenerator(nn.Module):
                      generator: torch.Generator | None = None) -> torch.Tensor:
         """partial [B, N_in, 3] -> the coarse cloud [B, num_points, 3]
         (``generator`` is unused: SpareNet's folding grid is fixed)."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return rematerialised(self.decoder,
+                                  rematerialised(self.encoder, partial))
         return self.decoder(self.encoder(partial))
 
     def forward(self, partial: torch.Tensor):

@@ -28,7 +28,8 @@ __all__ = ["graph_dot", "pairwise_sqdist_graph", "pairwise_sqdist_graph_seq",
            "graph_dot_seq", "sqnorm_fma", "sqdist_from", "serving_dot",
            "pairwise_sqdist_serving",
            "sqnorm_seq", "sqdist3", "sqnorm3",
-           "sqdist_pairs", "fma", "sqrt_ieee", "check_input", "is_cpu",
+           "sqdist_pairs", "fma", "fma_rn", "sqrt_ieee", "check_input",
+           "is_cpu",
            "slice_plan", "PLAN_KEYS"]
 
 # csrc/slices.cu:spn_slice_plan's fields
@@ -151,6 +152,25 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     computed in f64, where the product of two f32 is exact, and rounded to
     f32."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors rounded once, bit for bit CUDA's
+    __fmaf_rn: the product is exact in f64, the f64 sum is rounded to odd
+    (TwoSum gives its error), and a sum rounded to odd at 53 bits rounds
+    to 24 bits as the exact one does. ``fma`` rounds the f64 sum to
+    nearest first, which parts from __fmaf_rn by an ulp where that lands
+    on an f32 midpoint (about one sum in 2^29 where the addend dwarfs the
+    product); this one costs about four times as much."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf)
+                             .to(s.dtype))
+    return torch.where((e != 0) & even, toward, s).float()
 
 
 def sqdist_pairs(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,9 @@ rows. ``rerank_plain`` is that rule in plain PyTorch. The queries that fail
 the test take an exact-scan kernel and are counted on the card
 (``_lib.device_count("knn_flagged")``, ``"knn_packed_flagged"``).
 ``tensor_core_dots`` returns the main kernel's dots, held to
-``dot_bound`` on the card (the margin's premise). Above k = 32 (the largest
+``dot_bound`` on the card (the margin's premise); ``knn_seq_rows`` is the
+exact arm's own ranking at chosen query rows, which its output equals bit
+for bit. Above k = 32 (the largest
 shortlist the kernels are built for) every query takes an exact scan of all
 N candidates, keeping its k smallest keys in device memory; those queries
 are not counted as flagged.
@@ -37,14 +39,14 @@ from __future__ import annotations
 import torch
 
 from . import _lib
-from .common import (check_input, graph_dot_seq, is_cpu,
+from .common import (_split_bf16, check_input, fma_rn, graph_dot_seq, is_cpu,
                      pairwise_sqdist_graph, pairwise_sqdist_serving,
                      serving_dot, sqdist_from, sqnorm_fma, sqnorm_seq)
 
 __all__ = ["knn_idx", "knn_plain", "knn_packed_plain", "smallest_k",
            "packed_bits", "packed_applies", "margin", "rerank_plain",
            "duplicate_reps", "shortlist_len", "tensor_core_dots", "dot_bound",
-           "tensor_core_error"]
+           "tensor_core_error", "knn_seq_rows"]
 
 # the reference's one-chunk ceiling: its [C, N] operand must fit VMEM
 _ONECHUNK_MAX_ELEMS = 1024 * 8192
@@ -277,3 +279,24 @@ def tensor_core_error(x: torch.Tensor, packed: bool) -> tuple[float, float]:
     return (worst((dot_mma - dot).abs(), dot_bound(x, packed)[..., None]),
             worst((sqdist_from(sq, dot_mma) - sqdist_from(sq, dot)).abs(),
                   margin(x, packed)[..., None]))
+
+
+def knn_seq_rows(x: torch.Tensor, rows: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact arm's own ranking at the query rows ``rows`` of x [B, N,
+    C]: the k smallest (d, index) keys over all N rows, d in its fixed
+    order (``common.pairwise_sqdist_graph_seq``: norms and dots as fma
+    chains in channel order), every fma rounded once (``common.fma_rn``).
+    [B, len(rows), k] int64. Where |x|^2 dwarfs the distances (a feature
+    shared by every row), rounding ranks the neighbours, and a comparison
+    with the plain version's ranking can only bound the distance gaps;
+    this one is exact."""
+    xh, xl = _split_bf16(x)
+    sq = x.new_zeros(x.shape[:2])
+    dot = x.new_zeros(x.shape[0], len(rows), x.shape[1])
+    for c in range(x.shape[2]):
+        sq = fma_rn(x[..., c], x[..., c], sq)
+        qh, ql = xh[:, rows, c, None], xl[:, rows, c, None]
+        yh, yl = xh[:, None, :, c], xl[:, None, :, c]
+        dot = fma_rn(ql, yh, fma_rn(qh, yl, fma_rn(qh, yh, dot)))
+    d = ((sq[:, rows, None] + sq[:, None, :]) - 2.0 * dot).clamp_min(0.0)
+    return smallest_k(d, k).long()

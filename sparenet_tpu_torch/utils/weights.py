@@ -8,8 +8,11 @@ generator variables (SpareNetGenerator, AtlasNet, MSN or GRNet) as a nested
 dict of numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns a
 state_dict in the original reference's layout of that model, which the
 port's model takes whole with ``load_state_dict(strict=True)``. The rule
-tables are this module's own copies, SpareNet's for the ported
-configuration (``use_adain="share"``, ``encode="Residualnet"``).
+tables are this module's own copies, SpareNet's for every configuration
+(``use_adain`` "share", "no_share" or "no_use"; ``encode`` "Residualnet"
+or "Pointfeat"), and two the JAX exporter lacks: EdgeRes
+(``edgeres_rules``) and the SIREN GridDecoder (``sine_decoder_rules``),
+under the reference's module names.
 
 ``reference_state_dict(model)`` goes the other way for the port's own
 generators: the state_dict in that same reference layout (the port keeps
@@ -29,8 +32,9 @@ import numpy as np
 import torch
 
 __all__ = ["netG_rules", "atlasnet_rules", "msn_rules", "grnet_rules",
-           "state_dict_from_jax", "reference_state_dict",
-           "disc_state_dict_from_jax"]
+           "edgeres_rules", "sine_decoder_rules", "state_dict_from_jax",
+           "module_state_dict_from_jax", "reference_state_dict",
+           "disc_state_dict_from_jax", "fpd_state_dict_from_jax"]
 
 _DEC_BOTTLENECK = 1026
 _GRNET_BOTTLENECK_CH = 256  # GRNet's conv4 output channels
@@ -103,28 +107,67 @@ class _Rules:
         self.dense(fpath + ("Linear_1",), tkey + ".fc.2", stacked, bias=False)
 
 
-def netG_rules(use_selayer: bool = True) -> _Rules:
-    """The SpareNetGenerator key mapping (share / Residualnet)."""
+def netG_rules(use_adain: str = "share", encode: str = "Residualnet",
+               use_selayer: bool = True, edgeres: bool = False) -> _Rules:
+    """The SpareNetGenerator key mapping of one configuration (the JAX
+    exporter's table: both encoders, the three decoders), plus the EdgeRes
+    refine (``edgeres``), which the JAX exporter has no rule for."""
     r = _Rules()
-    f = ("encoder", "EdgeConvResFeat_0")
     t = "encoder.feat_extractor"
-    for i in range(4):
-        r.dense(f + (f"EdgeConv1x1_{i}",), f"{t}.conv{i + 1}", bias=False,
-                kind="conv2d_w")
-        r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
+    if encode == "Residualnet":
+        f = ("encoder", "EdgeConvResFeat_0")
+        for i in range(4):
+            r.dense(f + (f"EdgeConv1x1_{i}",), f"{t}.conv{i + 1}", bias=False,
+                    kind="conv2d_w")
+            r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
+            if use_selayer:
+                r.se(f + (f"SELayer_{i}",), f"{t}.se{i + 1}")
+        for i in range(3):
+            r.dense(f + (f"Conv1d_{i}",), f"{t}.resconv{i + 1}", bias=False,
+                    kind="conv1d_w")
+        r.dense(f + ("Conv1d_3",), f"{t}.conv5", bias=False, kind="conv1d_w")
+        r.bn(f + ("BatchNorm_4",), f"{t}.bn5")
+    elif encode == "Pointfeat":
+        f = ("encoder", "PointNetfeat_0")
+        for i in range(3):
+            r.dense(f + (f"Conv1d_{i}",), f"{t}.conv{i + 1}", kind="conv1d_w")
+            r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
         if use_selayer:
-            r.se(f + (f"SELayer_{i}",), f"{t}.se{i + 1}")
-    for i in range(3):
-        r.dense(f + (f"Conv1d_{i}",), f"{t}.resconv{i + 1}", bias=False,
-                kind="conv1d_w")
-    r.dense(f + ("Conv1d_3",), f"{t}.conv5", bias=False, kind="conv1d_w")
-    r.bn(f + ("BatchNorm_4",), f"{t}.bn5")
+            for i in range(2):
+                r.se(f + (f"SELayer_{i}",), f"{t}.se{i + 1}")
+    else:
+        raise ValueError(f"unknown encode {encode!r}")
     r.dense(("encoder", "Linear_0"), "encoder.linear")
     r.bn(("encoder", "BatchNorm_0"), "encoder.bn")
 
-    r.dense(("decoder", "Linear_0"), "decoder.mlp.0")
-    r.dense(("decoder", "Linear_1"), "decoder.mlp.2")
-    froot, troot = ("decoder", "VmapGridDecoder_0"), "decoder.decoder.{p}.dec"
+    if use_adain == "share":
+        r.dense(("decoder", "Linear_0"), "decoder.mlp.0")
+        r.dense(("decoder", "Linear_1"), "decoder.mlp.2")
+        _grid_decoder_rules(r, ("decoder", "VmapGridDecoder_0"),
+                            "decoder.decoder.{p}.dec", use_selayer)
+    elif use_adain == "no_share":
+        f = ("decoder", "Vmap_AdaInPointGenCon_0")
+        r.dense(f + ("Linear_0",), "decoder.decoder.{p}.mlp.0", True)
+        r.dense(f + ("Linear_1",), "decoder.decoder.{p}.mlp.2", True)
+        _grid_decoder_rules(r, f + ("GridDecoder_0",),
+                            "decoder.decoder.{p}.dec", use_selayer)
+    elif use_adain == "no_use":
+        _point_gen_con_rules(r, ("decoder", "VmapPointGenCon_0"),
+                             "decoder.decoder.{p}", use_selayer)
+    else:
+        raise ValueError(f"unknown use_adain {use_adain!r}")
+
+    if edgeres:
+        edgeres_rules(("refine", "EdgeRes_0"), "refine.residual", use_selayer,
+                      r)
+    else:
+        _pointnet_res_rules(r, ("refine", "PointNetRes_0"), "refine.residual",
+                            use_selayer)
+    return r
+
+
+def _grid_decoder_rules(r: _Rules, froot, troot, use_selayer: bool) -> None:
+    """GridDecoder (non-SIREN), stacked over the primitives."""
     for i in range(4):
         r.dense(froot + (f"Conv1d_{i}",), f"{troot}.conv{i + 1}", True,
                 kind="conv1d_w")
@@ -133,8 +176,54 @@ def netG_rules(use_selayer: bool = True) -> _Rules:
         if use_selayer:
             r.se(froot + (f"SELayer_{i}",), f"{troot}.se{i + 1}", True)
 
-    _pointnet_res_rules(r, ("refine", "PointNetRes_0"), "refine.residual",
-                        use_selayer)
+
+def _point_gen_con_rules(r: _Rules, froot, troot, use_selayer: bool) -> None:
+    """PointGenCon, stacked over the primitives."""
+    for i in range(4):
+        r.dense(froot + (f"Conv1d_{i}",), f"{troot}.conv{i + 1}", True,
+                kind="conv1d_w")
+    for i in range(3):
+        r.bn(froot + (f"BatchNorm_{i}",), f"{troot}.bn{i + 1}", True)
+        if use_selayer:
+            r.se(froot + (f"SELayer_{i}",), f"{troot}.se{i + 1}", True)
+
+
+def _prefix(troot: str) -> str:
+    return troot + "." if troot else ""
+
+
+def edgeres_rules(froot=("refine", "EdgeRes_0"),
+                  troot: str = "refine.residual", use_selayer: bool = True,
+                  r: _Rules | None = None) -> _Rules:
+    """EdgeRes (no JAX exporter rule): the JAX module's Conv2d1x1_0-6,
+    BatchNorm_0-5 and SELayer_0-4 as the reference's conv1-7 (1x1 Conv2d
+    without bias), bn1-6 and se1, se2, se4, se5, se6 under ``troot``
+    (added to ``r`` where given)."""
+    r = _Rules() if r is None else r
+    t = _prefix(troot)
+    for i in range(7):
+        r.dense(froot + (f"Conv2d1x1_{i}",), f"{t}conv{i + 1}", bias=False,
+                kind="conv2d_w")
+    for i in range(6):
+        r.bn(froot + (f"BatchNorm_{i}",), f"{t}bn{i + 1}")
+    if use_selayer:
+        for j, i in enumerate((1, 2, 4, 5, 6)):
+            r.se(froot + (f"SELayer_{j}",), f"{t}se{i}")
+    return r
+
+
+def sine_decoder_rules(froot=(), troot: str = "{p}.dec",
+                       stacked: bool = False) -> _Rules:
+    """The SIREN GridDecoder (no JAX exporter rule): the JAX module's
+    Dense_0-3 as the reference's SineLayer products linear1-4.linear and
+    Dense_4 as linear5 (1x1 Conv1d weights) under ``troot``; ``stacked``
+    when the JAX parameters carry a leading primitive axis."""
+    r = _Rules()
+    t = _prefix(troot)
+    for i in range(4):
+        r.dense(froot + (f"Dense_{i}",), f"{t}linear{i + 1}.linear", stacked,
+                kind="conv1d_w")
+    r.dense(froot + ("Dense_4",), f"{t}linear5", stacked, kind="conv1d_w")
     return r
 
 
@@ -160,12 +249,7 @@ def atlasnet_rules() -> _Rules:
         r.bn(f + (f"BatchNorm_{i}",), f"{t}.bn{i + 1}")
     r.dense(("PointEncoder_0", "Linear_0"), "encoder.linear")
     r.bn(("PointEncoder_0", "BatchNorm_0"), "encoder.bn")
-    for i in range(4):
-        r.dense(("VmapPointGenCon_0", f"Conv1d_{i}"), f"decoder.{{p}}.conv{i + 1}",
-                True, kind="conv1d_w")
-    for i in range(3):
-        r.bn(("VmapPointGenCon_0", f"BatchNorm_{i}"), f"decoder.{{p}}.bn{i + 1}",
-             True)
+    _point_gen_con_rules(r, ("VmapPointGenCon_0",), "decoder.{p}", False)
     return r
 
 
@@ -209,30 +293,22 @@ _SPARENET, _ATLASNET, _MSN, _GRNET = "SpareNet", "AtlasNet", "MSN", "GRNet"
 
 
 def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
-                        n_primitives: int = 32,
-                        model_type: str = _SPARENET) -> dict[str, torch.Tensor]:
+                        n_primitives: int = 32, model_type: str = _SPARENET,
+                        use_adain: str = "share", encode: str = "Residualnet",
+                        edgeres: bool = False) -> dict[str, torch.Tensor]:
     """JAX generator variables of ``model_type`` ("SpareNet", "AtlasNet",
-    "MSN" or "GRNet"; ``use_selayer`` is SpareNet's) -> reference-layout
-    state_dict of CPU float32 tensors, including the reference's
-    registered-but-unused tensors at their defaults (every BatchNorm's
-    num_batches_tracked; for SpareNet the top-level conv1,
-    refine.residual.bn7 and the AdaIN dummy running stats; for MSN
-    res.bn7)."""
-    rules = {_SPARENET: lambda: netG_rules(use_selayer),
+    "MSN" or "GRNet"; ``use_selayer``, ``use_adain``, ``encode`` and
+    ``edgeres`` are SpareNet's) -> reference-layout state_dict of CPU
+    float32 tensors, including the reference's registered-but-unused
+    tensors at their defaults (every BatchNorm's num_batches_tracked; for
+    SpareNet the top-level conv1, PointNetRes's bn7 and, for the AdaIN
+    decoders, AdaIN's dummy running stats; for MSN res.bn7)."""
+    rules = {_SPARENET: lambda: netG_rules(use_adain, encode, use_selayer,
+                                           edgeres),
              _ATLASNET: atlasnet_rules, _MSN: msn_rules, _GRNET: grnet_rules}
     if model_type not in rules:
         raise ValueError(f"state_dict_from_jax: no rules for {model_type!r}")
-    sd: dict[str, np.ndarray] = {}
-    bn_prefixes: list[str] = []
-    for col, fpath, tkey, kind, stacked in rules[model_type]().entries:
-        v = np.asarray(_get(variables[col], fpath), np.float32)
-        if stacked:
-            for p in range(n_primitives):
-                sd[tkey.format(p=p)] = _to_torch(kind, v[p])
-        else:
-            sd[tkey] = _to_torch(kind, v)
-        if tkey.endswith(".running_var"):
-            bn_prefixes.append(tkey[: -len(".running_var")])
+    sd, bn_prefixes = _convert(variables, rules[model_type](), n_primitives)
 
     def dummy_bn(prefix: str, nf: int, affine: bool = True):
         if affine:
@@ -247,17 +323,51 @@ def state_dict_from_jax(variables: dict[str, Any], *, use_selayer: bool = True,
     if model_type == _SPARENET:
         sd["conv1.weight"] = np.zeros((64, 3, 1), np.float32)
         sd["conv1.bias"] = np.zeros(64, np.float32)
-        dummy_bn("refine.residual.bn7", 3)
-        bn_prefixes.append("refine.residual.bn7")
+        if not edgeres:
+            dummy_bn("refine.residual.bn7", 3)
+            bn_prefixes.append("refine.residual.bn7")
         b = _DEC_BOTTLENECK
-        for p in range(n_primitives):
+        for p in range(n_primitives if use_adain != "no_use" else 0):
             for i, nf in enumerate((b, b // 2, b // 4)):
                 dummy_bn(f"decoder.decoder.{p}.dec.adain{i + 1}", nf,
                          affine=False)
+    return _finish(sd, bn_prefixes, n_primitives)
+
+
+def _convert(variables: dict, rules: _Rules, n_primitives: int):
+    """(state_dict of numpy arrays, the BatchNorm prefixes) by ``rules``."""
+    sd: dict[str, np.ndarray] = {}
+    bn_prefixes: list[str] = []
+    for col, fpath, tkey, kind, stacked in rules.entries:
+        v = np.asarray(_get(variables[col], fpath), np.float32)
+        if stacked:
+            for p in range(n_primitives):
+                sd[tkey.format(p=p)] = _to_torch(kind, v[p])
+        else:
+            sd[tkey] = _to_torch(kind, v)
+        if tkey.endswith(".running_var"):
+            bn_prefixes.append(tkey[: -len(".running_var")])
+    return sd, bn_prefixes
+
+
+def _finish(sd: dict, bn_prefixes: list, n_primitives: int) -> dict:
+    """Add each BatchNorm's zero step count; numpy -> CPU tensors."""
     for prefix in bn_prefixes:
         for key in {prefix.format(p=p) for p in range(n_primitives)}:
             sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def module_state_dict_from_jax(variables: dict[str, Any], rules: _Rules,
+                               n_primitives: int = 1
+                               ) -> dict[str, torch.Tensor]:
+    """JAX module variables -> the port module's state_dict by ``rules``
+    (``edgeres_rules((), "")`` for an ``EdgeRes``,
+    ``sine_decoder_rules()`` for a SIREN ``GridDecoderStack`` of
+    ``n_primitives``), with every BatchNorm's zero step count; a stack's
+    AdaIN dummy statistics are its own to add (``reference_state``)."""
+    sd, bn_prefixes = _convert(variables, rules, n_primitives)
+    return _finish(sd, bn_prefixes, n_primitives)
 
 
 def reference_state_dict(model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -324,3 +434,46 @@ def disc_state_dict_from_jax(params: dict, batch_stats: dict, spectral: dict,
             sd["embed.u"] = np.asarray(spectral["SNEmbed_0"]["u"])
     return {k: torch.from_numpy(np.array(v, dtype=v.dtype, order="C"))
             for k, v in sd.items()}
+
+
+def _fpd_layers():
+    """(flax path, reference name, kind, BatchNorm name or None) of the FPD
+    classifier's layers (the JAX package's load_torch_state, inverted)."""
+    stn, feat = "PointNetFeat_0/STN3d_0", "PointNetFeat_0"
+    out = []
+    for i, (name, kind) in enumerate((("conv1", "conv1d_w"), ("conv2", "conv1d_w"),
+                                      ("conv3", "conv1d_w"), ("fc1", "lin_w"),
+                                      ("fc2", "lin_w"))):
+        out.append((f"{stn}/Dense_{i}", f"feat.stn.{name}", kind,
+                    (f"{stn}/BatchNorm_{i}", f"feat.stn.bn{i + 1}")))
+    out.append((f"{stn}/Dense_5", "feat.stn.fc3", "lin_w", None))
+    for i in range(3):
+        out.append((f"{feat}/Dense_{i}", f"feat.conv{i + 1}", "conv1d_w",
+                    (f"{feat}/BatchNorm_{i}", f"feat.bn{i + 1}")))
+    for i in range(2):
+        out.append((f"Dense_{i}", f"fc{i + 1}", "lin_w",
+                    (f"BatchNorm_{i}", f"bn{i + 1}")))
+    out.append(("Dense_2", "fc3", "lin_w", None))
+    return out
+
+
+def fpd_state_dict_from_jax(flat: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's FPD classifier variables in its flax-flat npz
+    layout (``params/PointNetFeat_0/STN3d_0/Dense_0/kernel``, ...,
+    ``batch_stats/.../mean``; sparenet_tpu/data/fpd_cls_canonical.npz) -> a
+    state_dict in the reference's Frechet/pointnet.py names, which
+    ``frechet.PointNetCls`` loads with ``load_state_dict(strict=True)``:
+    Conv1d weights [out, in, 1], Linear [out, in], every BatchNorm's
+    weight, bias, running statistics and a zero step count."""
+    sd: dict[str, np.ndarray] = {}
+    for fpath, name, kind, bn in _fpd_layers():
+        sd[f"{name}.weight"] = _to_torch(kind, np.asarray(flat[f"params/{fpath}/kernel"]))
+        sd[f"{name}.bias"] = np.asarray(flat[f"params/{fpath}/bias"])
+        if bn is not None:
+            bpath, bname = bn
+            sd[f"{bname}.weight"] = np.asarray(flat[f"params/{bpath}/scale"])
+            sd[f"{bname}.bias"] = np.asarray(flat[f"params/{bpath}/bias"])
+            sd[f"{bname}.running_mean"] = np.asarray(flat[f"batch_stats/{bpath}/mean"])
+            sd[f"{bname}.running_var"] = np.asarray(flat[f"batch_stats/{bpath}/var"])
+            sd[f"{bname}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}

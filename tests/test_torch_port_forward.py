@@ -220,7 +220,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'runners.base', 'runners.sparenet', 'test', 'train',"
         " 'utils.profiler', 'models.msn', 'models.atlasnet', 'runners.msn',"
         " 'runners.atlasnet', 'models.grnet', 'runners.grnet',"
-        " 'ops.gridding', 'ops.cubic_feature_sampling', 'ops.gridding_loss'):\n"
+        " 'ops.gridding', 'ops.cubic_feature_sampling', 'ops.gridding_loss',"
+        " 'frechet', 'frechet.fpd', 'frechet.pointnet',"
+        " 'frechet.train_classifier', 'test_fpd'):\n"
         "    assert 'sparenet_tpu_torch.' + m in sys.modules, m\n"
         "bad = [n for n in sys.modules if n in ('jax', 'flax', 'sparenet_tpu')"
         " or n.startswith(('jax.', 'flax.', 'sparenet_tpu.'))]\n"

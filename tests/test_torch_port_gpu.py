@@ -66,6 +66,25 @@ def test_knn_kernel_matches_plain(cuda, c, n):
     _near_ties_only(x, knn.knn_idx(x, 8), knn.knn_plain(x, 8))
 
 
+@pytest.mark.parametrize("c", [4, 64, 128, 1088, 512, 256])
+def test_knn_kernel_at_edgeres_shapes(cuda, c):
+    """EdgeRes's graphs: N = 16384 points at its stage input widths (4,
+    64, 128, 1088 = the global feature and the point features, 512, 256;
+    k = 8): within the near-tie rule of the plain version, and equal to the
+    kernel's own ranking (``knn.knn_seq_rows``) at 64 query rows, where the
+    global feature lets rounding rank the neighbours."""
+    x = torch.randn(1, 16384, c, generator=_gen())
+    if c == 4:
+        x[..., 3] = (x[..., 3] > 0.5).float()        # the flag channel
+    if c == 1088:
+        x[..., :1024] = x[:, :1, :1024]              # one global feature
+    x = x.to(cuda)
+    got = knn.knn_idx(x, 8)
+    _near_ties_only(x, got, knn.knn_plain(x, 8))
+    rows = torch.arange(0, 16384, 256, device=cuda)
+    assert torch.equal(got[:, rows].long(), knn.knn_seq_rows(x, rows, 8))
+
+
 def test_knn_kernel_lowest_index_on_ties(cuda):
     base = torch.rand(1, 40, 3, generator=_gen())
     x = torch.cat([base, base, base[:, :10]], 1).to(cuda)
